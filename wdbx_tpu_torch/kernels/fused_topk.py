@@ -1,0 +1,303 @@
+"""Fused score + top-k over a device slab: the CUDA kernels' wrappers
+and their plain PyTorch version.
+
+Port of ``wdbx_tpu/kernels/fused_topk.py`` (its Pallas bodies ``_kernel``
+and ``_kernel_int8``). The kernels are hand-written CUDA C++ for Hopper
+in ``csrc/fused_topk.cu``; that file's header gives the bound on the
+card and the design. In short: stage 1 (``fused_topk_partial``) streams
+row chunks in parallel CTAs and keeps each query's k best per chunk,
+stage 2 (``topk_merge_partials``) merges the chunks into the sorted
+``(B, k)`` result.
+
+On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
+tensor they run the plain version (``fused_topk_plain``: matmul, scale,
+mask, ``torch.topk``), which the CPU tests use. There is no fallback
+from the kernel to the plain version.
+
+Differences from the JAX kernel, all deliberate:
+  * selection is exact: ``group`` (the grouped approximate pre-reduction)
+    and ``block_n`` (the VMEM tile) are accepted and ignored;
+  * k is capped at ``K_MAX`` (the JAX kernel has no cap);
+  * indices come back int64 with -1 (and scores -inf) where fewer than
+    k rows are valid; JAX leaves the index of an invalid rank undefined.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from wdbx_tpu_torch.ops.exact_search import f32_scores
+from wdbx_tpu_torch.ops.normalize import l2_normalize
+
+#: deepest k the kernels serve (filtered search asks max(4*limit, 50),
+#: the int4 rerank 20*limit)
+K_MAX = 1024
+#: CUDA kernel code of each slab type
+SLAB_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "int4": 3}
+_ROWS = 128  # rows_per_chunk granularity of the CUDA kernel (kRowsM)
+
+
+def slab_key(db: torch.Tensor, int4: bool = False) -> str:
+    if int4:
+        return "int4"
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+             torch.int8: "int8"}
+    if db.dtype not in names:
+        raise ValueError(f"unsupported slab dtype {db.dtype}")
+    return names[db.dtype]
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= K_MAX:
+        raise ValueError(
+            f"fused top-k serves 1 <= k <= K_MAX={K_MAX}, got k={k}"
+        )
+
+
+def _cap(k: int) -> int:
+    """Per-query candidate buffer: k survivors plus room for one tile's
+    offers (the kernels need cap >= k + 32)."""
+    return k + 64
+
+
+def plan(n: int, b: int, k: int, sm_count: int,
+         partial_smem) -> tuple[int, int, int]:
+    """Stage-1 tiling ``(qt, chunks, rows_per_chunk)``: 64 queries per
+    CTA when their candidate buffers fit in shared memory beside the
+    tiles (k up to ~140), else 16; enough row chunks for ~4 CTAs per SM.
+    CTAs of one chunk are adjacent in the grid, so the query tiles of a
+    large batch read each chunk while it is in L2."""
+    cap = _cap(k)
+    qt = 64 if partial_smem(64, cap) <= 160 * 1024 else 16
+    if partial_smem(qt, cap) > 227 * 1024:
+        raise ValueError(f"k={k} needs more shared memory than a CTA has")
+    qtiles = -(-b // qt)
+    max_chunks = min(-(-n // _ROWS), 65535)
+    chunks = max(1, min(max_chunks, -(-4 * sm_count // qtiles)))
+    rows = -(-n // chunks)
+    rows = -(-rows // _ROWS) * _ROWS
+    return qt, -(-n // rows), rows
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fused_topk_partial(
+    db: torch.Tensor,
+    queries: torch.Tensor,
+    valid: torch.Tensor,
+    k: int,
+    scales: torch.Tensor | None = None,
+    int4: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1 on the card: ``(B, chunks, k)`` float32 scores and int32
+    row indices, each chunk's k best per query (unsorted; -inf / -1
+    pads). ``queries`` must already have the kernel's type: float32 for
+    a float32 slab, bf16 otherwise."""
+    from wdbx_tpu_torch.kernels import build
+
+    key = slab_key(db, int4)
+    _check_k(k)
+    n, b, d = db.shape[0], queries.shape[0], queries.shape[1]
+    want_q = torch.float32 if key == "float32" else torch.bfloat16
+    if not (db.is_cuda and queries.is_cuda and valid.is_cuda):
+        raise ValueError("fused_topk_partial takes CUDA tensors")
+    if queries.dtype != want_q or valid.dtype != torch.bool:
+        raise ValueError(
+            f"{key} slab needs {want_q} queries and a bool valid mask"
+        )
+    if db.shape[1] != (d // 2 if int4 else d) or valid.shape != (n,):
+        raise ValueError(f"shape mismatch: db {tuple(db.shape)}, "
+                         f"queries {tuple(queries.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    if n >= 2**31:
+        raise ValueError("row indices are int32 in the kernel")
+    if key in ("int8", "int4"):
+        if scales is None or scales.dtype != torch.float32 or \
+                scales.shape != (n,) or not scales.is_cuda:
+            raise ValueError("int8/int4 slabs need (N,) float32 CUDA scales")
+        scales = scales.contiguous()
+    db, queries, valid = db.contiguous(), queries.contiguous(), valid.contiguous()
+    lib = build.load("fused_topk")
+    sm = torch.cuda.get_device_properties(db.device).multi_processor_count
+    qt, chunks, rows = plan(n, b, k, sm, lib.wdbx_fused_topk_partial_smem)
+    part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=db.device)
+    part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=db.device)
+    with torch.cuda.device(db.device):
+        rc = lib.wdbx_fused_topk_partial(
+            SLAB_CODES[key], qt, db.data_ptr(), queries.data_ptr(),
+            valid.data_ptr(), scales.data_ptr() if scales is not None else None,
+            n, d, b, k, _cap(k), rows, chunks,
+            part_v.data_ptr(), part_i.data_ptr(), _stream(db),
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_topk_partial[{key}] launch failed: "
+                           f"CUDA error {rc}")
+    fused_topk_partial.launches[key] += 1
+    return part_v, part_i
+
+
+fused_topk_partial.launches = {key: 0 for key in SLAB_CODES}
+
+
+def topk_merge_partials(
+    part_v: torch.Tensor, part_i: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 on the card: merge ``(B, chunks, k)`` partials into the
+    sorted ``(B, k)`` float32 scores and int64 indices."""
+    from wdbx_tpu_torch.kernels import build
+
+    _check_k(k)
+    if not (part_v.is_cuda and part_i.is_cuda):
+        raise ValueError("topk_merge_partials takes CUDA tensors")
+    if part_v.dtype != torch.float32 or part_i.dtype != torch.int32 or \
+            part_v.shape != part_i.shape or part_v.ndim != 3:
+        raise ValueError("partials must be matching (B, C, k) f32 / int32")
+    b = part_v.shape[0]
+    m = part_v.shape[1] * part_v.shape[2]
+    part_v, part_i = part_v.contiguous(), part_i.contiguous()
+    lib = build.load("fused_topk")
+    out_v = torch.empty((b, k), dtype=torch.float32, device=part_v.device)
+    out_i = torch.empty((b, k), dtype=torch.int64, device=part_v.device)
+    with torch.cuda.device(part_v.device):
+        rc = lib.wdbx_topk_merge_partials(
+            part_v.data_ptr(), part_i.data_ptr(), b, m, k, _cap(k),
+            out_v.data_ptr(), out_i.data_ptr(), _stream(part_v),
+        )
+    if rc != 0:
+        raise RuntimeError(f"topk_merge_partials launch failed: CUDA error {rc}")
+    topk_merge_partials.launches += 1
+    return out_v, out_i
+
+
+topk_merge_partials.launches = 0
+
+
+def reset_launches() -> None:
+    for key in fused_topk_partial.launches:
+        fused_topk_partial.launches[key] = 0
+    topk_merge_partials.launches = 0
+
+
+def merge_partials_plain(
+    part_v: torch.Tensor, part_i: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of stage 2 (a yardstick for the merge kernel)."""
+    b = part_v.shape[0]
+    v, pos = torch.topk(part_v.reshape(b, -1), k, dim=-1)
+    i = torch.gather(part_i.reshape(b, -1), -1, pos).to(torch.int64)
+    return v, torch.where(v == float("-inf"), -1, i)
+
+
+def fused_topk_plain(
+    db: torch.Tensor,
+    queries: torch.Tensor,
+    valid: torch.Tensor,
+    k: int,
+    scales: torch.Tensor | None = None,
+    int4: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernels' function, on the queries
+    as the kernel receives them: float32 products of the stored values
+    (exact for bf16 / int8 / int4 operands), times the row scale, masked
+    by ``valid``, then ``torch.topk``. Returns sorted ``(B, k)`` float32
+    scores and int64 indices with -inf / -1 past the valid count."""
+    from wdbx_tpu_torch.kernels.quant import unpack_int4
+
+    rows = unpack_int4(db) if int4 else db
+    s = f32_scores(queries.to(torch.float32), rows.to(torch.float32))
+    if scales is not None:
+        s = s * scales[None, :]
+    s = torch.where(valid[None, :], s, float("-inf"))
+    k_eff = min(k, s.shape[1])
+    v, i = torch.topk(s, k_eff, dim=-1)
+    if k_eff < k:
+        v = torch.nn.functional.pad(v, (0, k - k_eff), value=float("-inf"))
+        i = torch.nn.functional.pad(i, (0, k - k_eff), value=-1)
+    return v, torch.where(v == float("-inf"), -1, i.to(torch.int64))
+
+
+def _prep_queries(db, queries, scales, normalize):
+    """Query-side work of ``fused_topk_search`` (JAX :319-328), in
+    plain torch before the launch: optional l2-normalize, then bf16
+    against a quantized slab, the slab's type otherwise."""
+    if normalize:
+        queries = l2_normalize(queries)
+    if scales is not None:
+        return queries.to(torch.bfloat16)
+    return queries.to(db.dtype)
+
+
+def _search(db, queries, valid, k, scales, int4):
+    if db.is_cuda and queries.shape[0] == 0:  # nothing to launch
+        return (torch.empty((0, k), dtype=torch.float32, device=db.device),
+                torch.empty((0, k), dtype=torch.int64, device=db.device))
+    if db.is_cuda:
+        part_v, part_i = fused_topk_partial(
+            db, queries, valid, k, scales=scales, int4=int4
+        )
+        return topk_merge_partials(part_v, part_i, k)
+    return fused_topk_plain(db, queries, valid, k, scales=scales, int4=int4)
+
+
+def fused_topk_search(
+    db: torch.Tensor,
+    queries: torch.Tensor,
+    valid: torch.Tensor,
+    k: int = 10,
+    block_n: int | None = None,
+    scales: torch.Tensor | None = None,
+    group: int | None = None,
+    normalize: bool = False,
+    int4: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k inner products of ``queries`` (B, d) against ``db`` (N, d).
+
+    ``db`` is a float32 or bf16 slab, an int8 slab with per-row
+    ``scales``, or a packed ``(N, d/2)`` uint8 int4 slab with
+    ``int4=True`` and scales. ``valid`` (N,) bool masks rows. Returns
+    sorted ``(B, k)`` float32 scores and int64 row indices, -inf / -1
+    where fewer than k rows are valid. ``block_n`` and ``group`` are
+    accepted for the JAX signature and ignored: selection is exact.
+    """
+    del block_n, group
+    if int4 and scales is None:
+        raise ValueError("int4 slabs require per-row scales")
+    _check_k(k)
+    if scales is not None:
+        scales = scales.to(torch.float32)
+    q = _prep_queries(db, queries, scales, normalize)
+    return _search(db, q, valid.to(torch.bool), k, scales, int4)
+
+
+def fused_topk_search_batched(
+    db: torch.Tensor,
+    qstack: torch.Tensor,
+    valid: torch.Tensor,
+    k: int = 10,
+    block_n: int | None = None,
+    scales: torch.Tensor | None = None,
+    group: int | None = None,
+    normalize: bool = False,
+    int4: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_topk_search`` over a (NB, B, d) query stack. Queries are
+    independent, so on the card the stack runs as ONE launch pair over
+    NB*B queries; the plain version runs batch by batch (its score
+    matrix is (B, N)). Returns (NB, B, k) scores and indices."""
+    del block_n, group
+    if int4 and scales is None:
+        raise ValueError("int4 slabs require per-row scales")
+    _check_k(k)
+    nb, b, d = qstack.shape
+    if scales is not None:
+        scales = scales.to(torch.float32)
+    valid = valid.to(torch.bool)
+    q = _prep_queries(db, qstack.reshape(nb * b, d), scales, normalize)
+    if db.is_cuda:
+        v, i = _search(db, q, valid, k, scales, int4)
+        return v.reshape(nb, b, k), i.reshape(nb, b, k)
+    outs = [_search(db, qb, valid, k, scales, int4) for qb in q.split(b)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
