@@ -24,18 +24,45 @@ Phases (each prints JSON lines; any failure exits non-zero):
              kernels, the plain version and the library call; then an
              int8 facade search with the raw-store rerank (RAW_STORE=ram),
              whose recall@10 must reach 0.9938 too
+  clustered_kernels
+             the clustered block scan (K3 v2, K4 v1) against its plain
+             version: every slab type and query type, d=768, c in {256,
+             1024}, a block list with a dead suffix and an interior hole,
+             an all-dead list, ~10% invalid rows, k in {10, 128}, B in
+             {1, 128}
+  clustered  benchmarks/clustered_10m.py's point: 10,000,000 x 768 rows of
+             a 4096-component mixture, generated on the card chunk by
+             chunk, int8 ClusteredIVFIndex (nlist 4096) filled by
+             build_from; search_pipelined (NB=8, B=128) at nprobe 1 and 4,
+             k=50, v1 and int8 queries, every batch against the plain
+             version on the same block list; recall@10 against a float32
+             oracle streamed over the regenerated corpus, the x5 float32
+             rerank at nprobe 1 gated at 0.97; B=1 at nprobe 4 (narrow
+             blocks) and 1 (the ranges scan); stage 1 / stage 2 / call
+             times beside the bound from the batch's live blocks
+  clustered_facade
+             WDBX(INDEX_TYPE=ivf, IVF_NPROBE=2, int8, RAW_STORE=ram) at
+             1,048,576 x 384 (a 1024-component mixture):
+             vector_search_batch unfiltered and at 10% (pushdown) and 1%
+             (exact masked route) filter selectivity, and vector_search;
+             every kernel-path call of the index against the plain
+             version, recall@10 gated at 0.95, and the unfiltered batch's
+             block list must not cover every live block; then float32, bf16 and int4 clustered indexes (int4
+             also with int8 queries) through search_pipelined, timed
 Then a "kernels" line (launches on the driven paths, times, bounds) and,
 last, {"ok": true, "device": {...}}.
 
-Launch counts: every path (main, each pipelined slab, the int8 facade)
-runs with the kernels' counters set to 0 just before it and read just
-after; comparison and timing launches are never counted.
+Launch counts: every path (main, each pipelined slab, the int8 facade,
+each clustered path) runs with the kernels' counters set to 0 just
+before it and read just after; comparison and timing launches are never
+counted.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -59,6 +86,18 @@ REPLACES = {
     "int4": "wdbx_tpu/kernels/fused_topk.py:177",
 }
 SOURCE = "wdbx_tpu_torch/csrc/fused_topk.cu"
+# the block scan's peak by query type: float32 on the CUDA cores, bf16 and
+# int8 products on the tensor cores
+PEAK_QOPS_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+CLU_SOURCE = "wdbx_tpu_torch/csrc/clustered_scan.cu"
+CLU_REPLACES = {"v2": "wdbx_tpu/kernels/clustered_scan.py:107",
+                "v1": "wdbx_tpu/kernels/clustered_scan.py:50"}
+# recall@10 bars the clustered engine inherits from benchmarks/RESULTS.md:
+# 10M x 768 int8 after the x5 rerank at nprobe 1 (0.9859 on the JAX
+# package's own draw of the mixture; another generator here, hence the
+# margin), and the filtered / unfiltered serving bar
+RERANK_BAR = 0.97
+FACADE_BAR = 0.95
 
 
 def emit(obj) -> None:
@@ -238,12 +277,23 @@ def phase_kernels(n_rows, seed):
 
 
 def _counts():
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
     from wdbx_tpu_torch.kernels import fused_topk as tf
 
     c = {f"fused_topk_partial[{k}]": v
          for k, v in tf.fused_topk_partial.launches.items()}
     c["topk_merge_partials"] = tf.topk_merge_partials.launches
+    c.update({clu_name(k): v
+              for k, v in cs.clustered_block_partial.launches.items()})
     return c
+
+
+def _reset():
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    tf.reset_launches()
+    cs.reset_launches()
 
 
 def _data(n_rows, seed):
@@ -317,7 +367,6 @@ def phase_main(x, qs, truth, paths, tmp):
     import numpy as np
 
     from wdbx_tpu_torch import WDBX
-    from wdbx_tpu_torch.kernels import fused_topk as tf
 
     n_rows = len(x)
     db = WDBX(vector_dimension=384, enable_plugins=False,
@@ -328,7 +377,7 @@ def phase_main(x, qs, truth, paths, tmp):
     t0 = time.perf_counter()
     db.store.bulk_load([str(i) for i in range(n_rows)], x)
     load_s = time.perf_counter() - t0
-    tf.reset_launches()
+    _reset()
     t0 = time.perf_counter()
     hits = []
     for i in range(3):
@@ -382,7 +431,7 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
     for dtype in ("bfloat16", "int8", "int4", "float32"):
         index = FlatIndex(384, dtype=dtype, capacity=n_rows, device="cuda")
         index.add_batch(x_dev)
-        tf.reset_launches()
+        _reset()
         scores, slots = index.search_pipelined(qstack, k=k)
         paths[f"pipelined[{dtype}]"] = _counts()
         name = f"fused_topk_partial[{dtype}]"
@@ -467,7 +516,7 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
                       "INDEX_CAPACITY": n_rows, "RAW_STORE": "ram",
                       "VECTOR_STORE_AUTOSAVE_INTERVAL": 0})
     db.store.bulk_load([str(i) for i in range(n_rows)], x)
-    tf.reset_launches()
+    _reset()
     t0 = time.perf_counter()
     hits = db.vector_search_batch(qs[0], limit=10)
     wall = time.perf_counter() - t0
@@ -479,6 +528,575 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
     if rec < RECALL_BAR:
         fail(f"int8 + rerank recall@10 {rec} < {RECALL_BAR}")
     del db
+
+
+# -- the clustered engine (K3 / K4) -----------------------------------------
+
+
+def clu_name(key: str) -> str:
+    return f"clustered_block_partial.{key}"
+
+
+def block_rescorer(slab, qq, qs, scales, int4):
+    """``rescorer`` for the block scan's inputs: with int8 queries the
+    int32 product times the row scale, then times the query scale."""
+    import torch
+
+    base = rescorer(slab, qq, scales, int4)
+    if qq.dtype != torch.int8:
+        return base
+    qs = qs.reshape(-1)
+    return lambda qrow, pos: base(qrow, pos) * qs[qrow.to(qs.device)]
+
+
+def _mixture(n_comp, d, seed):
+    """A Gaussian mixture on the sphere (``n_comp`` unit centres, noise
+    0.67 / sqrt(d): within-cluster cosine about 0.83), generated on the
+    card: ``chunk(seed, m)`` gives m unit rows, the same for the same
+    seed on every call, so a corpus is regenerated instead of kept."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn((n_comp, d), generator=g, device="cuda")
+    centers /= centers.norm(dim=1, keepdim=True)
+    noise = 0.67 / math.sqrt(d)
+
+    def chunk(seed, m):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ids = torch.randint(0, n_comp, (m,), generator=g, device="cuda")
+        x = centers[ids] + noise * torch.randn((m, d), generator=g,
+                                               device="cuda")
+        return x / x.norm(dim=1, keepdim=True)
+
+    return chunk
+
+
+def _block_list(index, q, k, pad_b, valid, nprobe):
+    """The block list of the index's kernel path for ``q``: the
+    (normalized) queries, ``uniq`` / ``ok`` and the block rows c."""
+    from wdbx_tpu_torch.index.clustered import _kernelpath_list
+
+    if index._use_ranges(pad_b, nprobe) or not index._use_kernel(k):
+        fail(f"batch of {pad_b} at nprobe {nprobe}, k={k} does not take "
+             "the kernel path")
+    geom, c, m, lo, hi = index._geom(pad_b)
+    u = index._scan_u(pad_b, nprobe, geom)
+    qn, uniq, ok = _kernelpath_list(
+        index._slab, valid, index._centroids, lo, hi, q, nprobe, u, m, c,
+        index._precision, index.metric == "cosine", pad_b)
+    return qn, uniq, ok, c
+
+
+def _block_plain(index, q, k, pad_b, valid=None, nprobe=None):
+    """The index's kernel path with the kernel's plain version: the same
+    probes, block list and residual merge. Returns the (B, k) device
+    result, the rescorer of the kernel's inputs, and the live blocks."""
+    from wdbx_tpu_torch.index.ivf import _residual_merge
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels.quant import prep_query_block
+
+    nlist = int(index._centroids.shape[0])
+    nprobe = min(index.nprobe, nlist) if nprobe is None else nprobe
+    valid = index._valid if valid is None else valid
+    qn, uniq, ok, c = _block_list(index, q, k, pad_b, valid, nprobe)
+    scales = index._scales if index._is_quantized else None
+    qprec = (getattr(index, "kernel_qprec", "bf16")
+             if index._kernel_gen() == "v2" else "bf16")
+    v, p = cs.clustered_block_topk_plain(
+        index._slab, valid, scales, uniq, ok, qn, k, c,
+        int4=index._is_int4, qprec=qprec)
+    v, p = _residual_merge(
+        index._slab, valid, index._residual_tensor(), index._scales, v, p,
+        qn, k=k, precision=index._precision, int8=index._is_int8,
+        int4=index._is_int4)
+    qq, qs, _ = prep_query_block(qn, index._slab.dtype, scales is not None,
+                                 qprec)
+    return ((v, p), block_rescorer(index._slab, qq, qs, scales,
+                                   index._is_int4), int(ok.sum()))
+
+
+def check_pipelined(name, index, qstack, k, out) -> tuple[float, int]:
+    """Every batch of a ``search_pipelined(..., materialize=False)``
+    result (positions) against the plain version on the same block
+    list. Returns the largest score difference and the most live
+    blocks of a batch."""
+    scores, pos = out
+    nb, b = qstack.shape[0], qstack.shape[1]
+    if scores.shape != (nb, b, k) or pos.shape != (nb, b, k):
+        fail(f"{name}: result shape {tuple(scores.shape)}")
+    err, live = 0.0, 0
+    for i in range(nb):
+        ref, rescore, n_live = _block_plain(index, qstack[i], k, b)
+        err = max(err, check_topk(f"{name}/batch{i}", ref,
+                                  (scores[i], pos[i]), rescore))
+        live = max(live, n_live)
+    return err, live
+
+
+def _block_bound_ms(slab_dtype, qtype, live, c, d, b, k, u):
+    row = {"float32": 4 * d, "bfloat16": 2 * d, "int8": d, "int4": d // 2}
+    quant = slab_dtype in ("int8", "int4")
+    nbytes = live * c * (row[slab_dtype] + 1 + (4 if quant else 0))
+    nbytes += 8 * u + b * d * {"float32": 4, "bfloat16": 2, "int8": 1}[qtype]
+    nbytes += b * k * 8
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2.0 * b * live * c * d / PEAK_QOPS_S[qtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_block_scan(index, q, k, nprobe, gen, qprec):
+    """One batch at the kernels' inputs on ``index``'s state: stage 1,
+    stage 2, the plain version and the library yardstick (gather the
+    live blocks, torch.matmul, torch.topk), beside the bound from the
+    batch's live-block count."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+    from wdbx_tpu_torch.kernels.quant import prep_query_block
+
+    b, d = q.shape
+    slab, valid = index._slab, index._valid
+    scales = index._scales if index._is_quantized else None
+    int4 = index._is_int4
+    qn, uniq, ok, c = _block_list(index, q, k, b, valid, nprobe)
+    qq, qs, _ = prep_query_block(qn, slab.dtype, scales is not None, qprec)
+
+    def stage1():
+        return cs.clustered_block_partial(slab, valid, scales, uniq, ok, qq,
+                                          qs, k, c, int4=int4, gen=gen)
+
+    ms = cuda_ms(stage1)
+    pv, pi = stage1()
+    merge_ms = cuda_ms(lambda: tf.topk_merge_partials(pv, pi, k))
+    plain_ms = cuda_ms(lambda: cs.clustered_block_topk_plain(
+        slab, valid, scales, uniq, ok, qn, k, c, int4=int4, qprec=qprec),
+        reps=3, warm=1)
+    ids = uniq[ok]
+    pos = (ids[:, None] * c + torch.arange(c, device="cuda")).reshape(-1)
+    library_ms = None  # no PyTorch call takes packed int4 rows
+    if not int4:
+        lq = qn.to(torch.bfloat16 if scales is not None else slab.dtype)
+
+        def library():
+            rows = slab[pos].to(lq.dtype)
+            s = torch.matmul(lq, rows.T)
+            if scales is not None:
+                s = s * scales[pos]
+            return torch.topk(s.masked_fill(~valid[pos], float("-inf")), k)
+
+        library_ms = cuda_ms(library, reps=3, warm=1)
+    live = int(ok.sum())
+    skey = "int4" if int4 else str(slab.dtype).replace("torch.", "")
+    qtype = str(qq.dtype).replace("torch.", "")
+    bound, by = _block_bound_ms(skey, qtype, live, c, d, b, k, len(uniq))
+    return {"ms": ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "live_blocks": live, "u": int(len(uniq)), "c": c}
+
+
+def phase_clustered_kernels(seed, errs):
+    """K3 / K4 against their plain version on the card: every slab type
+    and query type of both generations, d=768, c in {256, 1024}, a block
+    list with a dead suffix and an interior hole, an all-dead list, ~10%
+    invalid rows, k in {10, 128}, B in {1, 128}."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels.quant import prep_query_block
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cap, d = 65536, 768
+    x = torch.randn((cap, d), generator=g, device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    valid = torch.rand((cap,), generator=g, device="cuda") > 0.1
+    q_all = torch.randn((128, d), generator=g, device="cuda")
+    slabs = {dt: _slab(dt, x) for dt in ("float32", "bfloat16", "int8",
+                                         "int4")}
+    n_cases = 0
+    for c in (256, 1024):
+        nblocks = cap // c
+        uniq = torch.randperm(nblocks, generator=g, device="cuda")[:24]
+        ok = torch.zeros(24, dtype=torch.bool, device="cuda")
+        ok[:18] = True
+        ok[5] = False  # interior hole; entries 18.. are the dead suffix
+        for gen, sk, qk in cs.MODES:
+            slab, scales, int4 = slabs[sk]
+            qprec = "int8" if qk == "int8" else "bf16"
+            wrapper = (cs.clustered_block_topk_v2 if gen == "v2"
+                       else cs.clustered_block_topk)
+            lists = [("list", uniq, ok)]
+            if c == 1024:
+                lists.append(("all_dead", uniq, torch.zeros_like(ok)))
+            for b in (1, 128):
+                q = q_all[:b]
+                qq, qs, _ = prep_query_block(q, slab.dtype,
+                                             scales is not None, qprec)
+                rescore = block_rescorer(slab, qq, qs, scales, int4)
+                for k in (10, 128):
+                    for case, u_, ok_ in lists:
+                        kw = dict(int4=int4, qprec=qprec) if gen == "v2" \
+                            else {}
+                        got = wrapper(slab, valid, scales, u_, ok_, q, k=k,
+                                      c=c, **kw)
+                        ref = cs.clustered_block_topk_plain(
+                            slab, valid, scales, u_, ok_, q, k, c,
+                            int4=int4, qprec=qprec)
+                        torch.cuda.synchronize()
+                        key = clu_name(cs.mode_key(gen, sk, qk))
+                        name = f"{key}/c{c}_b{b}_k{k}/{case}"
+                        err = check_topk(name, ref, got, rescore)
+                        if case == "all_dead" and not torch.isneginf(
+                                got[0]).all():
+                            fail(f"{name}: a dead list returned rows")
+                        errs[key] = max(errs.get(key, 0.0), err)
+                        n_cases += 1
+    emit({"phase": "clustered_kernels", "cases": n_cases, "cap": cap,
+          "d": d, "tol": ATOL,
+          "max_abs_err": {k: v for k, v in errs.items()
+                          if k.startswith("clustered")}})
+    del slabs, x, valid
+    torch.cuda.empty_cache()
+
+
+def _stream_truth(chunks, q, k, cand_src=None):
+    """Float32 top-k source rows of ``q`` over the regenerated corpus
+    (torch.matmul with TF32 off, a top-k merge per chunk), and the exact
+    scores of the candidate source rows ``cand_src`` (Q, F), gathered in
+    the same pass. A yardstick, never on the port's path."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nq = q.shape[0]
+    best_v = torch.full((nq, k), float("-inf"), device="cuda")
+    best_i = torch.full((nq, k), -1, dtype=torch.int64, device="cuda")
+    exact = (torch.full(cand_src.shape, float("-inf"), device="cuda")
+             if cand_src is not None else None)
+    lo = 0
+    for x in chunks():
+        m = x.shape[0]
+        v, i = torch.topk(q @ x.T, k, dim=1)
+        v = torch.cat([best_v, v], dim=1)
+        i = torch.cat([best_i, i + lo], dim=1)
+        best_v, sel = torch.topk(v, k, dim=1)
+        best_i = torch.gather(i, 1, sel)
+        if cand_src is not None:
+            inside = (cand_src >= lo) & (cand_src < lo + m)
+            rows = x[(cand_src - lo).clamp(0, m - 1)]
+            exact = torch.where(inside, (rows * q[:, None, :]).sum(-1), exact)
+        lo += m
+    return best_i, exact
+
+
+def _slot_recall(got_slots, truth_slots) -> float:
+    hit = sum(len(set(a.tolist()) & set(t.tolist()))
+              for a, t in zip(got_slots, truth_slots))
+    return float(hit / truth_slots.numel())
+
+
+def phase_clustered(seed, paths, timings, errs):
+    """The 10M x 768 int8 clustered index of benchmarks/clustered_10m.py
+    (4096-component mixture, nlist 4096), filled by build_from, served
+    by search_pipelined; every batch against the plain version, recall
+    against a float32 oracle."""
+    import torch
+
+    from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+
+    n, d, chunk_rows, nb, b, k = 10_000_000, 768, 524_288, 8, 128, 10
+    mix = _mixture(4096, d, seed + 7)
+
+    def chunks():
+        for i, lo in enumerate(range(0, n, chunk_rows)):
+            yield mix(1000 + i, min(chunk_rows, n - lo))
+
+    index = ClusteredIVFIndex(d, dtype="int8", nlist=4096, nprobe=1,
+                              train_threshold=1 << 62, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = index.build_from(chunks, train_chunks=1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if index.count() != n or index._c != 1024 or index.capacity != 10_485_760:
+        fail(f"10M build: size {index.count()}, c {index._c}, "
+             f"cap {index.capacity}")
+    emit({"phase": "clustered", "step": "build_from", "n": n, "d": d,
+          "nlist": 4096, "dtype": "int8", "capacity": index.capacity,
+          "c": index._c, "build_s": build_s})
+    q = mix(9999, nb * b)
+    qstack = q.reshape(nb, b, d)
+    slots_t = torch.as_tensor(slots, device="cuda")
+    src_of_slot = torch.empty_like(slots_t)
+    src_of_slot[slots_t] = torch.arange(n, device="cuda")
+
+    def drive(name, nprobe, kk, gen="v2", qprec="bf16", stack=qstack):
+        index.nprobe, index.kernel_version = nprobe, gen
+        index.kernel_qprec = qprec
+        _reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = index.search_pipelined(stack, kk, materialize=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[name] = _counts()
+        return out, wall
+
+    results = {}
+    for nprobe, gen, qprec, kk in ((1, "v2", "bf16", 10), (4, "v2", "bf16", 10),
+                                   (1, "v2", "bf16", 50), (1, "v1", "bf16", 10),
+                                   (1, "v2", "int8", 10)):
+        name = f"clustered_10m[nprobe{nprobe},k{kk},{gen},q={qprec}]"
+        out, wall = drive(name, nprobe, kk, gen, qprec)
+        key = clu_name(cs_key(gen, "int8", qprec))
+        if paths[name][key] < 1:
+            fail(f"{name} did not run {key}: {paths[name]}")
+        err, live = check_pipelined(name, index, qstack, kk, out)
+        errs[key] = max(errs.get(key, 0.0), err)
+        results[name] = out
+        emit({"phase": "clustered", "path": name, "nb": nb, "b": b, "k": kk,
+              "wall_s": wall, "max_abs_err_vs_plain": err, "tol": ATOL,
+              "max_live_blocks": live, "launches": paths[name]})
+        if kk == 10 and nprobe == 1:
+            tm = time_block_scan(index, qstack[0], kk, nprobe, gen, qprec)
+            tm["call_ms_per_batch"] = cuda_ms(lambda: index.search_pipelined(
+                qstack, kk, materialize=False), reps=3, warm=1) / nb
+            timings[key] = tm
+            emit({"phase": "clustered", "timing": key, "nprobe": nprobe,
+                  "b": b, "k": kk, **tm})
+    index.nprobe, index.kernel_version, index.kernel_qprec = 4, "v2", "bf16"
+    tm4 = time_block_scan(index, qstack[0], 10, 4, "v2", "bf16")
+    emit({"phase": "clustered", "timing": "nprobe4", "b": b, "k": 10, **tm4})
+
+    # recall against the float32 oracle, with the x5 exact rerank
+    def slots_of(out):
+        return index.resolve_pipelined(out)[1].reshape(nb * b, -1)
+
+    cand = torch.as_tensor(slots_of(results[
+        "clustered_10m[nprobe1,k50,v2,q=bf16]"]), device="cuda")
+    cand_src = torch.where(cand >= 0, src_of_slot[cand.clamp(min=0)], -1)
+    t0 = time.perf_counter()
+    truth_src, exact = _stream_truth(chunks, q, 10, cand_src)
+    oracle_s = time.perf_counter() - t0
+    truth = slots_t[truth_src].cpu()
+    exact = torch.where(cand >= 0, exact, float("-inf"))
+    rerank = torch.gather(cand, 1, torch.topk(exact, 10, dim=1).indices).cpu()
+    rec = {f"raw_nprobe{p}": _slot_recall(
+        torch.as_tensor(slots_of(results[f"clustered_10m[nprobe{p},k10,v2,q=bf16]"])),
+        truth) for p in (1, 4)}
+    rec["rerank_x5_nprobe1"] = _slot_recall(rerank, truth)
+    rec["raw_v1_nprobe1"] = _slot_recall(torch.as_tensor(slots_of(
+        results["clustered_10m[nprobe1,k10,v1,q=bf16]"])), truth)
+    rec["raw_qint8_nprobe1"] = _slot_recall(torch.as_tensor(slots_of(
+        results["clustered_10m[nprobe1,k10,v2,q=int8]"])), truth)
+    emit({"phase": "clustered", "recall_at_10": rec, "queries": nb * b,
+          "oracle_s": oracle_s, "bar_rerank_x5_nprobe1": RERANK_BAR})
+    if rec["rerank_x5_nprobe1"] < RERANK_BAR:
+        fail(f"10M x5-rerank recall@10 {rec['rerank_x5_nprobe1']} "
+             f"< {RERANK_BAR}")
+
+    # B=1: nprobe 4 takes the narrow-block kernel, nprobe 1 the ranges scan
+    q1 = q[:16].reshape(16, 1, d)
+    for nprobe in (4, 1):
+        name = f"clustered_10m[b1,nprobe{nprobe}]"
+        out, _ = drive(name, nprobe, 10, stack=q1)
+        route = "ranges" if index._use_ranges(1, nprobe) else \
+            f"kernel (c={index._geom(1)[1]})"
+        if route != "ranges":
+            err, live = check_pipelined(name, index, q1, 10, out)
+            errs[clu_name(cs_key("v2", "int8", "bf16"))] = max(
+                errs[clu_name(cs_key("v2", "int8", "bf16"))], err)
+        ms = cuda_ms(lambda: index.search_pipelined(q1, 10, materialize=False),
+                     reps=3, warm=1) / 16
+        got = torch.as_tensor(index.resolve_pipelined(out)[1].reshape(16, -1))
+        emit({"phase": "clustered", "path": name, "route": route,
+              "ms_per_query": ms, "recall_at_10_raw": _slot_recall(
+                  got, truth[:16]), "launches": paths[name]})
+        if (route == "ranges") != (nprobe == 1):
+            fail(f"{name}: took the {route} route")
+    del index, slots_t, src_of_slot
+    torch.cuda.empty_cache()
+
+
+def cs_key(gen, slab, qprec):
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+
+    qtype = {"int8": "int8", "bf16": "bfloat16"}[qprec]
+    if slab in ("float32", "bfloat16"):
+        qtype = slab
+    return cs.mode_key(gen, slab, qtype)
+
+
+def _check_calls(name, index, calls, errs):
+    """The route of each recorded ``index.search`` call of the facade,
+    and each kernel-path result against the plain version on the same
+    index state (filter pushdown included). Returns the routes and, for
+    each kernel-path call, the blocks its list holds beside the blocks
+    that hold a live row."""
+    import torch
+
+    from wdbx_tpu_torch.index.flat import _next_pow2
+
+    routes, cover = [], []
+    pos_of = torch.as_tensor(index._pos_of, device="cuda").long()
+    for queries, kk, mask, (sc, sl) in calls:
+        nlist = int(index._centroids.shape[0])
+        pm, nprobe, exact = index._filter_plan(
+            mask, min(index.nprobe, nlist), nlist)
+        pad_b = _next_pow2(len(queries))
+        if exact or index._use_ranges(pad_b, nprobe):
+            routes.append("exact" if exact else "ranges")
+            continue
+        routes.append("kernel")
+        valid = index._valid if pm is None else index._masked_valid_dev(
+            index._valid, pm, index._cap)
+        ref, rescore, listed = _block_plain(
+            index, torch.as_tensor(queries, device="cuda"), kk, pad_b,
+            valid, nprobe)
+        c = index._geom(pad_b)[1]
+        cover.append([listed, int(valid[: index._cap].reshape(-1, c)
+                                  .any(dim=1).sum())])
+        sl = torch.as_tensor(sl, device="cuda")
+        pos = torch.where(sl >= 0, pos_of[sl.clamp(min=0)], -1)
+        key = clu_name(cs_key(index._kernel_gen(), index.dtype_name,
+                              getattr(index, "kernel_qprec", "bf16")))
+        errs[key] = max(errs.get(key, 0.0), check_topk(
+            name, ref, (torch.as_tensor(sc, device="cuda"), pos), rescore))
+    return routes, cover
+
+
+def phase_clustered_facade(seed, paths, timings, errs, tmp):
+    """INDEX_TYPE=ivf through the facade at 1,048,576 x 384 (a
+    1024-component mixture), int8 with the raw-store rerank, unfiltered
+    and filtered at 10% (pushdown) and 1% (exact masked route); then a
+    clustered index of each other slab type served by search_pipelined."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch import WDBX
+    from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+
+    n, d, b, k = 1 << 20, 384, 128, 10
+    mix = _mixture(1024, d, seed + 11)
+    x_dev = torch.cat([mix(2000 + i, 1 << 18) for i in range(4)])
+    q = mix(8888, b)
+    tag = np.arange(n) % 100  # tag < 10: 10% of rows; tag == 0: 1%
+    db = WDBX(vector_dimension=d, enable_plugins=False,
+              data_dir=os.path.join(tmp, "ivf"),
+              config={"INDEX_TYPE": "ivf", "IVF_NLIST": 1024,
+                      "IVF_NPROBE": 2, "INDEX_DTYPE": "int8",
+                      "RAW_STORE": "ram",
+                      "VECTOR_STORE_AUTOSAVE_INTERVAL": 0})
+    index = db.store.indices[0]
+    if db.store.num_shards != 1 or not isinstance(index, ClusteredIVFIndex):
+        fail(f"INDEX_TYPE=ivf gave {type(index).__name__}")
+    t0 = time.perf_counter()
+    db.store.bulk_load([str(i) for i in range(n)], x_dev.cpu().numpy(),
+                       {"tag": tag})
+    db.optimize()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    # at c = 2,048 rows the dedup bound u of a batch of 128 reaches the
+    # block count, which the index would serve with the exact flat scan:
+    # drive the block scan. At nprobe 2 the unfiltered batch lists only
+    # part of the blocks (gated below), so its recall tests the
+    # clustering; the 10% filter's probe boost lists them all.
+    index.batch_flat_fallback = False
+    calls = []
+    search = index.search
+
+    def recording(queries, kk, slot_mask=None):
+        out = search(queries, kk, slot_mask=slot_mask)
+        calls.append((np.array(queries, np.float32), kk, slot_mask, out))
+        return out
+
+    index.search = recording
+    tagd = torch.as_tensor(tag, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {}
+    for label, flt, sel in (("unfiltered", None, None),
+                            ("filter_10pct", {"tag": {"$lt": 10}}, tagd < 10),
+                            ("filter_1pct", {"tag": 0}, tagd == 0)):
+        name = f"clustered_facade[{label}]"
+        calls.clear()
+        _reset()
+        t0 = time.perf_counter()
+        hits = db.vector_search_batch(q.cpu().numpy(), limit=k,
+                                      filter_metadata=flt)
+        wall = time.perf_counter() - t0
+        paths[name] = _counts()
+        s = q @ x_dev.T
+        if sel is not None:
+            s = s.masked_fill(~sel[None, :], float("-inf"))
+        truth = torch.topk(s, k, dim=1).indices.cpu().numpy()
+        rec[label] = _recall(hits, truth)
+        routes, cover = _check_calls(name, index, calls, errs)
+        emit({"phase": "clustered_facade", "path": name, "n": n, "b": b,
+              "nprobe": index.nprobe, "wall_s": wall, "routes": routes,
+              "blocks_listed_of_live": cover, "recall_at_10": rec[label],
+              "bar": FACADE_BAR, "launches": paths[name]})
+        if rec[label] < FACADE_BAR:
+            fail(f"{name}: recall@10 {rec[label]} < {FACADE_BAR}")
+        if label == "unfiltered" and cover[0][0] >= cover[0][1]:
+            fail(f"{name}: the block list covers the corpus ({cover}); "
+                 "its recall would not test the clustering")
+        want = "exact" if label == "filter_1pct" else "kernel"
+        if routes != [want]:
+            fail(f"{name}: routes {routes}, expected [{want!r}]")
+        if want == "kernel" and paths[name][clu_name(
+                cs_key("v2", "int8", "bf16"))] < 1:
+            fail(f"{name}: K3 was not launched")
+    # one query at a time (B=1)
+    name = "clustered_facade[vector_search]"
+    calls.clear()
+    _reset()
+    one = [db.vector_search(q[i].tolist(), limit=k) for i in range(8)]
+    paths[name] = _counts()
+    truth = torch.topk(q[:8] @ x_dev.T, k, dim=1).indices.cpu().numpy()
+    rec["vector_search"] = _recall(one, truth)
+    routes, cover = _check_calls(name, index, calls, errs)
+    emit({"phase": "clustered_facade", "path": name, "routes": routes,
+          "blocks_listed_of_live": cover,
+          "recall_at_10": rec["vector_search"], "launches": paths[name]})
+    if rec["vector_search"] < FACADE_BAR:
+        fail(f"{name}: recall@10 {rec['vector_search']} < {FACADE_BAR}")
+    emit({"phase": "clustered_facade", "load_and_optimize_s": load_s})
+    index.search = search
+    del db, index
+    torch.cuda.empty_cache()
+
+    # the other slab types (and int8 queries on int4) at the same size
+    qstack = mix(7777, 8 * b).reshape(8, b, d)
+    for dtype, qprec in (("float32", "bf16"), ("bfloat16", "bf16"),
+                         ("int4", "bf16"), ("int4", "int8")):
+        name = f"clustered_slabs[{dtype},q={qprec}]"
+        if dtype != "int4" or qprec == "bf16":
+            index = ClusteredIVFIndex(d, dtype=dtype, nlist=1024, nprobe=1,
+                                      train_threshold=1 << 62,
+                                      device="cuda")
+            index.build_from(lambda: (x_dev[i:i + (1 << 18)]
+                                      for i in range(0, n, 1 << 18)))
+        index.kernel_qprec = qprec
+        _reset()
+        out = index.search_pipelined(qstack, k, materialize=False)
+        torch.cuda.synchronize()
+        paths[name] = _counts()
+        key = clu_name(cs_key("v2", dtype, qprec))
+        if paths[name][key] < 1:
+            fail(f"{name} did not run {key}: {paths[name]}")
+        err, live = check_pipelined(name, index, qstack, k, out)
+        errs[key] = max(errs.get(key, 0.0), err)
+        tm = time_block_scan(index, qstack[0], k, 1, "v2", qprec)
+        tm["call_ms_per_batch"] = cuda_ms(lambda: index.search_pipelined(
+            qstack, k, materialize=False), reps=3, warm=1) / 8
+        timings[key] = tm
+        emit({"phase": "clustered_slabs", "path": name, "n": n, "d": d,
+              "nb": 8, "b": b, "k": k, "nprobe": 1,
+              "max_abs_err_vs_plain": err, "tol": ATOL, **tm,
+              "launches": paths[name]})
+        if dtype != "int4" or qprec == "int8":
+            del index
+            torch.cuda.empty_cache()
+    del x_dev
 
 
 def main() -> None:
@@ -493,6 +1111,7 @@ def main() -> None:
     card = phase_device()
     phase_build()
     errs = phase_kernels(KERNEL_ROWS, args.seed)
+    phase_clustered_kernels(args.seed, errs)
     paths: dict[str, dict] = {}
     timings: dict[str, dict] = {}
     x, qs = _data(N_ROWS, args.seed)
@@ -503,7 +1122,10 @@ def main() -> None:
         errs["fused_topk_partial[bfloat16]"] = max(
             errs["fused_topk_partial[bfloat16]"], main_err)
         phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs)
-    del x_dev
+        del x, x_dev
+        torch.cuda.empty_cache()
+        phase_clustered(args.seed, paths, timings, errs)
+        phase_clustered_facade(args.seed, paths, timings, errs, tmp)
     kernels = []
     total = {}
     for counts in paths.values():
@@ -529,6 +1151,20 @@ def main() -> None:
         "bound_ms": mt["merge_bound_ms"], "bound_by": "bytes",
         "library_ms": mt["merge_library_ms"],
     })
+    for gen, slab, qprec in (("v2", "float32", "bf16"),
+                             ("v2", "bfloat16", "bf16"),
+                             ("v2", "int8", "bf16"), ("v2", "int4", "bf16"),
+                             ("v2", "int8", "int8"), ("v2", "int4", "int8"),
+                             ("v1", "int8", "bf16")):
+        name = clu_name(cs_key(gen, slab, qprec))
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": CLU_SOURCE,
+            "replaces": CLU_REPLACES[gen], "launches": total[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
     for kern in kernels:
         if kern["launches"] < 1:
             fail(f"{kern['name']} was not launched on any driven path")

@@ -123,11 +123,27 @@ def test_unported_surfaces_raise(tmp_path):
                enable_plugins=False, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         db.heal()
-    for kind in ("ivf", "hnsw", "ivf_clustered", "sharded_flat"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / kind),
-                  enable_plugins=False, device="cpu",
-                  config={"INDEX_TYPE": kind})
+    assert db.store.verify()["consistent"]
+
+
+@pytest.mark.parametrize("kind,slice_", [
+    ("ivf", None), ("hnsw", None), ("ivf_clustered", None),
+    ("ivf_dense", "slice 4"), ("sharded_flat", "slice 5"),
+])
+def test_index_types_through_the_facade(tmp_path, kind, slice_):
+    """The clustered aliases serve through the port's ClusteredIVFIndex;
+    the dense-table and sharded engines raise, naming their slice."""
+    from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+
+    kw = dict(vector_dimension=DIM, data_dir=str(tmp_path / kind),
+              enable_plugins=False, device="cpu",
+              config={"INDEX_TYPE": kind})
+    if slice_ is not None:
+        with pytest.raises(NotImplementedError, match=slice_):
+            TWDBX(**kw)
+        return
+    db = TWDBX(**kw)
+    assert all(isinstance(ix, ClusteredIVFIndex) for ix in db.store.indices)
     assert db.store.verify()["consistent"]
 
 

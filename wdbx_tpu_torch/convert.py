@@ -1,7 +1,8 @@
 """Carry index state across from host arrays (e.g. a ``wdbx_tpu`` index).
 
-``flat_index_from_arrays`` builds a port ``FlatIndex`` that computes the
-same thing as the index its arrays came from:
+``flat_index_from_arrays`` builds a port ``FlatIndex`` and
+``clustered_index_from_arrays`` a port ``ClusteredIVFIndex`` that
+compute the same thing as the index their arrays came from:
 
     arrays = {"slab": np.asarray(jax_index._slab),
               "valid": np.asarray(jax_index._valid),
@@ -9,6 +10,18 @@ same thing as the index its arrays came from:
     meta = {"dim": ..., "dtype": ..., "metric": ..., "size": ...,
             "next_slot": ..., "free": [...], "capacity": ...}
     index = flat_index_from_arrays(arrays, meta, device="cuda")
+
+For a clustered index add its slot map, residual list and layout, and
+the scalars of its ``.ivfc.json`` sidecar:
+
+    arrays.update(slot_of=jax_index._slot_of,
+                  residual=np.asarray(jax_index._residual),
+                  centroids=np.asarray(jax_index._centroids),   # trained
+                  bucket_start=jax_index._bucket_start)         # trained
+    meta.update(nlist=..., nprobe=..., trained=..., built_size=...,
+                residual_base=..., next_ext_slot=..., free_slots=[...],
+                pos_quarantine=[...], block_rows=..., fresh_base=...)
+    index = clustered_index_from_arrays(arrays, meta, device="cuda")
 
 A bf16 slab may come as an ml_dtypes bfloat16 array or as its uint16
 bits; both become a torch bfloat16 slab bit for bit.
@@ -20,12 +33,30 @@ from typing import Any
 
 import numpy as np
 
+from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 from wdbx_tpu_torch.index.flat import FlatIndex
 
 
 def flat_index_from_arrays(
     arrays: dict[str, np.ndarray], meta: dict[str, Any], device: Any = None
 ) -> FlatIndex:
+    return _place_flat(FlatIndex, arrays, meta, device)
+
+
+def clustered_index_from_arrays(
+    arrays: dict[str, np.ndarray], meta: dict[str, Any], device: Any = None
+) -> ClusteredIVFIndex:
+    """The clustered state goes in as ``load`` installs a checkpoint's:
+    the extents are rebuilt from ``bucket_start`` and ``block_rows``."""
+    index = _place_flat(
+        ClusteredIVFIndex, arrays, meta, device,
+        nlist=int(meta["nlist"]), nprobe=int(meta["nprobe"]),
+    )
+    index._restore_clustered(arrays, meta, None)
+    return index
+
+
+def _place_flat(cls, arrays, meta, device, **kwargs):
     slab = np.asarray(arrays["slab"])
     valid = np.asarray(arrays["valid"], bool)
     dtype = meta.get("dtype") or {
@@ -39,9 +70,9 @@ def flat_index_from_arrays(
             f"slab {slab.shape} / valid {valid.shape} do not match "
             f"capacity {cap}"
         )
-    index = FlatIndex(
+    index = cls(
         dim, metric=meta.get("metric", "cosine"), dtype=dtype,
-        capacity=cap, device=device,
+        capacity=cap, device=device, **kwargs,
     )
     if index.capacity != cap:
         raise ValueError(f"capacity {cap} is not a valid slab capacity")

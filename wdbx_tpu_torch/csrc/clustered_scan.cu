@@ -1,0 +1,187 @@
+// Clustered block scan + top-k for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the two Pallas bodies of wdbx_tpu/kernels/clustered_scan.py:
+//   _kernel_v2  (clustered_scan.py:107)  float32 / bf16 / int8 / packed
+//                                        int4 slabs; bf16 or int8 queries
+//   _kernel     (clustered_scan.py:50)   v1: float32 / bf16 / int8 slabs
+//                                        with bf16 or float32 queries
+// Function: for queries q (B, d) and a cluster-ordered slab (cap, d) seen
+// as cap / c blocks of c rows, the k largest q . row over the rows of the
+// blocks listed in uniq[0..u) whose ok entry is non-zero and whose
+// validity byte is non-zero; int8 / int4 rows times their row scale, and
+// with int8 queries (int8 x int8 -> int32 products) times the query's
+// scale after the row scale. Positions are global slab rows, blk * c +
+// row. v1 is the same function with bf16 / float32 queries, so it is a
+// mode of the same kernel with its own launch counter (in Python).
+//
+// Bound on an H100 (3.35 TB/s HBM): the listed blocks' bytes. At 10M x
+// 768 int8, c = 1,024, nprobe 1 and B = 128, some 420 live blocks of
+// 0.79 MB: 0.33 GB, about 0.1 ms per batch; their bf16 tensor-core work
+// (2 B blocks c d = 83 GFLOP) is another 0.08 ms at 989 TFLOP/s.
+//
+// Design. On the TPU a sequential grid walks the block list, with the
+// block ids scalar-prefetched into the index maps and the running top-k
+// in VMEM. Here stage 1 (clustered_block_partial) runs on a grid of
+// (query tiles) x (groups of `ways` consecutive block-list entries). Each
+// CTA reads its own entries of uniq / ok from device memory (no host
+// sync on the list), keeps the blocks with ok != 0 (the dedup padding is
+// skipped: it loads nothing), and scores their c-row tiles for its query
+// tile with the scan bodies of topk_common.cuh, the same code as the
+// fused flat scan: mma.sync bf16 for bf16 rows and for int8 / int4 rows
+// against bf16 queries (int8 converted, int4 unpacked in registers after
+// the load), mma.sync s8 m16n8k32 for int8 / int4 rows against int8
+// queries, CUDA-core float32 FMAs for float32 slabs and for widths off
+// the tensor-core slices. Row scale, query scale and the validity mask
+// apply before the per-query top-k, which a CTA writes to its group's
+// slot of (B, groups, k). A CTA whose entries are all ok = 0 writes
+// -inf / -1 partials. Stage 2 is topk_merge_partials of fused_topk.cu.
+// Selection is exact: `group` and `n_ways` of the TPU kernels (the
+// approximate grouped and pair reductions) are not reproduced, which can
+// only raise recall against them. The int8-query scale is applied to
+// every score before selection instead of at emit: a positive scale
+// keeps the order, and (acc * row scale) * query scale is the TPU
+// kernel's emitted value bit for bit. No wgmma or TMA yet: times in
+// PERF.md.
+
+#include "topk_common.cuh"
+
+namespace {
+
+constexpr int kMaxWays = 32;  // block-list entries per CTA
+
+template <int SLAB, int QTYPE, int TQ, bool MMA>
+__global__ void __launch_bounds__(kThreads)
+clustered_block_partial_kernel(const void* __restrict__ db,
+                               const void* __restrict__ q,
+                               const float* __restrict__ qscale,
+                               const uint8_t* __restrict__ valid,
+                               const float* __restrict__ scales,
+                               const int* __restrict__ uniq,
+                               const int* __restrict__ ok, int nblocks, int u,
+                               int ways, int c, int d, int b, int k, int cap,
+                               float* __restrict__ part_v,
+                               int* __restrict__ part_i) {
+  constexpr int QT = 16 * TQ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int blk[kMaxWays];
+  __shared__ int nlive;
+  const size_t tile_words = MMA ? mma_tile_words(QT) : fma_tile_words(QT);
+  const CtaSel sel(reinterpret_cast<uint32_t*>(smem) + tile_words, QT, cap,
+                   k);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * QT;
+  const int group = blockIdx.y;
+  if (threadIdx.x == 0) {  // this CTA's live blocks, in list order
+    int n = 0;
+    for (int j = 0; j < ways; ++j) {
+      const int e = group * ways + j;
+      if (e >= u || ok[e] == 0) continue;
+      const int id = uniq[e];
+      if (id >= 0 && id < nblocks) blk[n++] = id;
+    }
+    nlive = n;
+  }
+  __syncthreads();
+  const BlockTiles tiles{blk, nlive, c};
+  if constexpr (MMA)
+    scan_mma<SLAB, QTYPE, TQ>(tiles, sel, smem, db, q, qscale, valid, scales,
+                              d, b, q0);
+  else
+    scan_fma<SLAB, QTYPE, TQ>(tiles, sel, smem, db, q, qscale, valid, scales,
+                              d, b, q0);
+  sel.write(q0, b, group, gridDim.y, part_v, part_i, warp, lane);
+}
+
+template <int SLAB, int QTYPE, int TQ>
+cudaError_t launch_partial(const void* db, const void* q, const void* qscale,
+                           const void* valid, const void* scales,
+                           const void* uniq, const void* ok, int n, int u,
+                           int ways, int c, int d, int b, int k, int cap,
+                           int groups, void* part_v, void* part_i,
+                           cudaStream_t stream) {
+  constexpr int QT = 16 * TQ;
+  const bool aligned = reinterpret_cast<uintptr_t>(db) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  // tensor cores when the width fills whole slices (32 bf16 or 64 int8
+  // dims) and the operands are 16-byte aligned
+  const bool tensor_cores =
+      SLAB != kF32 && aligned && d % (QTYPE == kQI8 ? 64 : 32) == 0;
+  const size_t smem = tensor_cores ? mma_smem_bytes(QT, cap)
+                                   : partial_smem_bytes(QT, cap);
+  auto kern = clustered_block_partial_kernel<SLAB, QTYPE, TQ, false>;
+  if constexpr (SLAB != kF32)
+    if (tensor_cores)
+      kern = clustered_block_partial_kernel<SLAB, QTYPE, TQ, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((b + QT - 1) / QT, groups);
+  kern<<<grid, kThreads, smem, stream>>>(
+      db, q, static_cast<const float*>(qscale),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(scales),
+      static_cast<const int*>(uniq), static_cast<const int*>(ok), n / c, u,
+      ways, c, d, b, k, cap, static_cast<float*>(part_v),
+      static_cast<int*>(part_i));
+  return cudaGetLastError();
+}
+
+template <int TQ>
+cudaError_t dispatch(int slab, int qtype, const void* db, const void* q,
+                     const void* qs, const void* valid, const void* scales,
+                     const void* uniq, const void* ok, int n, int u, int ways,
+                     int c, int d, int b, int k, int cap, int groups,
+                     void* pv, void* pi, cudaStream_t st) {
+#define WDBX_LAUNCH(S, Q)                                                  \
+  return launch_partial<S, Q, TQ>(db, q, qs, valid, scales, uniq, ok, n, u, \
+                                  ways, c, d, b, k, cap, groups, pv, pi, st)
+  if (slab == kF32 && qtype == kQF32) WDBX_LAUNCH(kF32, kQF32);
+  if (slab == kBF16 && qtype == kQBF16) WDBX_LAUNCH(kBF16, kQBF16);
+  if (slab == kI8 && qtype == kQBF16) WDBX_LAUNCH(kI8, kQBF16);
+  if (slab == kI4 && qtype == kQBF16) WDBX_LAUNCH(kI4, kQBF16);
+  if (slab == kI8 && qtype == kQI8) WDBX_LAUNCH(kI8, kQI8);
+  if (slab == kI4 && qtype == kQI8) WDBX_LAUNCH(kI4, kQI8);
+#undef WDBX_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory a stage-1 CTA of qt queries needs (either body).
+size_t wdbx_clustered_block_partial_smem(int qt, int cap) {
+  const size_t a = partial_smem_bytes(qt, cap), b = mma_smem_bytes(qt, cap);
+  return a > b ? a : b;
+}
+
+// slab: 0 float32, 1 bfloat16, 2 int8, 3 packed int4 (n rows of the
+// slab, n % c == 0). qtype: 0 float32 (float32 slab), 1 bf16, 2 int8
+// codes with qscale (b,) float32 (int8 / int4 slabs). qt: 64 or 16
+// queries per CTA. uniq / ok (u,) int32; CTA group g takes entries
+// [g * ways, (g + 1) * ways). part_v (b, groups, k) float32 and part_i
+// (b, groups, k) int32 global slab positions.
+int wdbx_clustered_block_partial(int slab, int qtype, int qt, const void* db,
+                                 const void* q, const void* qscale,
+                                 const void* valid, const void* scales,
+                                 const void* uniq, const void* ok, int n,
+                                 int u, int ways, int c, int d, int b, int k,
+                                 int cap, int groups, void* part_v,
+                                 void* part_i, void* stream) {
+  if (k < 1 || cap < k + 32 || n < 1 || b < 1 || d < 1 || u < 1 || c < 1 ||
+      n % c != 0 || ways < 1 || ways > kMaxWays || groups < 1 ||
+      groups > 65535 || (long long)groups * ways < u ||
+      (slab == kI4 && d % 2 != 0) || (qtype == kQI8 && qscale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (qt == 64)
+    return (int)dispatch<4>(slab, qtype, db, q, qscale, valid, scales, uniq,
+                            ok, n, u, ways, c, d, b, k, cap, groups, part_v,
+                            part_i, st);
+  if (qt == 16)
+    return (int)dispatch<1>(slab, qtype, db, q, qscale, valid, scales, uniq,
+                            ok, n, u, ways, c, d, b, k, cap, groups, part_v,
+                            part_i, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

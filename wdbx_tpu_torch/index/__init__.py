@@ -1,9 +1,12 @@
 """Device-resident vector indexes (torch tensors on the CUDA device).
 
-Only the flat engine is ported so far; ``create_index`` raises
-``NotImplementedError`` for the clustered, IVF and sharded engines."""
+The flat and clustered engines are ported; ``create_index`` raises
+``NotImplementedError`` for the dense IVF and sharded engines."""
 
 from wdbx_tpu_torch.index.base import VectorIndex, create_index
+from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 from wdbx_tpu_torch.index.flat import FlatIndex
+from wdbx_tpu_torch.index.ivf import IVFIndex
 
-__all__ = ["VectorIndex", "FlatIndex", "create_index"]
+__all__ = ["VectorIndex", "FlatIndex", "IVFIndex", "ClusteredIVFIndex",
+           "create_index"]

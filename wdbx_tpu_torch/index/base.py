@@ -1,8 +1,8 @@
 """Index ABC — the contract the store layer programs against.
 
 Torch port of ``wdbx_tpu/index/base.py``: the same ABC and the same
-``INDEX_TYPE`` alias routing. Only the flat engine is ported; aliases
-that route to the clustered, dense IVF or sharded engines raise
+``INDEX_TYPE`` alias routing. The flat and clustered engines are
+ported; aliases that route to the dense IVF or sharded engines raise
 ``NotImplementedError`` naming the ROADMAP slice that ports them.
 
 The reference's ``VectorIndex`` ABC (reference wdbx/core/indexing.py:18)
@@ -52,7 +52,6 @@ def _not_ported(kind: str, slice_: str) -> NotImplementedError:
     )
 
 
-_CLUSTERED = "clustered IVF engine (slice 2)"
 _DENSE_IVF = "dense IVF engine (slice 4)"
 _SHARDED = "sharded engines (slice 5)"
 
@@ -190,8 +189,29 @@ def create_index(
     if kind == "hnsw":
         # Reference-config migration: the reference serves INDEX_TYPE=HNSW
         # via hnswlib (reference wdbx/core/indexing.py:709-758); the
-        # clustered engine is its latency-serving analogue.
-        raise _not_ported(kind, _CLUSTERED)
+        # clustered engine is its latency-serving analogue. nprobe is
+        # mapped from HNSW_EF_SEARCH; HNSW_M / HNSW_EF_CONSTRUCTION have
+        # no analogue and are ignored.
+        from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+
+        ef = int(config.get("HNSW_EF_SEARCH", 50)) if config is not None else 50
+        kwargs["nprobe"] = max(4, round(ef / 6))
+        if config is not None:
+            kwargs["nlist"] = int(config.get("IVF_NLIST", 100))
+            kwargs["train_threshold"] = int(
+                config.get("IVF_TRAIN_THRESHOLD", 4096)
+            )
+        logger.info(
+            "INDEX_TYPE=hnsw: serving via ivf_clustered (nprobe=%d mapped "
+            "from HNSW_EF_SEARCH=%d)", kwargs["nprobe"], ef,
+        )
+        idx = ClusteredIVFIndex(dim, device=device, **kwargs)
+        if config is not None:
+            idx.background_rebuild = bool(
+                config.get("IVF_BACKGROUND_REBUILD", False)
+            )
+            _apply_kernel_knobs(idx, config)
+        return idx
     if kind == "faiss":
         # Reference FAISS backend: dispatch on FAISS_INDEX_TYPE ("Flat" or
         # an IVF factory string like "IVF100,Flat" — reference
@@ -201,26 +221,74 @@ def create_index(
             else "Flat"
         )
         if ftype.lower().startswith("ivf"):
-            raise _not_ported(f"faiss ({ftype})", _CLUSTERED)
-        logger.info(
-            "INDEX_TYPE=faiss (%s): serving via flat exact scan", ftype,
-        )
-        kind = "flat"
+            head = ftype.split(",")[0][3:]
+            nlist = int(head) if head.isdigit() else int(
+                config.get("FAISS_NLIST", config.get("IVF_NLIST", 100))
+                if config is not None else 100
+            )
+            nprobe = int(
+                config.get("FAISS_NPROBE", config.get("IVF_NPROBE", 8))
+            ) if config is not None else 8
+            logger.info(
+                "INDEX_TYPE=faiss (%s): serving via ivf_clustered "
+                "(nlist=%d)", ftype, nlist,
+            )
+            kwargs.update(nlist=nlist, nprobe=nprobe)
+            kind = "ivf_clustered"
+        else:
+            logger.info(
+                "INDEX_TYPE=faiss (%s): serving via flat exact scan", ftype,
+            )
+            kind = "flat"
     if kind == "flat":
         if config is not None:
             kwargs["topk_method"] = config.get("INDEX_TOPK", "auto")
         return FlatIndex(dim, device=device, **kwargs)
-    if kind == "ivf":
-        # "ivf" serves via ivf_clustered unless IVF_ASSIGNMENTS >= 2
-        # (SOAR spilled assignment, which only the dense table has)
-        assignments = (
-            int(config.get("IVF_ASSIGNMENTS", 1)) if config is not None else 1
-        )
-        raise _not_ported(kind, _DENSE_IVF if assignments > 1 else _CLUSTERED)
-    if kind == "ivf_dense":
-        raise _not_ported(kind, _DENSE_IVF)
+    if kind in ("ivf", "ivf_dense"):
+        if config is not None:
+            kwargs["nlist"] = int(config.get("IVF_NLIST", 100))
+            kwargs["nprobe"] = int(config.get("IVF_NPROBE", 8))
+            kwargs["train_threshold"] = int(
+                config.get("IVF_TRAIN_THRESHOLD", 4096)
+            )
+            kwargs["rebuild_fraction"] = float(
+                config.get("IVF_REBUILD_FRACTION", 0.2)
+            )
+            kwargs["assignments"] = int(config.get("IVF_ASSIGNMENTS", 1))
+        if kind == "ivf" and kwargs.get("assignments", 1) <= 1:
+            # "ivf" serves via ivf_clustered unless IVF_ASSIGNMENTS >= 2
+            # (SOAR spilled assignment, which only the dense table has)
+            logger.info(
+                "INDEX_TYPE=ivf: serving via ivf_clustered "
+                "(set INDEX_TYPE=ivf_dense for the dense-table engine)"
+            )
+            kwargs.pop("assignments", None)
+            kind = "ivf_clustered"
+        else:
+            raise _not_ported(kind, _DENSE_IVF)
     if kind == "ivf_clustered":
-        raise _not_ported(kind, _CLUSTERED)
+        from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+
+        if config is not None:
+            # setdefault: the faiss / ivf alias branches above may carry
+            # factory-string or dense-config values that win over the
+            # generic IVF_* keys
+            kwargs.setdefault("nlist", int(config.get("IVF_NLIST", 100)))
+            kwargs.setdefault("nprobe", int(config.get("IVF_NPROBE", 8)))
+            kwargs.setdefault(
+                "train_threshold",
+                int(config.get("IVF_TRAIN_THRESHOLD", 4096)),
+            )
+            kwargs["rebuild_fraction"] = float(
+                config.get("IVF_REBUILD_FRACTION", 0.2)
+            )
+        idx = ClusteredIVFIndex(dim, device=device, **kwargs)
+        if config is not None:
+            idx.background_rebuild = bool(
+                config.get("IVF_BACKGROUND_REBUILD", False)
+            )
+            _apply_kernel_knobs(idx, config)
+        return idx
     if kind in ("sharded_flat", "sharded_clustered", "sharded_ivf"):
         raise _not_ported(kind, _SHARDED)
     raise ValueError(f"unknown index type: {kind}")

@@ -620,6 +620,11 @@ class FlatIndex(VectorIndex):
         self._slab_restore_pending = bool(meta.get("slab_external"))
         return True
 
+    def _slots_for_positions(self, positions: np.ndarray) -> np.ndarray:
+        """Slab position -> external slot (the identity here; clustered
+        layouts map through their slot table)."""
+        return positions
+
     def restore_slab(self, reader, chunk: int = 262_144) -> bool:
         """Refill the device slab from a host row source after loading a
         slab-external checkpoint. ``reader(slots) -> (rows, row_scales,
@@ -627,12 +632,16 @@ class FlatIndex(VectorIndex):
         their scales and requantize on the device."""
         if not getattr(self, "_slab_restore_pending", False):
             return False
-        # a flat slab's positions are its slots, already in order
         pos_all = np.nonzero(self._loaded_valid_np)[0].astype(np.int64)
+        slots_all = np.asarray(self._slots_for_positions(pos_all), np.int64)
+        # in slot order: clustered layouts permute positions, and a
+        # slot-ordered pass reads the raw store sequentially
+        order = np.argsort(slots_all, kind="stable")
+        pos_all, slots_all = pos_all[order], slots_all[order]
         with self._mu.write():
             for lo in range(0, len(pos_all), chunk):
                 pos = pos_all[lo:lo + chunk]
-                rows, row_scales, have = reader(pos)
+                rows, row_scales, have = reader(slots_all[lo:lo + chunk])
                 if not have.all():
                     raise ValueError(
                         f"slab restore: raw store is missing "

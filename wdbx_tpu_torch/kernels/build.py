@@ -40,6 +40,13 @@ SIGNATURES = {
         ),
         "wdbx_fused_topk_partial_smem": (ctypes.c_size_t, [_I, _I]),
     },
+    "clustered_scan": {
+        "wdbx_clustered_block_partial": (
+            _I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+        ),
+        "wdbx_clustered_block_partial_smem": (ctypes.c_size_t, [_I, _I]),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,7 @@
 """Per-row int8 and packed int4 quantization of embedding slabs.
 
-Torch port of the non-Pallas parts of ``wdbx_tpu/kernels/quant.py``.
+Torch port of the non-Pallas parts of ``wdbx_tpu/kernels/quant.py``
+and of its query-side prep for the clustered block scan.
 The codes are bit-identical to the JAX package's: both round half to
 even, and the int4 packing keeps the same layout — byte j of a row
 holds dim j in the LOW nibble and dim j + d/2 in the HIGH nibble, as
@@ -72,3 +73,34 @@ def dequantize_rows_int4(
     packed: torch.Tensor, scale: torch.Tensor
 ) -> torch.Tensor:
     return unpack_int4(packed).to(torch.float32) * scale[:, None]
+
+
+def prep_query_block(
+    q: torch.Tensor, slab_dtype: torch.dtype, int8: bool, qprec: str,
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Query-side prep of the clustered block scan (K3): validates
+    ``qprec`` and picks the query representation against the slab.
+    Returns ``(qq, qs, b)``; ``qs`` is ``(B, 1)`` float32.
+
+    - an int8 / int4 slab (``int8=True``) with ``qprec="bf16"``: bf16
+      queries, ``qs`` zeros (no query dequant);
+    - with ``qprec="int8"``: symmetric per-query quantization, scale
+      ``max|q| / 127`` (1e-20 floor), codes ``round(q / scale)`` in
+      [-127, 127], bit-identical to the JAX package's;
+    - a float slab: queries in the slab's type, ``qs`` zeros.
+
+    Unlike the JAX version, batches under 32 rows are not padded (that
+    was the TPU's int8 sublane tile), so ``b`` is always the batch."""
+    qprec = str(qprec).lower()
+    if qprec not in ("bf16", "int8"):
+        raise ValueError(f"qprec must be 'bf16' or 'int8', got {qprec!r}")
+    b = q.shape[0]
+    if int8 and qprec == "int8":
+        qf = q.to(torch.float32)
+        qmax = torch.clamp_min(torch.amax(torch.abs(qf), dim=1, keepdim=True),
+                               1e-20)
+        qs = qmax * _recip(127.0)
+        qq = torch.clamp(torch.round(qf / qs), -127, 127).to(torch.int8)
+        return qq, qs, b
+    qs = torch.zeros((b, 1), dtype=torch.float32, device=q.device)
+    return q.to(torch.bfloat16 if int8 else slab_dtype), qs, b

@@ -8,6 +8,8 @@ deliberate difference, since the approximation was a TPU speed trick.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 from wdbx_tpu_torch.ops.normalize import l2_normalize
@@ -72,15 +74,20 @@ def score_block(
     return q @ rows.T
 
 
-def f32_scores(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``queries @ rows.T`` in true float32: on the CUDA device TF32 is
-    switched off for this one product and the caller's setting is
-    restored, so precision never depends on earlier calls."""
-    if not rows.is_cuda:
-        return queries @ rows.T
+@contextmanager
+def true_f32():
+    """Float32 products inside the block run in true float32: TF32 is
+    switched off for the CUDA device and the caller's setting restored,
+    so precision never depends on earlier calls."""
     flag = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return queries @ rows.T
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def f32_scores(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``queries @ rows.T`` in true float32 (see ``true_f32``)."""
+    with true_f32():
+        return queries @ rows.T
