@@ -4,7 +4,8 @@ routing, and WDBX(INDEX_TYPE="ivf") parity with wdbx_tpu.
 Every alias that serves through the clustered engine in the JAX package
 (``ivf`` with IVF_ASSIGNMENTS <= 1, ``hnsw``, faiss ``IVF...`` and
 ``ivf_clustered``) builds the port's ClusteredIVFIndex with the same
-nlist, nprobe and kernel knobs; the dense-table engine still raises.
+nlist, nprobe and kernel knobs; ``ivf_dense`` and ``ivf`` with
+IVF_ASSIGNMENTS >= 2 build the port's dense IVFIndex.
 At full probe (IVF_NPROBE = IVF_NLIST) the block scan is exact, so the
 two facades must name the same ids whatever their k-means picked.
 """
@@ -19,6 +20,7 @@ from wdbx_tpu.index import create_index as j_create
 from wdbx_tpu_torch.core.wdbx import WDBX as TWDBX
 from wdbx_tpu_torch.index import create_index as t_create
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+from wdbx_tpu_torch.index.ivf import IVFIndex
 
 torch.set_num_threads(2)
 
@@ -50,8 +52,16 @@ def test_clustered_aliases_route_like_jax(kind, extra):
 @pytest.mark.parametrize("kind,extra", [("ivf_dense", {}),
                                         ("ivf", {"IVF_ASSIGNMENTS": 2})])
 def test_dense_ivf_raises_naming_slice_4(kind, extra):
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        t_create(kind, DIM, dict(KNOBS, **extra), device="cpu")
+    """(Named for the slice that ported it.) The dense-table aliases
+    build the port's IVFIndex with JAX's attributes."""
+    cfg = dict(KNOBS, **extra)
+    j = j_create(kind, DIM, cfg)
+    t = t_create(kind, DIM, cfg, device="cpu")
+    assert isinstance(t, IVFIndex) and not isinstance(t, ClusteredIVFIndex)
+    for attr in ("kind", "assignments", "nlist", "nprobe", "train_threshold",
+                 "rebuild_fraction"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    assert t.device == torch.device("cpu")
 
 
 def _open(pkg, path, dtype, nlist=8):

@@ -54,6 +54,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "wdbx_tpu_torch.core.wdbx", "wdbx_tpu_torch.convert",
         "wdbx_tpu_torch.ops.kmeans", "wdbx_tpu_torch.kernels.clustered_scan",
         "wdbx_tpu_torch.index.ivf", "wdbx_tpu_torch.index.clustered",
+        "wdbx_tpu_torch.kernels.ivf_scan",
     ):
         assert mod in got["modules"], mod
     if not got["cuda"]:

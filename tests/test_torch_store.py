@@ -128,12 +128,14 @@ def test_unported_surfaces_raise(tmp_path):
 
 @pytest.mark.parametrize("kind,slice_", [
     ("ivf", None), ("hnsw", None), ("ivf_clustered", None),
-    ("ivf_dense", "slice 4"), ("sharded_flat", "slice 5"),
+    ("ivf_dense", None), ("sharded_flat", "slice 5"),
 ])
 def test_index_types_through_the_facade(tmp_path, kind, slice_):
-    """The clustered aliases serve through the port's ClusteredIVFIndex;
-    the dense-table and sharded engines raise, naming their slice."""
+    """The clustered aliases serve through the port's ClusteredIVFIndex
+    and ``ivf_dense`` through its dense IVFIndex; the sharded engines
+    raise, naming their slice."""
     from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+    from wdbx_tpu_torch.index.ivf import IVFIndex
 
     kw = dict(vector_dimension=DIM, data_dir=str(tmp_path / kind),
               enable_plugins=False, device="cpu",
@@ -143,7 +145,8 @@ def test_index_types_through_the_facade(tmp_path, kind, slice_):
             TWDBX(**kw)
         return
     db = TWDBX(**kw)
-    assert all(isinstance(ix, ClusteredIVFIndex) for ix in db.store.indices)
+    want = IVFIndex if kind == "ivf_dense" else ClusteredIVFIndex
+    assert all(type(ix) is want for ix in db.store.indices)
     assert db.store.verify()["consistent"]
 
 

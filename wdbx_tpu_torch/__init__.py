@@ -2,8 +2,9 @@
 
 The same vector database as ``wdbx_tpu`` (same config keys, slot
 contract and on-disk format), with the device slabs held as torch
-tensors and the fused score + top-k kernel written by hand in CUDA C++
-for Hopper (``csrc/fused_topk.cu``). Entry points run on the CUDA
+tensors and the kernels written by hand in CUDA C++ for Hopper
+(``csrc/``: the fused score + top-k, the clustered block scan and the
+IVF bucket scan). Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``:
 
     from wdbx_tpu_torch import WDBX

@@ -1,8 +1,9 @@
 """Carry index state across from host arrays (e.g. a ``wdbx_tpu`` index).
 
-``flat_index_from_arrays`` builds a port ``FlatIndex`` and
-``clustered_index_from_arrays`` a port ``ClusteredIVFIndex`` that
-compute the same thing as the index their arrays came from:
+``flat_index_from_arrays`` builds a port ``FlatIndex``,
+``clustered_index_from_arrays`` a port ``ClusteredIVFIndex`` and
+``ivf_index_from_arrays`` a port dense ``IVFIndex`` that compute the
+same thing as the index their arrays came from:
 
     arrays = {"slab": np.asarray(jax_index._slab),
               "valid": np.asarray(jax_index._valid),
@@ -23,6 +24,20 @@ the scalars of its ``.ivfc.json`` sidecar:
                 pos_quarantine=[...], block_rows=..., fresh_base=...)
     index = clustered_index_from_arrays(arrays, meta, device="cuda")
 
+For a dense IVF index add its bucket tables, residual list and the
+scalars of its ``.ivf.json`` sidecar (bf16 tables as ml_dtypes arrays or
+uint16 bits):
+
+    arrays.update(centroids=np.asarray(jax_index._centroids),   # trained
+                  bucket_slot=np.asarray(jax_index._bucket_slot),
+                  bucket_valid=np.asarray(jax_index._bucket_valid),
+                  bucket_rows=np.asarray(jax_index._bucket_rows),
+                  bucket_scale=np.asarray(jax_index._bucket_scale),  # int8
+                  residual=np.asarray(jax_index._residual))
+    meta.update(nlist=..., nprobe=..., assignments=..., built_size=...,
+                residual_base=..., quarantine=[...])
+    index = ivf_index_from_arrays(arrays, meta, device="cuda")
+
 A bf16 slab may come as an ml_dtypes bfloat16 array or as its uint16
 bits; both become a torch bfloat16 slab bit for bit.
 """
@@ -35,6 +50,7 @@ import numpy as np
 
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 from wdbx_tpu_torch.index.flat import FlatIndex
+from wdbx_tpu_torch.index.ivf import IVFIndex
 
 
 def flat_index_from_arrays(
@@ -53,6 +69,24 @@ def clustered_index_from_arrays(
         nlist=int(meta["nlist"]), nprobe=int(meta["nprobe"]),
     )
     index._restore_clustered(arrays, meta, None)
+    return index
+
+
+def ivf_index_from_arrays(
+    arrays: dict[str, np.ndarray], meta: dict[str, Any], device: Any = None
+) -> IVFIndex:
+    """The dense overlay goes in as ``load`` installs a checkpoint's;
+    without ``centroids`` the index is untrained."""
+    index = _place_flat(
+        IVFIndex, arrays, meta, device, nlist=int(meta["nlist"]),
+        nprobe=int(meta["nprobe"]),
+        assignments=int(meta.get("assignments", 1)),
+    )
+    index._built_size = int(meta.get("built_size", 0))
+    index._residual_base = int(meta.get("residual_base", 0))
+    index._quarantine = [int(s) for s in meta.get("quarantine", [])]
+    if "centroids" in arrays:
+        index._install_tables(arrays)
     return index
 
 

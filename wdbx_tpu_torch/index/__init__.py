@@ -1,7 +1,7 @@
 """Device-resident vector indexes (torch tensors on the CUDA device).
 
-The flat and clustered engines are ported; ``create_index`` raises
-``NotImplementedError`` for the dense IVF and sharded engines."""
+The flat, clustered and dense IVF engines are ported; ``create_index``
+raises ``NotImplementedError`` for the sharded engines."""
 
 from wdbx_tpu_torch.index.base import VectorIndex, create_index
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex

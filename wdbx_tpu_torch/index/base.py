@@ -1,8 +1,8 @@
 """Index ABC — the contract the store layer programs against.
 
 Torch port of ``wdbx_tpu/index/base.py``: the same ABC and the same
-``INDEX_TYPE`` alias routing. The flat and clustered engines are
-ported; aliases that route to the dense IVF or sharded engines raise
+``INDEX_TYPE`` alias routing. The flat, clustered and dense IVF engines
+are ported; aliases that route to the sharded engines raise
 ``NotImplementedError`` naming the ROADMAP slice that ports them.
 
 The reference's ``VectorIndex`` ABC (reference wdbx/core/indexing.py:18)
@@ -52,7 +52,6 @@ def _not_ported(kind: str, slice_: str) -> NotImplementedError:
     )
 
 
-_DENSE_IVF = "dense IVF engine (slice 4)"
 _SHARDED = "sharded engines (slice 5)"
 
 
@@ -265,7 +264,9 @@ def create_index(
             kwargs.pop("assignments", None)
             kind = "ivf_clustered"
         else:
-            raise _not_ported(kind, _DENSE_IVF)
+            from wdbx_tpu_torch.index.ivf import IVFIndex
+
+            return IVFIndex(dim, device=device, **kwargs)
     if kind == "ivf_clustered":
         from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 

@@ -54,10 +54,10 @@ from wdbx_tpu_torch.index.ivf import (
     FILTER_EXACT_THRESHOLD,
     IVFIndex,
     _filter_boost,
+    _probes,
     _residual_merge,
 )
 from wdbx_tpu_torch.kernels.quant import unpack_int4
-from wdbx_tpu_torch.ops.exact_search import f32_scores
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
 
@@ -91,14 +91,6 @@ def _block_rows(dim: int, itemsize: int, cap: int,
     while cap % c != 0 and c > 1:
         c //= 2
     return max(1, c)
-
-
-def _probes(q: torch.Tensor, centroids: torch.Tensor, nprobe: int,
-            precision: str) -> torch.Tensor:
-    """``(B, P)`` ids of each query's ``nprobe`` best centroids."""
-    cs = (f32_scores(q, centroids) if precision == "highest"
-          else q @ centroids.T)
-    return torch.topk(cs, min(nprobe, centroids.shape[0]), dim=-1).indices
 
 
 def _dedup_blocks(probe: torch.Tensor, blk_lo: torch.Tensor,
@@ -948,22 +940,6 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
             src, counts, centroids, new_slab, new_valid, new_scales
         )
 
-    def _gather_rows(self, slab, scales, idx: np.ndarray) -> torch.Tensor:
-        """Float32 rows at positions ``idx`` (dequantized; unit norm
-        for cosine)."""
-        ix = torch.as_tensor(idx, device=self.device)
-        rows = slab[ix]
-        if self._is_int4:
-            rows = unpack_int4(rows)
-        rows = rows.to(torch.float32)
-        if self._is_quantized:
-            rows = rows * scales[ix][:, None]
-        if self.metric == "cosine":
-            rows = rows / torch.clamp_min(
-                torch.linalg.norm(rows, dim=-1, keepdim=True), 1e-12
-            )
-        return rows
-
     def _cluster_plan(self, slab, scales, live_pos: np.ndarray):
         """Train and assign the live rows of ``slab`` (reads only; no
         index state touched). Returns ``(centroids, assign)`` numpy."""
@@ -1314,10 +1290,6 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
         if geom:
             return geom, geom["c"], geom["m"], geom["lo"], geom["hi"]
         return None, self._c, self._m, self._blk_lo, self._blk_hi
-
-    def _residual_tensor(self) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(self._residual, np.int64),
-                               device=self.device)
 
     def _scan(self, q, k, nprobe, pad_b, valid, residual):
         """One batch through the path JAX would take for a batch of width

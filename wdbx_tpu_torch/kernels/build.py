@@ -47,6 +47,13 @@ SIGNATURES = {
         ),
         "wdbx_clustered_block_partial_smem": (ctypes.c_size_t, [_I, _I]),
     },
+    "ivf_scan": {
+        "wdbx_ivf_bucket_partial": (
+            _I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _P, _P, _P],
+        ),
+        "wdbx_ivf_bucket_partial_warps": (_I, []),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
