@@ -8,20 +8,32 @@ Phases (each prints JSON lines; any failure exits non-zero):
              all started together) into the git-ignored build directory
   kernels    each kernel against its plain PyTorch version on the card:
              float32 / bf16 / int8 / int4 slabs, N=65,536, d=384, B=128,
-             k in {10, 256}, ~10% invalid rows, plus all-invalid and
-             k > valid cases; then ragged shapes (B=5 and 37, N off the
-             128-row tile, k=1 and 1024, d=100)
+             k in {10, 256} (float32: {1, 10, 128, 256, 1024}, each query
+             tile of the tiled body), ~10% invalid rows, plus all-invalid
+             and k > valid cases; then ragged shapes (B=5 and 37, N off
+             the 128-row tile, k=1 and 1024, d=100, float32 d=98); the
+             scan body of every launch (a float32 view off a 16-byte
+             boundary and d=98 must take the CUDA-core body, the other
+             float32 cases the tiled one); a corpus of duplicated rows
+             searched twice must give identical slots
   main       the facade: WDBX(INDEX_DTYPE=bfloat16) bulk-loads 1,048,576
              unit rows, answers vector_search_batch (B=128) and
              vector_search; every hit list is held against the plain
              version on the index's slab, and recall@10 against a float32
              oracle must reach 0.9938
+  default_facade
+             WDBX() with the default INDEX_DTYPE (float32 flat) at
+             1,048,576 x 384: vector_search_batch (B=128) held against
+             the plain version, recall@10 gated at 0.9938, and the tiled
+             float32 body must have served it
   pipelined  FlatIndex.search_pipelined at bench.py's operating point
              (NB=64, B=128, k=10) for float32, bf16, int8 and int4 slabs,
              timed with CUDA events; all NB batches of its output are held
              against the plain version, and the float32 and bf16 raw
-             recall@10 must reach 0.9938; one batch of 128 times the
-             kernels, the plain version and the library call; then an
+             recall@10 must reach 0.9938 (float32 must run the tiled
+             body); one batch of 128 times the kernels (also with every
+             row masked: stage 1 without selection), the merge, the
+             plain version and the library call; then an
              int8 facade search with the raw-store rerank (RAW_STORE=ram),
              whose recall@10 must reach 0.9938 too
   clustered_kernels
@@ -47,8 +59,10 @@ Phases (each prints JSON lines; any failure exits non-zero):
              (exact masked route) filter selectivity, and vector_search;
              every kernel-path call of the index against the plain
              version, recall@10 gated at 0.95, and the unfiltered batch's
-             block list must not cover every live block; then float32, bf16 and int4 clustered indexes (int4
-             also with int8 queries) through search_pipelined, timed
+             block list must not cover every live block; then float32,
+             bf16 and int4 clustered indexes (int4 also with int8
+             queries) through search_pipelined, timed (float32 must run
+             the tiled body)
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -66,13 +80,15 @@ Phases (each prints JSON lines; any failure exits non-zero):
              B=64); an int8 index (lax, int8 tables); the SOAR facade
              (INDEX_TYPE=ivf, IVF_ASSIGNMENTS=2) with a save / load round
              trip; K5 stage 1 / stage 2 / call times beside the bound
-Then a "kernels" line (launches on the driven paths, times, bounds) and,
-last, {"ok": true, "device": {...}}.
+Then a "paths" line (launches of each driven path, by kernel and by
+stage-1 scan body), a "kernels" line (launches on the driven paths,
+times, bounds; the float32 rows also their body, score-only and merge
+times) and, last, {"ok": true, "device": {...}}.
 
-Launch counts: every path (main, each pipelined slab, the int8 facade,
-each clustered path) runs with the kernels' counters set to 0 just
-before it and read just after; comparison and timing launches are never
-counted.
+Launch counts: every path (main, the default facade, each pipelined
+slab, the int8 facade, each clustered path) runs with the kernels'
+counters set to 0 just before it and read just after; comparison and
+timing launches are never counted.
 """
 
 from __future__ import annotations
@@ -96,6 +112,8 @@ RECALL_BAR = 0.9938  # recall@10 at bench.py's operating point (BENCH_r05)
 N_ROWS = 1 << 20  # bench.py's corpus: 1,048,576 x 384
 KERNEL_ROWS = 65536  # rows of the kernel-against-plain cases
 ATOL = 1e-4  # kernel vs plain: same exact products, other summation order
+# float32 k of the kernel cases: each picks a query tile of the tiled body
+F32_KS = (1, 10, 128, 256, 1024)
 REPLACES = {
     "float32": "wdbx_tpu/kernels/fused_topk.py:153",
     "bfloat16": "wdbx_tpu/kernels/fused_topk.py:153",
@@ -246,41 +264,76 @@ def _slab(dtype, x):
     return x.to(getattr(torch, dtype)), None, False
 
 
+def _body_of(run):
+    """The scan body of the one stage-1 launch ``run()`` makes, and its
+    result."""
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    before = dict(tf.fused_topk_partial.bodies)
+    out = run()
+    ran = [b for b, c in tf.fused_topk_partial.bodies.items()
+           if c != before[b]]
+    if len(ran) != 1:
+        fail(f"expected one stage-1 launch, bodies moved: {ran}")
+    return ran[0], out
+
+
 def phase_kernels(n_rows, seed):
     """Each slab type's kernels against the plain version: at the main
     width (d=384, B=128) and at ragged shapes (B and N off the tiles,
-    k=1 and k=1024, and d=100, which takes the CUDA-core body)."""
+    k=1 and k=1024, d=100 and d=98). float32 runs k in {1, 10, 128, 256,
+    1024} at B=128, which picks each query tile of the tiled body (128,
+    128, 64, 32, 16); an unaligned float32 view and d=98 must take the
+    CUDA-core body; a corpus of duplicated rows must give the same slots
+    on two runs."""
     import torch
 
     from wdbx_tpu_torch.kernels import fused_topk as tf
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    shapes = [(n_rows, 384, 128, (10, 256)), (10_000, 384, 5, (1, 1024)),
-              (3_000, 100, 37, (10,))]
-    errs = {}
-    for n, d, b, ks in shapes:
+    every = ("float32", "bfloat16", "int8", "int4")
+    shapes = [(n_rows, 384, 128, (10, 256), every),
+              (10_000, 384, 5, (1, 1024), every),
+              (3_000, 100, 37, (10,), every),
+              (3_000, 98, 37, (10,), ("float32",))]
+    errs, bodies = {}, {}
+    for n, d, b, ks, dtypes in shapes:
         x = torch.randn((n, d), generator=g, device="cuda")
         x = x / x.norm(dim=1, keepdim=True)
         q = torch.randn((b, d), generator=g, device="cuda")
         valid = torch.rand((n,), generator=g, device="cuda") > 0.1
-        for dtype in ("float32", "bfloat16", "int8", "int4"):
+        for dtype in dtypes:
             slab, scales, int4 = _slab(dtype, x)
             qk = tf._prep_queries(slab, q, scales, True)
             rescore = rescorer(slab, qk, scales, int4)
-            cases = [(f"k{k}", valid, k) for k in ks]
-            if n == n_rows and dtype in ("bfloat16", "int4"):
+            kk = F32_KS if dtype == "float32" and n == n_rows else ks
+            cases = [(f"k{k}", slab, valid, k) for k in kk]
+            if n == n_rows and dtype in ("float32", "bfloat16", "int4"):
                 few = torch.zeros_like(valid)
                 few[torch.randperm(n, generator=g, device="cuda")[:5]] = True
-                cases += [("all_invalid", torch.zeros_like(valid), 10),
-                          ("k_gt_valid", few, 10)]
-            for case, vmask, k in cases:
-                ref = tf.fused_topk_plain(slab, qk, vmask, k, scales=scales,
+                cases += [("all_invalid", slab, torch.zeros_like(valid), 10),
+                          ("k_gt_valid", slab, few, 10)]
+            if n == n_rows and dtype == "float32":
+                # a view 4 bytes off a 16-byte boundary
+                buf = torch.empty(n * d + 1, device="cuda")
+                view = buf[1:].view(n, d)
+                view.copy_(slab)
+                cases.append(("unaligned_view", view, valid, 10))
+            for case, sl, vmask, k in cases:
+                ref = tf.fused_topk_plain(sl, qk, vmask, k, scales=scales,
                                           int4=int4)
-                pv, pi = tf.fused_topk_partial(slab, qk, vmask, k,
-                                               scales=scales, int4=int4)
+                body, (pv, pi) = _body_of(lambda: tf.fused_topk_partial(
+                    sl, qk, vmask, k, scales=scales, int4=int4))
                 got = tf.topk_merge_partials(pv, pi, k)
                 torch.cuda.synchronize()
                 name = f"{dtype}/n{n}_d{d}_b{b}/{case}"
+                if dtype == "float32":
+                    unaligned = sl.data_ptr() % 16 != 0
+                    if unaligned != (case == "unaligned_view"):
+                        fail(f"{name}: slab alignment is not the case's")
+                    want = "fma" if unaligned or d % 4 else "fma_tiled"
+                    if body != want:
+                        fail(f"{name}: ran the {body} body, expected {want}")
                 err = check_topk(name, ref, got, rescore)
                 merge_err = check_topk(name + "/merge",
                                        tf.merge_partials_plain(pv, pi, k),
@@ -289,14 +342,52 @@ def phase_kernels(n_rows, seed):
                 errs[key] = max(errs.get(key, 0.0), err)
                 errs["topk_merge_partials"] = max(
                     errs.get("topk_merge_partials", 0.0), merge_err)
+                bodies.setdefault(key, set()).add(body)
                 emit({"phase": "kernels", "case": name, "n": n, "d": d,
-                      "b": b, "k": k, "max_abs_err": err, "tol": ATOL,
+                      "b": b, "k": k, "body": body, "parts": pv.shape[1],
+                      "max_abs_err": err, "tol": ATOL,
                       "merge_max_abs_err": merge_err})
             del slab, scales
     v, i = tf.fused_topk_search(x.to(torch.bfloat16), q[:0], valid, k=10)
     if v.shape != (0, 10) or i.shape != (0, 10):
         fail(f"empty batch gave {tuple(v.shape)} / {tuple(i.shape)}")
+    phase_determinism(g, errs)
+    emit({"phase": "kernels", "bodies": {k: sorted(v)
+                                         for k, v in bodies.items()}})
     return errs
+
+
+def phase_determinism(g, errs):
+    """The float32 body on a corpus of 8 copies of 8,192 rows (copies
+    8,192 rows apart, so in other chunks): two runs give the same scores
+    and slots bit for bit, and k=11 cuts through a group of copies, so
+    the plain version may pick other copies: equal except at ties."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    base = torch.randn((8192, 384), generator=g, device="cuda")
+    x = (base / base.norm(dim=1, keepdim=True)).repeat(8, 1)
+    q = tf._prep_queries(x, torch.randn((128, 384), generator=g,
+                                        device="cuda"), None, True)
+    valid = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
+    runs = []
+    for _ in range(2):
+        body, (pv, pi) = _body_of(
+            lambda: tf.fused_topk_partial(x, q, valid, 11))
+        runs.append((pv, pi) + tf.topk_merge_partials(pv, pi, 11))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    err = check_topk("float32/duplicates/k11",
+                     tf.fused_topk_plain(x, q, valid, 11), runs[0][2:],
+                     rescorer(x, q))
+    emit({"phase": "kernels", "case": "float32/duplicates/k11",
+          "body": body, "copies": 8, "identical_runs": same,
+          "max_abs_err": err, "tol": ATOL})
+    if body != "fma_tiled" or not same:
+        fail(f"duplicates: body {body}, identical runs {same}")
+    errs["fused_topk_partial[float32]"] = max(
+        errs["fused_topk_partial[float32]"], err)
 
 
 def _counts():
@@ -306,9 +397,13 @@ def _counts():
 
     c = {f"fused_topk_partial[{k}]": v
          for k, v in tf.fused_topk_partial.launches.items()}
+    c.update({f"fused_topk_partial.bodies.{k}": v
+              for k, v in tf.fused_topk_partial.bodies.items()})
     c["topk_merge_partials"] = tf.topk_merge_partials.launches
     c.update({clu_name(k): v
               for k, v in cs.clustered_block_partial.launches.items()})
+    c.update({f"clustered_block_partial.bodies.{k}": v
+              for k, v in cs.clustered_block_partial.bodies.items()})
     c.update({f"ivf_bucket_partial[{k}]": v
               for k, v in ivs.ivf_bucket_partial.launches.items()})
     return c
@@ -439,6 +534,48 @@ def phase_main(x, qs, truth, paths, tmp):
     return err
 
 
+def phase_default_facade(x, qs, truth, paths, tmp):
+    """WDBX() as a user gets it, INDEX_DTYPE left at its float32 default:
+    a batch of 128 through the facade, held against the plain version,
+    recall@10 gated, served by the tiled float32 body."""
+    from wdbx_tpu_torch import WDBX
+    from wdbx_tpu_torch.index.flat import FlatIndex
+
+    n_rows = len(x)
+    db = WDBX(vector_dimension=384, enable_plugins=False,
+              data_dir=os.path.join(tmp, "default"),
+              config={"INDEX_CAPACITY": n_rows, "RAW_STORE": "none",
+                      "VECTOR_STORE_AUTOSAVE_INTERVAL": 0})
+    index = db.store.indices[0]
+    if not isinstance(index, FlatIndex) or index.dtype_name != "float32":
+        fail(f"WDBX() gave {type(index).__name__} "
+             f"{getattr(index, 'dtype_name', '?')}")
+    t0 = time.perf_counter()
+    db.store.bulk_load([str(i) for i in range(n_rows)], x)
+    load_s = time.perf_counter() - t0
+    _reset()
+    t0 = time.perf_counter()
+    hits = db.vector_search_batch(qs[0], limit=10)
+    wall = time.perf_counter() - t0
+    name = "default_facade"
+    paths[name] = _counts()
+    if paths[name]["fused_topk_partial[float32]"] < 1 or \
+            paths[name]["fused_topk_partial.bodies.fma_tiled"] < 1:
+        fail(f"WDBX() did not run the tiled float32 body: {paths[name]}")
+    err = check_facade("default_facade/vector_search_batch", db, qs[0],
+                       hits)
+    rec = _recall(hits, truth[: qs.shape[1]])
+    emit({"phase": "default_facade", "n": n_rows, "dtype": "float32",
+          "bulk_load_s": round(load_s, 3), "b": qs.shape[1],
+          "search_wall_s": round(wall, 4), "max_abs_err_vs_plain": err,
+          "tol": ATOL, "recall_at_10": rec, "recall_bar": RECALL_BAR,
+          "launches": _nonzero(paths[name])})
+    if rec < RECALL_BAR:
+        fail(f"default facade recall@10 {rec} < {RECALL_BAR}")
+    del db, index
+    return err
+
+
 def _bound_ms(dtype, n, d, b, k) -> tuple[float, str]:
     row = {"float32": 4 * d, "bfloat16": 2 * d, "int8": d, "int4": d // 2}
     nbytes = n * row[dtype] + n  # slab + validity
@@ -467,6 +604,11 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
         scores, slots = index.search_pipelined(qstack, k=k)
         paths[f"pipelined[{dtype}]"] = _counts()
         name = f"fused_topk_partial[{dtype}]"
+        body = "fma_tiled" if dtype == "float32" else "mma"
+        if paths[f"pipelined[{dtype}]"][
+                f"fused_topk_partial.bodies.{body}"] < 1:
+            fail(f"pipelined {dtype} did not run the {body} body: "
+                 f"{paths[f'pipelined[{dtype}]']}")
         if scores.shape != (nb, b, k) or slots.shape != (nb, b, k):
             fail(f"pipelined {dtype}: result shape {scores.shape}")
         # the main path's own output (one launch pair over NB*B queries)
@@ -523,7 +665,8 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
         mb_bytes = pv.numel() * 8 + b * k * 12
         timings[name] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": library_ms,
+            "bound_by": by, "library_ms": library_ms, "body": body,
+            "score_only_ms": score_only_ms, "parts": pv.shape[1],
             "merge_ms": merge_ms, "merge_plain_ms": merge_plain_ms,
             "merge_library_ms": merge_library_ms,
             "merge_bound_ms": mb_bytes / HBM_BYTES_S * 1e3,
@@ -532,7 +675,8 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
               "b": b, "k": k, "call_ms": call_ms,
               "ms_per_batch": call_ms / nb, "qps": nb * b / call_ms * 1e3,
               "kernel_ms_b128": ms, "score_only_ms_b128": score_only_ms,
-              "merge_ms_b128": merge_ms,
+              "merge_ms_b128": merge_ms, "body": body,
+              "parts_b128": pv.shape[1],
               "bound_ms_b128": bound, "bound_by": by,
               "plain_ms_b128": plain_ms, "library_ms_b128": library_ms,
               "max_abs_err_vs_plain": errs[name], "tol": ATOL,
@@ -695,12 +839,18 @@ def time_block_scan(index, q, k, nprobe, gen, qprec):
     qn, uniq, ok, c = _block_list(index, q, k, b, valid, nprobe)
     qq, qs, _ = prep_query_block(qn, slab.dtype, scales is not None, qprec)
 
-    def stage1():
-        return cs.clustered_block_partial(slab, valid, scales, uniq, ok, qq,
+    def stage1(v=valid):
+        return cs.clustered_block_partial(slab, v, scales, uniq, ok, qq,
                                           qs, k, c, int4=int4, gen=gen)
 
     ms = cuda_ms(stage1)
+    # every row masked (same block list): stage 1 without the selection
+    none_valid = torch.zeros_like(valid)
+    score_only_ms = cuda_ms(lambda: stage1(none_valid))
+    before = dict(cs.clustered_block_partial.bodies)
     pv, pi = stage1()
+    body = [b for b, n in cs.clustered_block_partial.bodies.items()
+            if n != before[b]][0]
     merge_ms = cuda_ms(lambda: tf.topk_merge_partials(pv, pi, k))
     plain_ms = cuda_ms(lambda: cs.clustered_block_topk_plain(
         slab, valid, scales, uniq, ok, qn, k, c, int4=int4, qprec=qprec),
@@ -723,9 +873,11 @@ def time_block_scan(index, q, k, nprobe, gen, qprec):
     skey = "int4" if int4 else str(slab.dtype).replace("torch.", "")
     qtype = str(qq.dtype).replace("torch.", "")
     bound, by = _block_bound_ms(skey, qtype, live, c, d, b, k, len(uniq))
-    return {"ms": ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
-            "live_blocks": live, "u": int(len(uniq)), "c": c}
+    return {"ms": ms, "score_only_ms": score_only_ms, "merge_ms": merge_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "body": body,
+            "parts": int(pv.shape[1]), "live_blocks": live,
+            "u": int(len(uniq)), "c": c}
 
 
 def phase_clustered_kernels(seed, errs):
@@ -770,14 +922,21 @@ def phase_clustered_kernels(seed, errs):
                     for case, u_, ok_ in lists:
                         kw = dict(int4=int4, qprec=qprec) if gen == "v2" \
                             else {}
+                        before = dict(cs.clustered_block_partial.bodies)
                         got = wrapper(slab, valid, scales, u_, ok_, q, k=k,
                                       c=c, **kw)
+                        body = [x for x, n in
+                                cs.clustered_block_partial.bodies.items()
+                                if n != before[x]]
                         ref = cs.clustered_block_topk_plain(
                             slab, valid, scales, u_, ok_, q, k, c,
                             int4=int4, qprec=qprec)
                         torch.cuda.synchronize()
                         key = clu_name(cs.mode_key(gen, sk, qk))
                         name = f"{key}/c{c}_b{b}_k{k}/{case}"
+                        want = "fma_tiled" if sk == "float32" else "mma"
+                        if body != [want]:
+                            fail(f"{name}: ran {body}, expected {want}")
                         err = check_topk(name, ref, got, rescore)
                         if case == "all_dead" and not torch.isneginf(
                                 got[0]).all():
@@ -1114,8 +1273,11 @@ def phase_clustered_facade(seed, paths, timings, errs, tmp):
         torch.cuda.synchronize()
         paths[name] = _counts()
         key = clu_name(cs_key("v2", dtype, qprec))
-        if paths[name][key] < 1:
-            fail(f"{name} did not run {key}: {paths[name]}")
+        body = "fma_tiled" if dtype == "float32" else "mma"
+        if paths[name][key] < 1 or \
+                paths[name][f"clustered_block_partial.bodies.{body}"] < 1:
+            fail(f"{name} did not run {key} with the {body} body: "
+                 f"{paths[name]}")
         err, live = check_pipelined(name, index, qstack, k, out)
         errs[key] = max(errs.get(key, 0.0), err)
         tm = time_block_scan(index, qstack[0], k, 1, "v2", qprec)
@@ -1584,6 +1746,14 @@ def phase_dense_ivf(seed, paths, timings, errs, tmp):
     torch.cuda.empty_cache()
 
 
+def _f32_extras(dtype, t) -> dict:
+    """The float32 rows' scan body, stage-1 time with every row masked
+    (no selection), stage-2 time on their partials and the part count."""
+    if dtype != "float32":
+        return {}
+    return {k: t[k] for k in ("body", "score_only_ms", "merge_ms", "parts")}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1607,6 +1777,9 @@ def main() -> None:
         main_err = phase_main(x, qs, truth, paths, tmp)
         errs["fused_topk_partial[bfloat16]"] = max(
             errs["fused_topk_partial[bfloat16]"], main_err)
+        errs["fused_topk_partial[float32]"] = max(
+            errs["fused_topk_partial[float32]"],
+            phase_default_facade(x, qs, truth, paths, tmp))
         phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs)
         del x, x_dev
         torch.cuda.empty_cache()
@@ -1627,6 +1800,7 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **_f32_extras(dtype, t),
         })
     mt = timings["fused_topk_partial[bfloat16]"]
     kernels.append({
@@ -1651,6 +1825,7 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **_f32_extras(slab, t),
         })
     for dtype in ("bfloat16", "float32"):
         name = f"ivf_bucket_partial[{dtype}]"

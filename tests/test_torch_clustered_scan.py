@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fused_topk import tiled_smem
 from test_torch_ops import TOL, assert_topk_match
 from wdbx_tpu.index.clustered import _dedup_blocks as j_dedup
 from wdbx_tpu.kernels import quant as jquant
@@ -21,6 +22,7 @@ from wdbx_tpu.kernels.clustered_scan import clustered_block_topk as j_v1
 from wdbx_tpu.kernels.clustered_scan import clustered_block_topk_v2 as j_v2
 from wdbx_tpu_torch.index.clustered import _dedup_blocks as t_dedup
 from wdbx_tpu_torch.kernels import clustered_scan as tcs
+from wdbx_tpu_torch.kernels import fused_topk as tf
 
 torch.set_num_threads(2)
 
@@ -216,3 +218,31 @@ def test_dedup_blocks_skewed_counts_clamp():
     np.testing.assert_array_equal(uj, ut)
     np.testing.assert_array_equal(oj, ot)
     assert set(range(16)) <= set(ut[ot].tolist())
+
+
+@pytest.mark.parametrize("u,b,k", [(512, 128, 10), (256, 128, 10),
+                                   (1, 1, 10), (24, 128, 128),
+                                   (4096, 8192, 128), (37, 5, 128),
+                                   (8192, 128, 1)])
+def test_plan_tiled_groups_whole_waves(u, b, k):
+    qt, ways, groups = tcs.plan(u, b, k, 132, tiled_smem, body="fma_tiled")
+    smem = tiled_smem(qt, tf.tiled_cap(qt, k, tiled_smem))
+    assert qt in tf.TILED_QT and smem <= tf.SMEM_MAX and ways == 0
+    assert qt >= min(b, 128) or tiled_smem(2 * qt, tf._cap(k)) > tf.SMEM_MAX
+    # a CTA's span of the live tiles stays within 32 list entries
+    assert groups * 31 >= u and groups <= 65535
+    # the grid is a whole number of waves
+    assert (-(-b // qt) * groups) % tf.cta_slots(132, smem) == 0
+
+
+def test_plan_tiled_block_scan_at_the_driven_point():
+    # 1M x 384 float32, nprobe 1, B=128 on 132 SMs: one wave of 132 CTAs
+    assert tcs.plan(512, 128, 10, 132, tiled_smem,
+                    body="fma_tiled") == (128, 0, 132)
+
+
+def test_plan_tiled_block_scan_fits_every_k():
+    # the clustered kernel path serves k <= 128 (KERNEL_K_MAX)
+    for k in range(1, 129):
+        qt = tcs.plan(512, 128, k, 132, tiled_smem, body="fma_tiled")[0]
+        assert tiled_smem(qt, tf._cap(k)) <= tf.SMEM_MAX

@@ -106,3 +106,83 @@ def test_plan_covers_slab_in_row_tiles():
         qt, chunks, rows = tf.plan(n, b, k, 132, smem)
         assert rows % 128 == 0 and chunks * rows >= n > (chunks - 1) * rows
         assert qt in (16, 64) and chunks <= 65535
+
+
+def tiled_smem(qt, cap):
+    """Shared memory of a tiled float32 CTA (``csrc/topk_common.cuh``):
+    the 3-stage ring of (128 + qt) rows x 36 words, then the CtaSel."""
+    return 4 * (3 * (128 + qt) * 36 + 8 * 256 + 2 * qt + 2 * qt * cap)
+
+
+@pytest.mark.parametrize("n,b,k", [
+    (1 << 20, 128, 10), (1 << 20, 8192, 10), (1 << 20, 1, 10),
+    (65536, 128, 1), (65536, 128, 128), (65536, 128, 256),
+    (65536, 128, 1024), (10_000, 5, 1024), (100, 3, 1)])
+def test_plan_tiled_covers_slab_in_whole_waves(n, b, k):
+    qt, chunks, rows = tf.plan(n, b, k, 132, tiled_smem, body="fma_tiled")
+    smem = tiled_smem(qt, tf.tiled_cap(qt, k, tiled_smem))
+    assert qt in tf.TILED_QT and smem <= tf.SMEM_MAX
+    assert qt >= min(b, 128) or tiled_smem(2 * qt, tf._cap(k)) > tf.SMEM_MAX
+    assert rows % 128 == 0 and chunks * rows >= n > (chunks - 1) * rows
+    assert chunks <= 65535
+    # every SM gets an equal share: the waves times the longest chunk
+    # stay within 5% (and 2 tiles) of the tiles per CTA slot
+    slots = tf.cta_slots(132, smem)
+    qtiles, tiles = -(-b // qt), -(-n // 128)
+    waves = -(-qtiles * chunks // slots)
+    assert waves * rows // 128 <= 1.05 * qtiles * tiles / slots + 2
+
+
+def test_plan_tiled_at_the_driven_point():
+    # 1M x 384, B=128, k=10 on 132 SMs: one wave of 131 chunks of 63 tiles
+    assert tf.plan(1 << 20, 128, 10, 132, tiled_smem,
+                   body="fma_tiled") == (128, 131, 63 * 128)
+
+
+@pytest.mark.parametrize("b", [1, 16, 40, 128, 8192])
+def test_plan_tiled_fits_every_k(b):
+    for k in range(1, tf.K_MAX + 1):
+        qt = tf.plan(1 << 20, b, k, 132, tiled_smem, body="fma_tiled")[0]
+        assert tiled_smem(qt, tf._cap(k)) <= tf.SMEM_MAX
+        assert qt == tf.tiled_qt(b, k, tiled_smem)
+
+
+@pytest.mark.parametrize("slab,qtype,d,db_off,q_off,want", [
+    ("float32", "float32", 384, 0, 0, "fma_tiled"),
+    ("float32", "float32", 100, 0, 0, "fma_tiled"),  # 100 % 4 == 0
+    ("float32", "float32", 98, 0, 0, "fma"),
+    ("float32", "float32", 384, 4, 0, "fma"),
+    ("float32", "float32", 384, 0, 8, "fma"),
+    ("bfloat16", "bfloat16", 384, 0, 0, "mma"),
+    ("bfloat16", "bfloat16", 100, 0, 0, "fma"),
+    ("bfloat16", "bfloat16", 384, 2, 0, "fma"),
+    ("int8", "bfloat16", 96, 0, 0, "mma"),
+    ("int8", "int8", 96, 0, 0, "fma"),  # s8 products take 64 dims a slice
+    ("int4", "int8", 768, 0, 0, "mma"),
+])
+def test_scan_body_rule(slab, qtype, d, db_off, q_off, want):
+    assert tf.scan_body(slab, qtype, d, 4096 + db_off, 8192 + q_off) == want
+
+
+def test_scan_body_of_an_unaligned_view():
+    buf = torch.zeros(64 * 384 + 1)
+    view, whole = buf[1:].view(64, 384), buf[:-1].view(64, 384)
+    q = torch.zeros((5, 384))
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert tf.scan_body("float32", "float32", 384, view.data_ptr(),
+                        q.data_ptr()) == "fma"
+    assert tf.scan_body("float32", "float32", 384, whole.data_ptr(),
+                        q.data_ptr()) == ("fma_tiled"
+                                          if whole.data_ptr() % 16 == 0
+                                          else "fma")
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 45, 46, 64, 100, 128, 1024])
+def test_tiled_cap_grows_into_the_spare_shared_memory(k):
+    for b in (1, 128):
+        qt = tf.tiled_qt(b, k, tiled_smem)
+        cap = tf.tiled_cap(qt, k, tiled_smem)
+        assert tf._cap(k) <= cap <= max(tf._cap(k), 128)
+        assert tiled_smem(qt, cap) <= tf.SMEM_MAX
+        assert cap == max(tf._cap(k), 128) or \
+            tiled_smem(qt, cap + 1) > tf.SMEM_MAX

@@ -14,27 +14,41 @@
 // row. v1 is the same function with bf16 / float32 queries, so it is a
 // mode of the same kernel with its own launch counter (in Python).
 //
-// Bound on an H100 (3.35 TB/s HBM): the listed blocks' bytes. At 10M x
-// 768 int8, c = 1,024, nprobe 1 and B = 128, some 420 live blocks of
-// 0.79 MB: 0.33 GB, about 0.1 ms per batch; their bf16 tensor-core work
-// (2 B blocks c d = 83 GFLOP) is another 0.08 ms at 989 TFLOP/s.
+// Bound on an H100 (3.35 TB/s HBM, 67 TFLOP/s of float32 FMAs): the
+// listed blocks' bytes for bf16 / int8 / int4 rows. At 10M x 768 int8,
+// c = 1,024, nprobe 1 and B = 128, some 420 live blocks of 0.79 MB: 0.33
+// GB, about 0.1 ms per batch; their bf16 tensor-core work (2 B blocks c d
+// = 83 GFLOP) is another 0.08 ms at 989 TFLOP/s. float32 rows are bound
+// by operations: true float32 runs on the CUDA cores, and at 1M x 384,
+// nprobe 1, B = 128 (~190 live blocks of 1,024 rows) the 19 GFLOP take
+// 0.29 ms against 0.09 ms of bytes.
 //
 // Design. On the TPU a sequential grid walks the block list, with the
 // block ids scalar-prefetched into the index maps and the running top-k
 // in VMEM. Here stage 1 (clustered_block_partial) runs on a grid of
-// (query tiles) x (groups of `ways` consecutive block-list entries). Each
-// CTA reads its own entries of uniq / ok from device memory (no host
-// sync on the list), keeps the blocks with ok != 0 (the dedup padding is
-// skipped: it loads nothing), and scores their c-row tiles for its query
-// tile with the scan bodies of topk_common.cuh, the same code as the
-// fused flat scan: mma.sync bf16 for bf16 rows and for int8 / int4 rows
-// against bf16 queries (int8 converted, int4 unpacked in registers after
-// the load), mma.sync s8 m16n8k32 for int8 / int4 rows against int8
-// queries, CUDA-core float32 FMAs for float32 slabs and for widths off
-// the tensor-core slices. Row scale, query scale and the validity mask
-// apply before the per-query top-k, which a CTA writes to its group's
-// slot of (B, groups, k). A CTA whose entries are all ok = 0 writes
-// -inf / -1 partials. Stage 2 is topk_merge_partials of fused_topk.cu.
+// (query tiles) x (groups). Each CTA reads the block list uniq / ok from
+// device memory itself (no host sync on the list), keeps the blocks with
+// ok != 0 (the dedup padding is skipped: it loads nothing), and scores
+// their c-row tiles for its query tile with the scan bodies of
+// topk_common.cuh, the same code as the fused flat scan, named by the
+// launcher:
+//   * mma.sync bf16 for bf16 rows and for int8 / int4 rows against bf16
+//     queries (int8 converted, int4 unpacked in registers after the
+//     load), mma.sync s8 m16n8k32 for int8 / int4 rows against int8
+//     queries; a group is `ways` consecutive list entries;
+//   * float32 rows with float32 queries, d % 4 == 0 and 16-byte aligned
+//     operands: scan_fma_tiled (128 x 128 register tiles of float32
+//     FMAs, a 3-stage cp.async ring, selection from registers; TF32
+//     stays off). Every CTA counts the live entries of the whole list and
+//     takes an equal span of their 128-row tiles, so a 1,024-row block
+//     may be split across CTAs and the grid, a whole number of waves,
+//     ends together however many entries are live;
+//   * scan_fma (CUDA-core float32 FMAs) for widths off those rules and
+//     unaligned views.
+// Row scale, query scale and the validity mask apply before the
+// per-query top-k, which a CTA writes to its group's slot of (B, groups,
+// k). A CTA with no live tile writes -inf / -1 partials. Stage 2 is
+// topk_merge_partials of fused_topk.cu.
 // Selection is exact: `group` and `n_ways` of the TPU kernels (the
 // approximate grouped and pair reductions) are not reproduced, which can
 // only raise recall against them. The int8-query scale is applied to
@@ -92,20 +106,94 @@ clustered_block_partial_kernel(const void* __restrict__ db,
   sel.write(q0, b, group, gridDim.y, part_v, part_i, warp, lane);
 }
 
-template <int SLAB, int QTYPE, int TQ>
-cudaError_t launch_partial(const void* db, const void* q, const void* qscale,
-                           const void* valid, const void* scales,
-                           const void* uniq, const void* ok, int n, int u,
-                           int ways, int c, int d, int b, int k, int cap,
-                           int groups, void* part_v, void* part_i,
-                           cudaStream_t stream) {
+// The float32 body: each CTA takes an equal span of the live entries'
+// 128-row tiles; groups * (kMaxWays - 1) >= u keeps a span within
+// kMaxWays entries.
+template <int TQ>
+__global__ void __launch_bounds__(kThreads, 1)
+clustered_tiled_kernel(const float* __restrict__ db,
+                       const float* __restrict__ q,
+                       const uint8_t* __restrict__ valid,
+                       const int* __restrict__ uniq,
+                       const int* __restrict__ ok, int nblocks, int u, int c,
+                       int d, int b, int k, int cap,
+                       float* __restrict__ part_v, int* __restrict__ part_i) {
   constexpr int QT = 16 * TQ;
-  const bool aligned = reinterpret_cast<uintptr_t>(db) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  // tensor cores when the width fills whole slices (32 bf16 or 64 int8
-  // dims) and the operands are 16-byte aligned
-  const bool tensor_cores =
-      SLAB != kF32 && aligned && d % (QTYPE == kQI8 ? 64 : 32) == 0;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int blk[kMaxWays];
+  __shared__ int wsum[kWarps];
+  const CtaSel sel(reinterpret_cast<uint32_t*>(smem) + fma_tiled_words(QT),
+                   QT, cap, k);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * QT;
+  const int group = blockIdx.y, groups = gridDim.y;
+  auto live = [&](int e) {
+    if (e >= u || ok[e] == 0) return false;
+    const int id = uniq[e];
+    return id >= 0 && id < nblocks;
+  };
+  int nlive = 0;
+  for (int base = 0; base < u; base += kThreads)
+    nlive += __syncthreads_count(live(base + tid));
+  // this CTA's tiles [t0, t1) of the live entries' tiles, in list order
+  const int per = (c + kTRows - 1) / kTRows;
+  const long long total = (long long)nlive * per;
+  const long long span = (total + groups - 1) / groups;
+  const long long t0 = group * span, t1 = min(t0 + span, total);
+  const int ntiles = t1 > t0 ? (int)(t1 - t0) : 0;
+  const int e_lo = ntiles ? (int)(t0 / per) : 0;
+  const int e_hi = ntiles ? (int)((t1 - 1) / per) : -1;
+  int rank0 = 0;  // live entries before this pass
+  for (int base = 0; base < u && rank0 <= e_hi; base += kThreads) {
+    const int e = base + tid;
+    const bool f = live(e);
+    const unsigned m = __ballot_sync(kFull, f);
+    if (lane == 0) wsum[warp] = __popc(m);
+    __syncthreads();
+    int rank = rank0 + __popc(m & lanes_below(lane)), all = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) rank += wsum[w];
+      all += wsum[w];
+    }
+    if (f && rank >= e_lo && rank <= e_hi) blk[rank - e_lo] = uniq[e];
+    rank0 += all;
+    __syncthreads();
+  }
+  const SpanTiles tiles{blk, ntiles ? (int)(t0 - (long long)e_lo * per) : 0,
+                        ntiles, c};
+  scan_fma_tiled<TQ>(tiles, sel, smem, db, q, valid, d, b, q0);
+  sel.write<true>(q0, b, group, groups, part_v, part_i, warp, lane);
+}
+
+template <int TQ>
+cudaError_t launch_tiled(const void* db, const void* q, const void* valid,
+                         const void* uniq, const void* ok, int nblocks,
+                         int u, int c, int d, int b, int k, int cap,
+                         int groups, void* part_v, void* part_i,
+                         cudaStream_t stream) {
+  constexpr int QT = 16 * TQ;
+  const size_t smem = fma_tiled_smem_bytes(QT, cap);
+  auto kern = clustered_tiled_kernel<TQ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((b + QT - 1) / QT, groups);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(db), static_cast<const float*>(q),
+      static_cast<const uint8_t*>(valid), static_cast<const int*>(uniq),
+      static_cast<const int*>(ok), nblocks, u, c, d, b, k, cap,
+      static_cast<float*>(part_v), static_cast<int*>(part_i));
+  return cudaGetLastError();
+}
+
+template <int SLAB, int QTYPE, int TQ>
+cudaError_t launch_partial(bool tensor_cores, const void* db, const void* q,
+                           const void* qscale, const void* valid,
+                           const void* scales, const void* uniq,
+                           const void* ok, int n, int u, int ways, int c,
+                           int d, int b, int k, int cap, int groups,
+                           void* part_v, void* part_i, cudaStream_t stream) {
+  constexpr int QT = 16 * TQ;
   const size_t smem = tensor_cores ? mma_smem_bytes(QT, cap)
                                    : partial_smem_bytes(QT, cap);
   auto kern = clustered_block_partial_kernel<SLAB, QTYPE, TQ, false>;
@@ -126,14 +214,15 @@ cudaError_t launch_partial(const void* db, const void* q, const void* qscale,
 }
 
 template <int TQ>
-cudaError_t dispatch(int slab, int qtype, const void* db, const void* q,
-                     const void* qs, const void* valid, const void* scales,
-                     const void* uniq, const void* ok, int n, int u, int ways,
-                     int c, int d, int b, int k, int cap, int groups,
-                     void* pv, void* pi, cudaStream_t st) {
-#define WDBX_LAUNCH(S, Q)                                                  \
-  return launch_partial<S, Q, TQ>(db, q, qs, valid, scales, uniq, ok, n, u, \
-                                  ways, c, d, b, k, cap, groups, pv, pi, st)
+cudaError_t dispatch(int slab, int qtype, bool mma, const void* db,
+                     const void* q, const void* qs, const void* valid,
+                     const void* scales, const void* uniq, const void* ok,
+                     int n, int u, int ways, int c, int d, int b, int k,
+                     int cap, int groups, void* pv, void* pi,
+                     cudaStream_t st) {
+#define WDBX_LAUNCH(S, Q)                                                   \
+  return launch_partial<S, Q, TQ>(mma, db, q, qs, valid, scales, uniq, ok, n, \
+                                  u, ways, c, d, b, k, cap, groups, pv, pi, st)
   if (slab == kF32 && qtype == kQF32) WDBX_LAUNCH(kF32, kQF32);
   if (slab == kBF16 && qtype == kQBF16) WDBX_LAUNCH(kBF16, kQBF16);
   if (slab == kI8 && qtype == kQBF16) WDBX_LAUNCH(kI8, kQBF16);
@@ -148,39 +237,71 @@ cudaError_t dispatch(int slab, int qtype, const void* db, const void* q,
 
 extern "C" {
 
-// Shared memory a stage-1 CTA of qt queries needs (either body).
-size_t wdbx_clustered_block_partial_smem(int qt, int cap) {
+// Shared memory a stage-1 CTA of qt queries needs: the tiled body's, or
+// the larger of the other two bodies'.
+size_t wdbx_clustered_block_partial_smem(int body, int qt, int cap) {
+  if (body == kBodyFmaTiled) return fma_tiled_smem_bytes(qt, cap);
   const size_t a = partial_smem_bytes(qt, cap), b = mma_smem_bytes(qt, cap);
   return a > b ? a : b;
 }
 
-// slab: 0 float32, 1 bfloat16, 2 int8, 3 packed int4 (n rows of the
-// slab, n % c == 0). qtype: 0 float32 (float32 slab), 1 bf16, 2 int8
-// codes with qscale (b,) float32 (int8 / int4 slabs). qt: 64 or 16
-// queries per CTA. uniq / ok (u,) int32; CTA group g takes entries
+// body: 0 scan_fma, 1 scan_mma, 2 scan_fma_tiled (Body); a body whose
+// rule the arguments break is refused: scan_mma takes bf16 / int8 / int4
+// slabs with d % 32 == 0 (d % 64 == 0 with int8 queries), scan_fma_tiled
+// float32 slabs and queries with d % 4 == 0, both with 16-byte aligned
+// slab and queries. slab: 0 float32, 1 bfloat16, 2 int8, 3 packed int4 (n
+// rows of the slab, n % c == 0). qtype: 0 float32 (float32 slab), 1
+// bf16, 2 int8 codes with qscale (b,) float32 (int8 / int4 slabs). qt
+// queries per CTA: 128, 64, 32 or 16 (scan_fma_tiled), 64 or 16 (the
+// others). uniq / ok (u,) int32. scan_fma_tiled: CTA group g takes the
+// g-th equal span of the live entries' 128-row tiles, `ways` is unused
+// and groups * 31 >= u; the others: group g takes entries
 // [g * ways, (g + 1) * ways). part_v (b, groups, k) float32 and part_i
 // (b, groups, k) int32 global slab positions.
-int wdbx_clustered_block_partial(int slab, int qtype, int qt, const void* db,
-                                 const void* q, const void* qscale,
-                                 const void* valid, const void* scales,
-                                 const void* uniq, const void* ok, int n,
-                                 int u, int ways, int c, int d, int b, int k,
-                                 int cap, int groups, void* part_v,
-                                 void* part_i, void* stream) {
+int wdbx_clustered_block_partial(int body, int slab, int qtype, int qt,
+                                 const void* db, const void* q,
+                                 const void* qscale, const void* valid,
+                                 const void* scales, const void* uniq,
+                                 const void* ok, int n, int u, int ways,
+                                 int c, int d, int b, int k, int cap,
+                                 int groups, void* part_v, void* part_i,
+                                 void* stream) {
   if (k < 1 || cap < k + 32 || n < 1 || b < 1 || d < 1 || u < 1 || c < 1 ||
-      n % c != 0 || ways < 1 || ways > kMaxWays || groups < 1 ||
-      groups > 65535 || (long long)groups * ways < u ||
+      n % c != 0 || groups < 1 || groups > 65535 ||
       (slab == kI4 && d % 2 != 0) || (qtype == kQI8 && qscale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = aligned16(db) && aligned16(q);
+  if (body == kBodyFmaTiled) {
+    if (slab != kF32 || qtype != kQF32 || d % 4 != 0 || !aligned ||
+        (long long)groups * (kMaxWays - 1) < u)
+      return (int)cudaErrorInvalidValue;
+#define WDBX_TILED(TQ)                                                   \
+  return (int)launch_tiled<TQ>(db, q, valid, uniq, ok, n / c, u, c, d, b, k, \
+                               cap, groups, part_v, part_i, st)
+    switch (qt) {
+      case 128: WDBX_TILED(8);
+      case 64: WDBX_TILED(4);
+      case 32: WDBX_TILED(2);
+      case 16: WDBX_TILED(1);
+    }
+#undef WDBX_TILED
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool mma = body == kBodyMma;
+  if ((body != kBodyFma && !mma) || ways < 1 || ways > kMaxWays ||
+      (long long)groups * ways < u ||
+      (mma && (slab == kF32 || d % (qtype == kQI8 ? 64 : 32) != 0 ||
+               !aligned)))
+    return (int)cudaErrorInvalidValue;
   if (qt == 64)
-    return (int)dispatch<4>(slab, qtype, db, q, qscale, valid, scales, uniq,
-                            ok, n, u, ways, c, d, b, k, cap, groups, part_v,
-                            part_i, st);
+    return (int)dispatch<4>(slab, qtype, mma, db, q, qscale, valid, scales,
+                            uniq, ok, n, u, ways, c, d, b, k, cap, groups,
+                            part_v, part_i, st);
   if (qt == 16)
-    return (int)dispatch<1>(slab, qtype, db, q, qscale, valid, scales, uniq,
-                            ok, n, u, ways, c, d, b, k, cap, groups, part_v,
-                            part_i, st);
+    return (int)dispatch<1>(slab, qtype, mma, db, q, qscale, valid, scales,
+                            uniq, ok, n, u, ways, c, d, b, k, cap, groups,
+                            part_v, part_i, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,15 +1,23 @@
 // Shared pieces of the stage-1 score + top-k kernels (sm_90a, CUDA C++):
 // the per-query candidate buffer and its warp-level radix select
-// (CtaSel), the tile loaders, the in-register int4 unpack, and the two
+// (CtaSel), the tile loaders, the in-register int4 unpack, and the three
 // scan bodies that score a list of row tiles into a CtaSel:
-//   scan_fma   CUDA-core float32 FMAs (float32 slabs, ragged widths)
-//   scan_mma   mma.sync on the tensor cores: bf16 x bf16 -> f32
-//              (bf16 / int8 / int4 slabs with bf16 queries), or
-//              s8 x s8 -> s32 (int8 / int4 slabs with int8 queries)
-// Both walk a Tiles object: RangeTiles is one contiguous row range (the
+//   scan_fma_tiled  float32 slabs with float32 queries, d % 4 == 0 and
+//                   16-byte aligned operands: register-tiled CUDA-core
+//                   FMAs fed by a cp.async ring, selection from registers
+//   scan_fma        CUDA-core float32 FMAs (every other width / type off
+//                   the tensor-core slices, and unaligned views)
+//   scan_mma        mma.sync on the tensor cores: bf16 x bf16 -> f32
+//                   (bf16 / int8 / int4 slabs with bf16 queries), or
+//                   s8 x s8 -> s32 (int8 / int4 slabs with int8 queries)
+// They walk a Tiles object: RangeTiles is one contiguous row range (the
 // fused flat scan, fused_topk.cu), BlockTiles the c-row blocks a CTA
-// read from a block list (the clustered block scan, clustered_scan.cu).
-// Row numbers are global slab positions, so both emit positions as-is.
+// read from a block list and SpanTiles a CTA's equal share of the row
+// tiles of a block list (the clustered block scan, clustered_scan.cu).
+// Row numbers are global slab positions, so all emit positions as-is.
+// The launcher names the body (Body); the Python wrappers pick it with
+// the same shape rule and the C entry points refuse a body whose rule
+// the arguments break.
 
 #pragma once
 
@@ -31,6 +39,12 @@ constexpr unsigned kFull = 0xffffffffu;
 enum SlabType { kF32 = 0, kBF16 = 1, kI8 = 2, kI4 = 3 };
 // Query element types: float32, bf16, int8 codes with a per-query scale.
 enum QueryType { kQF32 = 0, kQBF16 = 1, kQI8 = 2 };
+// Stage-1 scan bodies, by the code the C entry points take.
+enum Body { kBodyFma = 0, kBodyMma = 1, kBodyFmaTiled = 2 };
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 // ---------------------------------------------------------------------
 // Per-query candidate buffer, driven by one warp.
@@ -54,6 +68,44 @@ __device__ __forceinline__ float key2f(unsigned key) {
 
 __device__ __forceinline__ unsigned lanes_below(int lane) {
   return (1u << lane) - 1u;
+}
+
+// Keep the buffer's c entries with keys above t and the first `remaining`
+// equal to t, compacted in place (buffer order kept); thr becomes t.
+__device__ __forceinline__ void sel_compact(const Sel& s, int c, unsigned t,
+                                            int remaining, int lane) {
+  int w = 0, eq_taken = 0;
+  for (int base = 0; base < c; base += 32) {
+    const int e = base + lane;
+    const bool in = e < c;
+    float v = 0.f;
+    int id = -1;
+    unsigned key = 0;
+    if (in) {
+      v = s.v[e];
+      id = s.i[e];
+      key = f2key(v);
+    }
+    const bool eq = in && key == t;
+    const unsigned eqm = __ballot_sync(kFull, eq);
+    const int eq_rank = eq_taken + __popc(eqm & lanes_below(lane));
+    const bool keep = (in && key > t) || (eq && eq_rank < remaining);
+    const unsigned km = __ballot_sync(kFull, keep);
+    __syncwarp();
+    if (keep) {
+      const int pos = w + __popc(km & lanes_below(lane));
+      s.v[pos] = v;
+      s.i[pos] = id;
+    }
+    w += __popc(km);
+    eq_taken += __popc(eqm);
+    __syncwarp();
+  }
+  if (lane == 0) {
+    *s.count = w;
+    *s.thr = key2f(t);
+  }
+  __syncwarp();
 }
 
 // Cut the buffer to exactly its k best entries (ties broken by buffer
@@ -111,40 +163,56 @@ __device__ void sel_shrink(const Sel& s, int k, int lane) {
     __syncwarp();
   }
   // prefix is the key of the k-th best; keep every larger key and the
-  // first `remaining` entries equal to it, compacted in place.
-  const unsigned t = prefix;
-  int w = 0, eq_taken = 0;
-  for (int base = 0; base < c; base += 32) {
-    const int e = base + lane;
-    const bool in = e < c;
-    float v = 0.f;
-    int id = -1;
-    unsigned key = 0;
-    if (in) {
-      v = s.v[e];
-      id = s.i[e];
-      key = f2key(v);
-    }
-    const bool eq = in && key == t;
-    const unsigned eqm = __ballot_sync(kFull, eq);
-    const int eq_rank = eq_taken + __popc(eqm & lanes_below(lane));
-    const bool keep = (in && key > t) || (eq && eq_rank < remaining);
-    const unsigned km = __ballot_sync(kFull, keep);
-    __syncwarp();
-    if (keep) {
-      const int pos = w + __popc(km & lanes_below(lane));
-      s.v[pos] = v;
-      s.i[pos] = id;
-    }
-    w += __popc(km);
-    eq_taken += __popc(eqm);
-    __syncwarp();
+  // first `remaining` entries equal to it
+  sel_compact(s, c, prefix, remaining, lane);
+}
+
+// sel_shrink's contract without a shared histogram: the k-th best key is
+// found two bits at a time from warp-wide counts (redux.sync), so scores
+// that share their top bits do not serialise on one atomic bin. Keys are
+// never 0 here (no NaN enters a buffer), so 0 pads the register copy.
+__device__ __forceinline__ void sel_cut(const Sel& s, int k, int lane) {
+  const int c = *s.count;
+  if (c <= k) return;
+  constexpr int KR = 4;  // entries lane + 32 j, j < KR, kept in registers
+  unsigned key[KR];
+#pragma unroll
+  for (int j = 0; j < KR; ++j) {
+    const int e = lane + 32 * j;
+    key[j] = e < c ? f2key(s.v[e]) : 0u;
   }
-  if (lane == 0) {
-    *s.count = w;
-    *s.thr = key2f(t);
+  // counts of the keys at or above t1 and t2 (16 bits each: c < 65536)
+  // in one word, at or above t3 in another
+  auto counts = [&](unsigned t1, unsigned t2, unsigned t3, unsigned& n12,
+                    unsigned& n3) {
+    n12 = 0;
+    n3 = 0;
+#pragma unroll
+    for (int j = 0; j < KR; ++j) {
+      n12 += (key[j] >= t1) | (key[j] >= t2) << 16;
+      n3 += key[j] >= t3;
+    }
+    for (int e = lane + 32 * KR; e < c; e += 32) {
+      const unsigned x = f2key(s.v[e]);
+      n12 += (x >= t1) | (x >= t2) << 16;
+      n3 += x >= t3;
+    }
+    n12 = __reduce_add_sync(kFull, n12);
+    n3 = __reduce_add_sync(kFull, n3);
+  };
+  const unsigned want = (unsigned)k;
+  unsigned t = 0;  // the largest key with at least k keys at or above it
+  for (int bit = 30; bit >= 0; bit -= 2) {
+    const unsigned t1 = t | (1u << bit), t2 = t | (2u << bit),
+                   t3 = t | (3u << bit);
+    unsigned n12, n3;
+    counts(t1, t2, t3, n12, n3);
+    t = n3 >= want ? t3 : (n12 >> 16) >= want ? t2
+        : (n12 & 0xffffu) >= want ? t1 : t;
   }
-  __syncwarp();
+  unsigned above, unused;  // keys above t
+  counts(t + 1, t + 1, t + 1, unused, above);
+  sel_compact(s, c, t, k - (int)above, lane);
 }
 
 // Offer one candidate per lane; cap >= k + 32 keeps room after a cut.
@@ -223,15 +291,20 @@ struct CtaSel {
     }
   }
 
-  // Cut each query's buffer to k and write it (unsorted, -inf / -1
-  // pads) to its part's slot of the (b, nparts, k) partials.
+  // Cut each query's buffer to k (sel_shrink, or sel_cut with CUT) and
+  // write it (unsorted, -inf / -1 pads) to its part's slot of the
+  // (b, nparts, k) partials.
+  template <bool CUT = false>
   __device__ void write(int q0, int b, int part, int nparts, float* part_v,
                         int* part_i, int warp, int lane) const {
     for (int ql = warp; ql < qt; ql += kWarps) {
       const int qg = q0 + ql;
       if (qg >= b) break;
       const Sel s = at(ql, warp);
-      sel_shrink(s, k, lane);
+      if constexpr (CUT)
+        sel_cut(s, k, lane);
+      else
+        sel_shrink(s, k, lane);
       const int c = *s.count;
       const size_t base = ((size_t)qg * nparts + part) * k;
       for (int e = lane; e < k; e += 32) {
@@ -266,6 +339,22 @@ struct BlockTiles {  // n blocks of c rows; block j starts at row blk[j] * c
     const int per = (c + R - 1) / R;
     const int base = blk[t / per] * c;
     r0 = base + (t % per) * R;
+    rend = base + c;
+  }
+};
+
+// n consecutive R-row tiles of the blocks blk[0], blk[1], ... (c rows
+// each, ceil(c / R) tiles a block), starting at tile `first` of blk[0]:
+// one CTA's share when a block list's tiles are split across CTAs.
+struct SpanTiles {
+  const int* blk;
+  int first, n, c;
+  __device__ int count(int) const { return n; }
+  __device__ void tile(int t, int R, int& r0, int& rend) const {
+    const int per = (c + R - 1) / R;
+    const int at = first + t;
+    const int base = blk[at / per] * c;
+    r0 = base + (at % per) * R;
     rend = base + c;
   }
 };
@@ -426,6 +515,389 @@ __device__ void scan_fma(const Tiles& tiles, const CtaSel& sel,
     sel.offer_tile<kRows>(St, RS, r0, q0, b, warp, lane);
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------
+// The register-tiled float32 body. True float32 is bound by operations on
+// this card (67 TFLOP/s of CUDA-core FMAs against 3.35 TB/s: a 1M x 384
+// slab is 0.48 ms of bytes but 1.54 ms of FMAs at B = 128), so the body
+// is built to keep the FMA pipes busy:
+//  * a CTA scores 128 rows x QT = 16 * TQ queries per tile; each thread
+//    owns 8 rows x TQ queries of accumulators (64 at QT = 128), and every
+//    16-byte shared load feeds 4 * TQ or 32 FMAs;
+//  * 32-dim slices of the rows and queries go global -> shared with
+//    16-byte cp.async.cg copies into a kTStages ring (zero-filled past
+//    the rows, the batch and d), one barrier per slice; rows are stored
+//    with a 36-word stride, so each warp's 16-byte loads are free of bank
+//    conflicts (16 rows in two wavefronts, 2 queries in one);
+//  * warp w owns the 2 * TQ queries [w * 2TQ, (w + 1) * 2TQ) of the tile
+//    over all 128 rows (lanes 0-15 and 16-31 hold alternate queries, lane
+//    l % 16 rows l % 16 + 16 i), so selection needs no CTA barrier: at
+//    the end of a tile each thread masks its scores, compares them with
+//    its queries' thresholds (read once a tile), and the warp appends the
+//    survivors to their query's buffer in a fixed order: half-warp prefix
+//    sums of the survivor counts, all columns at once (lane order, then
+//    row order). Only a column that floods (a CTA's first tile: cut to the
+//    tile's k best in registers) or fills its buffer (cut with sel_cut,
+//    which needs no shared atomics) takes the longer tiled_append, one
+//    copy of which serves every column. A tile with no survivor in the
+//    warp costs one vote.
+// The same inputs give the same buffer slots on every run. No TF32, no
+// split products: fmaf over d in order. smem holds the ring
+// (fma_tiled_words) and then the CtaSel.
+constexpr int kTRows = 128;        // rows per tile
+constexpr int kTStages = 3;        // cp.async ring depth
+constexpr int kTStride = kDK + 4;  // shared row stride in words
+
+__host__ __device__ inline size_t fma_tiled_words(int qt) {
+  return (size_t)kTStages * (kTRows + qt) * kTStride;
+}
+
+size_t fma_tiled_smem_bytes(int qt, int cap) {
+  return (fma_tiled_words(qt) + cta_sel_words(qt, cap)) * 4;
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in (src
+// is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Survivor counts of one accumulator column: each half-warp's total and
+// this lane's exclusive prefix within its half.
+__device__ __forceinline__ void half_counts(unsigned bits, int lane,
+                                            int& tot0, int& tot1,
+                                            int& excl) {
+  const int n = __popc(bits);
+  int incl = n;
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o, 16);
+    if ((lane & 15) >= o) incl += t;
+  }
+  tot0 = __shfl_sync(kFull, incl, 15);
+  tot1 = __shfl_sync(kFull, incl, 31);
+  excl = incl - n;
+}
+
+// One accumulator column of a thread: rows row0 + 16 i, i < 8.
+struct Col {
+  float v[8];
+};
+
+// A flood (more survivors of a column than k, and than the buffer takes,
+// as in a CTA's first tile): each half-warp's k-th best survivor key,
+// two bits a step, the three counts of a step (at most 128 each) sharing
+// one half-warp sum. Returns this lane's survivor bits at or above it
+// where `mine` (its half floods), and raises that query's threshold to
+// it.
+__device__ __forceinline__ unsigned flood_keep(const Col& col, unsigned bits,
+                                               bool mine, const Sel& s, int k,
+                                               int lane) {
+  unsigned key[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) key[i] = (bits >> i) & 1u ? f2key(col.v[i]) : 0u;
+  const unsigned want = (unsigned)k;
+  unsigned t = 0;
+  for (int bit = 30; bit >= 0; bit -= 2) {
+    const unsigned t1 = t | (1u << bit), t2 = t | (2u << bit),
+                   t3 = t | (3u << bit);
+    unsigned n = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      n += (key[i] >= t1) | (key[i] >= t2) << 8 | (key[i] >= t3) << 16;
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) n += __shfl_xor_sync(kFull, n, o);
+    t = (n >> 16) >= want ? t3
+        : ((n >> 8) & 255u) >= want ? t2
+        : (n & 255u) >= want ? t1 : t;
+  }
+  if (!mine) return bits;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (key[i] < t) bits &= ~(1u << i);
+  if ((lane & 15) == 0 && key2f(t) > *s.thr) *s.thr = key2f(t);
+  return bits;
+}
+
+// Append the survivors of one column (bit i of `bits`: row row0 + 16 i)
+// to local query ql0 (lanes 0-15) or ql0 + 1 (lanes 16-31): slots follow
+// the half-warp's lane order, then row order. A flood is cut in registers
+// first (flood_keep); a buffer that cannot take the rest is cut to k
+// (sel_cut).
+__device__ __forceinline__ void tiled_append(const CtaSel& sel, int ql0,
+                                             unsigned bits, const Col& col,
+                                             int row0, int warp, int lane) {
+  const int half = lane >> 4;
+  int tot0, tot1, excl;
+  half_counts(bits, lane, tot0, tot1, excl);
+  if (tot0 + tot1 == 0) return;
+  const Sel s0 = sel.at(ql0, warp), s1 = sel.at(ql0 + 1, warp);
+  const Sel s = half ? s1 : s0;
+  const bool flood0 = tot0 > sel.k && *s0.count + tot0 > sel.cap;
+  const bool flood1 = tot1 > sel.k && *s1.count + tot1 > sel.cap;
+  if (flood0 || flood1) {
+    bits = flood_keep(col, bits, half ? flood1 : flood0, s, sel.k, lane);
+    __syncwarp();
+    half_counts(bits, lane, tot0, tot1, excl);
+  }
+  int done0 = 0, done1 = 0;
+  while (done0 < tot0 || done1 < tot1) {
+    if (done0 < tot0 && *s0.count + (tot0 - done0) > sel.cap)
+      sel_cut(s0, sel.k, lane);
+    if (done1 < tot1 && *s1.count + (tot1 - done1) > sel.cap)
+      sel_cut(s1, sel.k, lane);
+    const int c0 = *s0.count, c1 = *s1.count;
+    const int take0 = min(tot0 - done0, sel.cap - c0);
+    const int take1 = min(tot1 - done1, sel.cap - c1);
+    const int c = half ? c1 : c0, done = half ? done1 : done0;
+    const int take = half ? take1 : take0;
+    int r = excl - done;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if ((bits >> i) & 1u) {
+        if (r >= 0 && r < take) {
+          s.v[c + r] = col.v[i];
+          s.i[c + r] = row0 + 16 * i;
+        }
+        ++r;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      *s0.count = c0 + take0;
+      *s1.count = c1 + take1;
+    }
+    __syncwarp();
+    done0 += take0;
+    done1 += take1;
+  }
+}
+
+template <int TQ, class Tiles>
+__device__ void scan_fma_tiled(const Tiles& tiles, const CtaSel& sel,
+                               unsigned char* smem,
+                               const float* __restrict__ db,
+                               const float* __restrict__ q,
+                               const uint8_t* __restrict__ valid, int d,
+                               int b, int q0) {
+  constexpr int QT = 16 * TQ, R = kTRows, S = kTStride, TR = R / 16;
+  static_assert(TR == 8, "a thread holds 8 rows of a tile (Col)");
+  constexpr int STAGE = (R + QT) * S;  // words per ring stage
+  constexpr int QCH = QT * (kDK / 4);  // 16-byte query chunks per slice
+  float* ring = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lr = lane & 15;
+  const int qw = warp * 2 * TQ + (lane >> 4);  // column j: query qw + 2j
+  const int slices = (d + kDK - 1) / kDK;
+  const int ntiles = tiles.count(R);
+
+  sel.init(tid);  // the loop's first barrier orders it
+
+  // This thread's 16-byte chunks of a slice: rows cr + 32 u of the tile
+  // and queries cr + 32 u of the batch, at column cc of the slice.
+  constexpr int RU = R * (kDK / 4) / kThreads;
+  constexpr int QU = (QCH + kThreads - 1) / kThreads;
+  const int cr = tid >> 3, cc = (tid & 7) * 4;
+  const size_t d32 = (size_t)32 * d;
+  float* const dst = ring + cr * S + cc;
+  const float* const qsrc = q + (size_t)(q0 + cr) * d + cc;
+  // the copy cursor: tile it, slice isl, ring stage ist; rsrc is row cr
+  // of tile it, bit u of rin row cr + 32 u in range
+  int it = 0, isl = 0, ist = 0;
+  const float* rsrc = db;
+  unsigned rin = 0;
+  auto fetch = [&]() {
+    if (it < ntiles) {
+      if (isl == 0) {
+        int r0, rend;
+        tiles.tile(it, R, r0, rend);
+        rsrc = db + (size_t)(r0 + cr) * d + cc;
+        rin = 0;
+#pragma unroll
+        for (int u = 0; u < RU; ++u) rin |= (r0 + cr + 32 * u < rend) << u;
+      }
+      const int col = isl * kDK;
+      const bool cin = col + cc < d;
+      float* st = dst + ist * STAGE;
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const bool in = cin && ((rin >> u) & 1u);
+        cp_async16(st + 32 * u * S, in ? rsrc + u * d32 + col : db, in);
+      }
+#pragma unroll
+      for (int u = 0; u < QU; ++u) {
+        if (QCH % kThreads == 0 || cr + 32 * u < QT) {
+          const bool in = cin && q0 + cr + 32 * u < b;
+          cp_async16(st + (R + 32 * u) * S, in ? qsrc + u * d32 + col : q,
+                     in);
+        }
+      }
+      if (++isl == slices) {
+        isl = 0;
+        ++it;
+      }
+      ist = ist + 1 == kTStages ? 0 : ist + 1;
+    }
+    cp_async_commit();  // an empty group keeps the wait count uniform
+  };
+
+  float acc[TR][TQ];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < TQ; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTStages - 1; ++s) fetch();
+  int cst = 0;  // the ring stage of the slice being scored
+  for (int t = 0; t < ntiles; ++t) {
+    int tile_r0, rend;
+    tiles.tile(t, R, tile_r0, rend);
+    bool ok[TR];  // this tile's validity, in flight during its slices
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = tile_r0 + lr + 16 * i;
+      ok[i] = row < rend && __ldg(valid + row) != 0;
+    }
+    for (int sl = 0; sl < slices; ++sl) {
+      cp_async_wait<kTStages - 2>();
+      __syncthreads();  // this slice landed; the previous one is consumed
+      fetch();
+      const float* st = ring + cst * STAGE;
+      cst = cst + 1 == kTStages ? 0 : cst + 1;
+      const float* Rs = st + lr * S;
+      const float* Qs = st + (R + qw) * S;
+#pragma unroll
+      for (int kk = 0; kk < kDK; kk += 4) {
+        float4 qv[TQ];
+#pragma unroll
+        for (int j = 0; j < TQ; ++j)
+          qv[j] = *reinterpret_cast<const float4*>(Qs + 2 * j * S + kk);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float4 rv =
+              *reinterpret_cast<const float4*>(Rs + 16 * i * S + kk);
+#pragma unroll
+          for (int j = 0; j < TQ; ++j) {
+            float a = acc[i][j];
+            a = fmaf(rv.x, qv[j].x, a);
+            a = fmaf(rv.y, qv[j].y, a);
+            a = fmaf(rv.z, qv[j].z, a);
+            a = fmaf(rv.w, qv[j].w, a);
+            acc[i][j] = a;
+          }
+        }
+      }
+    }
+
+    // tile done: mask, compare with the thresholds, append the survivors
+    unsigned bits[TQ], cols = 0;
+#pragma unroll
+    for (int j = 0; j < TQ; ++j) {
+      const int ql = qw + 2 * j;
+      const float thr = sel.thr[ql];
+      bits[j] = 0;
+      if (q0 + ql < b) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          if (ok[i] && acc[i][j] > thr) bits[j] |= 1u << i;
+      }
+      cols |= (bits[j] != 0u) << j;
+    }
+    if (__reduce_or_sync(kFull, cols)) {
+      // All columns at once: half-warp prefix sums of the survivor counts
+      // (8 bits a column, 4 columns a word: a half's total is at most
+      // 128), and this lane's queries' buffer counts.
+      unsigned own[2] = {0u, 0u}, incl[2];
+#pragma unroll
+      for (int j = 0; j < TQ; ++j)
+        own[j >> 2] |= (unsigned)__popc(bits[j]) << (8 * (j & 3));
+      incl[0] = own[0];
+      incl[1] = own[1];
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const unsigned t = __shfl_up_sync(kFull, incl[w], o, 16);
+          if (lr >= o) incl[w] += t;
+        }
+      unsigned tot[2], slow = 0;
+      int cnt[TQ];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) tot[w] = __shfl_sync(kFull, incl[w], 15, 16);
+#pragma unroll
+      for (int j = 0; j < TQ; ++j) {
+        const int tj = (tot[j >> 2] >> (8 * (j & 3))) & 255u;
+        cnt[j] = sel.cnt[qw + 2 * j];
+        if (tj > 0 && cnt[j] + tj > sel.cap) slow |= 1u << j;
+      }
+      // a column either half of which floods or overflows its buffer
+      // takes tiled_append; the rest are written here, in the same order
+      slow = __reduce_or_sync(kFull, slow);
+#pragma unroll
+      for (int j = 0; j < TQ; ++j) {
+        if ((slow >> j) & 1u || bits[j] == 0) continue;
+        const size_t base = (size_t)(qw + 2 * j) * sel.cap + cnt[j];
+        int r = ((incl[j >> 2] - own[j >> 2]) >> (8 * (j & 3))) & 255u;
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          if ((bits[j] >> i) & 1u) {
+            sel.sv[base + r] = acc[i][j];
+            sel.si[base + r] = tile_r0 + lr + 16 * i;
+            ++r;
+          }
+        }
+      }
+      __syncwarp();
+      if (lr == 0) {
+#pragma unroll
+        for (int j = 0; j < TQ; ++j) {
+          const int tj = (tot[j >> 2] >> (8 * (j & 3))) & 255u;
+          if (!((slow >> j) & 1u) && tj > 0) sel.cnt[qw + 2 * j] = cnt[j] + tj;
+        }
+      }
+      __syncwarp();
+      // One copy of the append code, not TQ: a runtime loop over the
+      // slow columns, each taken from column 0 of acc / bits, which then
+      // shift left (static indices keep them in registers).
+#pragma unroll 1
+      for (int j = 0; slow >> j; ++j) {
+        if ((slow >> j) & 1u) {
+          Col col;
+#pragma unroll
+          for (int i = 0; i < TR; ++i) col.v[i] = acc[i][0];
+          tiled_append(sel, qw - (lane >> 4) + 2 * j, bits[0], col,
+                       tile_r0 + lr, warp, lane);
+        }
+#pragma unroll
+        for (int jj = 0; jj + 1 < TQ; ++jj) {
+          bits[jj] = bits[jj + 1];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) acc[i][jj] = acc[i][jj + 1];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TQ; ++j) acc[i][j] = 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp's buffers are complete
 }
 
 // ---------------------------------------------------------------------

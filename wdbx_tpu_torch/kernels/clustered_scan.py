@@ -9,7 +9,10 @@ card and the design): stage 1 (``clustered_block_partial``) scores the
 blocks a CTA reads from the deduplicated block list, with its group of
 list entries and its query tile, and keeps each query's k best; stage 2
 is the fused scan's ``topk_merge_partials``. v1 is v2 with bf16 / float
-queries (its function), under its own launch counter.
+queries (its function), under its own launch counter. The scan body
+follows the fused scan's rule (``fused_topk.scan_body``): float32 slabs
+take the register-tiled body, whose CTAs split the live blocks' tiles
+evenly among themselves on the card.
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
 tensor they run ``clustered_block_topk_plain`` (gather the listed
@@ -42,6 +45,7 @@ K_MAX = _ft.K_MAX
 #: CUDA kernel code of each query type
 QUERY_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 _MAX_WAYS = 32  # block-list entries per CTA (kMaxWays)
+_SPAN_ENTRIES = _MAX_WAYS - 1  # list entries per CTA of the tiled body
 #: (generation, slab type, query type) of every kernel mode
 MODES = (
     [("v2", s, q) for s, q in (
@@ -58,12 +62,26 @@ def mode_key(gen: str, slab: str, qtype: str) -> str:
     return f"{gen}[{slab},q={qtype}]"
 
 
-def plan(u: int, b: int, k: int, sm_count: int,
-         partial_smem) -> tuple[int, int, int]:
-    """Stage-1 grid ``(qt, ways, groups)``: 64 queries per CTA when their
-    candidate buffers fit beside the tiles, else 16; ``ways`` list
-    entries per CTA, so that the grid holds about four CTAs per SM."""
+def plan(u: int, b: int, k: int, sm_count: int, partial_smem,
+         body: str = "mma") -> tuple[int, int, int]:
+    """Stage-1 grid ``(qt, ways, groups)``.
+
+    The tiled float32 body (``body="fma_tiled"``, ``partial_smem`` its
+    size): ``fused_topk.tiled_qt`` queries per CTA, ``ways`` 0 (unused:
+    each CTA takes an equal span of the live blocks' tiles, counted on
+    the card), and groups for one whole number of waves, at least
+    ``u / 31`` so that a span stays within 32 list entries.
+    The other bodies: 64 queries per CTA when their candidate buffers
+    fit beside the tiles, else 16; ``ways`` list entries per CTA, so
+    that the grid holds about four CTAs per SM."""
     cap = _ft._cap(k)
+    if body == "fma_tiled":
+        qt = _ft.tiled_qt(b, k, partial_smem)
+        qtiles = -(-b // qt)
+        smem = partial_smem(qt, _ft.tiled_cap(qt, k, partial_smem))
+        groups = _ft.whole_waves(
+            qtiles, _ft.cta_slots(sm_count, smem), -(-u // _SPAN_ENTRIES))
+        return qt, 0, groups
     qt = 64 if partial_smem(64, cap) <= 160 * 1024 else 16
     if partial_smem(qt, cap) > 226 * 1024:
         raise ValueError(f"k={k} needs more shared memory than a CTA has")
@@ -129,35 +147,49 @@ def clustered_block_partial(
     slab, valid, qq = slab.contiguous(), valid.contiguous(), qq.contiguous()
     uniq = uniq.to(torch.int32).contiguous()
     ok = ok.to(torch.int32).contiguous()
+    body = _ft.scan_body(skey, qkey, d, slab.data_ptr(), qq.data_ptr())
+    code = _ft.BODY_CODES[body]
     lib = build.load("clustered_scan")
     sm = torch.cuda.get_device_properties(slab.device).multi_processor_count
-    qt, ways, groups = plan(u, b, k, sm, lib.wdbx_clustered_block_partial_smem)
+
+    def smem(qt, cap):
+        return lib.wdbx_clustered_block_partial_smem(code, qt, cap)
+
+    qt, ways, groups = plan(u, b, k, sm, smem, body)
+    cap = (_ft.tiled_cap(qt, k, smem) if body == "fma_tiled"
+           else _ft._cap(k))
     part_v = torch.empty((b, groups, k), dtype=torch.float32,
                          device=slab.device)
     part_i = torch.empty((b, groups, k), dtype=torch.int32,
                          device=slab.device)
     with torch.cuda.device(slab.device):
         rc = lib.wdbx_clustered_block_partial(
-            _ft.SLAB_CODES[skey], QUERY_CODES[qkey], qt, slab.data_ptr(),
-            qq.data_ptr(), qscale.data_ptr(), valid.data_ptr(),
+            code, _ft.SLAB_CODES[skey], QUERY_CODES[qkey], qt,
+            slab.data_ptr(), qq.data_ptr(), qscale.data_ptr(),
+            valid.data_ptr(),
             scales.data_ptr() if scales is not None else None,
             uniq.data_ptr(), ok.data_ptr(), n, u, ways, c, d, b, k,
-            _ft._cap(k), groups, part_v.data_ptr(), part_i.data_ptr(),
+            cap, groups, part_v.data_ptr(), part_i.data_ptr(),
             _ft._stream(slab),
         )
     if rc != 0:
-        raise RuntimeError(f"clustered_block_partial {key} launch failed: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"clustered_block_partial {key} ({body}) launch "
+                           f"failed: CUDA error {rc}")
     clustered_block_partial.launches[key] += 1
+    clustered_block_partial.bodies[body] += 1
     return part_v, part_i
 
 
 clustered_block_partial.launches = {mode_key(*m): 0 for m in MODES}
+#: launches by scan body
+clustered_block_partial.bodies = {body: 0 for body in _ft.BODY_CODES}
 
 
 def reset_launches() -> None:
-    for key in clustered_block_partial.launches:
-        clustered_block_partial.launches[key] = 0
+    for counts in (clustered_block_partial.launches,
+                   clustered_block_partial.bodies):
+        for key in counts:
+            counts[key] = 0
 
 
 def clustered_block_topk_plain(

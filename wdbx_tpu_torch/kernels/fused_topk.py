@@ -7,7 +7,11 @@ in ``csrc/fused_topk.cu``; that file's header gives the bound on the
 card and the design. In short: stage 1 (``fused_topk_partial``) streams
 row chunks in parallel CTAs and keeps each query's k best per chunk,
 stage 2 (``topk_merge_partials``) merges the chunks into the sorted
-``(B, k)`` result.
+``(B, k)`` result. Stage 1 runs one of three scan bodies, which
+``scan_body`` picks from the shapes alone: the register-tiled float32
+body for float32 slabs with ``d % 4 == 0`` and 16-byte aligned slab and
+queries, the tensor-core body for bf16 / int8 / int4 slabs with
+``d % 32 == 0`` and aligned operands, the CUDA-core body otherwise.
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
 tensor they run the plain version (``fused_topk_plain``: matmul, scale,
@@ -23,6 +27,8 @@ Differences from the JAX kernel, all deliberate:
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -60,14 +66,92 @@ def _cap(k: int) -> int:
     return k + 64
 
 
-def plan(n: int, b: int, k: int, sm_count: int,
-         partial_smem) -> tuple[int, int, int]:
-    """Stage-1 tiling ``(qt, chunks, rows_per_chunk)``: 64 queries per
-    CTA when their candidate buffers fit in shared memory beside the
-    tiles (k up to ~140), else 16; enough row chunks for ~4 CTAs per SM.
-    CTAs of one chunk are adjacent in the grid, so the query tiles of a
-    large batch read each chunk while it is in L2."""
+#: stage-1 scan bodies of ``csrc/topk_common.cuh``, by their C code
+BODY_CODES = {"fma": 0, "mma": 1, "fma_tiled": 2}
+#: query tiles of the tiled float32 body, and the shared memory a CTA
+#: may ask for (227 KB less the kernels' static arrays)
+TILED_QT = (16, 32, 64, 128)
+SMEM_MAX = 226 * 1024
+_SM_SMEM = 228 * 1024  # shared memory of one SM
+
+
+def scan_body(slab: str, qtype: str, d: int, db_ptr: int,
+              q_ptr: int) -> str:
+    """The stage-1 body a launch takes, from the slab and query types,
+    the width and the operands' addresses: ``"fma_tiled"`` for float32
+    slabs with ``d % 4 == 0``, ``"mma"`` for bf16 / int8 / int4 slabs with
+    ``d % 32 == 0`` (``d % 64 == 0`` with int8 queries), both with 16-byte
+    aligned slab and queries; ``"fma"`` otherwise. The C entry points
+    refuse a body whose rule the arguments break."""
+    aligned = db_ptr % 16 == 0 and q_ptr % 16 == 0
+    if slab == "float32":
+        return "fma_tiled" if d % 4 == 0 and aligned else "fma"
+    width = 64 if qtype == "int8" else 32
+    return "mma" if d % width == 0 and aligned else "fma"
+
+
+def tiled_qt(b: int, k: int, partial_smem) -> int:
+    """Queries per CTA of the tiled body: the smallest tile that holds
+    the batch among those whose candidate buffers fit beside the ring
+    for this k (128 up to k ~45, then 64, 32, 16)."""
     cap = _cap(k)
+    fits = [qt for qt in TILED_QT if partial_smem(qt, cap) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"k={k} needs more shared memory than a CTA has")
+    return next((qt for qt in fits if qt >= b), fits[-1])
+
+
+def tiled_cap(qt: int, k: int, partial_smem) -> int:
+    """Candidate buffer of the tiled body at ``qt`` queries per CTA:
+    ``_cap(k)`` grown into the shared memory left beside the ring, up to
+    128 entries (a cut of up to 128 keeps its keys in registers). More
+    room means fewer cuts, and a cut in one warp holds the whole CTA at
+    its next barrier."""
+    cap = _cap(k)
+    if cap >= 128:
+        return cap
+    base = partial_smem(qt, cap)
+    per_entry = partial_smem(qt, cap + 1) - base
+    return min(128, cap + max(0, (SMEM_MAX - base) // per_entry))
+
+
+def whole_waves(qtiles: int, slots: int, need: int = 1) -> int:
+    """Parts per query tile: at least ``need``, and such that
+    ``qtiles * parts`` is a whole number of waves of ``slots`` CTAs."""
+    per_wave = slots // math.gcd(qtiles, slots)
+    return per_wave * max(1, -(-need // per_wave))
+
+
+def cta_slots(sm_count: int, smem: int) -> int:
+    """CTAs the card runs at once at ``smem`` bytes each (the SM's 228
+    KB, 1 KB reserved a CTA; at most 2 a SM for the tiled body's
+    registers)."""
+    return sm_count * max(1, min(2, _SM_SMEM // (smem + 1024)))
+
+
+def plan(n: int, b: int, k: int, sm_count: int, partial_smem,
+         body: str = "mma") -> tuple[int, int, int]:
+    """Stage-1 tiling ``(qt, chunks, rows_per_chunk)``.
+
+    The tiled float32 body (``body="fma_tiled"``, ``partial_smem`` its
+    size): ``tiled_qt`` queries per CTA, and as many row chunks as make
+    the grid one whole number of waves, so that every SM gets an equal
+    share of long chunks (131 chunks of 63 tiles at 1M rows, B=128).
+    The other bodies: 64 queries per CTA when their candidate buffers
+    fit in shared memory beside the tiles (k up to ~140), else 16;
+    enough row chunks for ~4 CTAs per SM. CTAs of one chunk are
+    adjacent in the grid, so the query tiles of a large batch read each
+    chunk while it is in L2."""
+    cap = _cap(k)
+    if body == "fma_tiled":
+        qt = tiled_qt(b, k, partial_smem)
+        qtiles = -(-b // qt)
+        tiles = -(-n // _ROWS)
+        smem = partial_smem(qt, tiled_cap(qt, k, partial_smem))
+        parts = min(tiles, 65535, whole_waves(
+            qtiles, cta_slots(sm_count, smem)))
+        rows = -(-tiles // parts) * _ROWS
+        return qt, -(-n // rows), rows
     qt = 64 if partial_smem(64, cap) <= 160 * 1024 else 16
     if partial_smem(qt, cap) > 227 * 1024:
         raise ValueError(f"k={k} needs more shared memory than a CTA has")
@@ -119,26 +203,37 @@ def fused_topk_partial(
             raise ValueError("int8/int4 slabs need (N,) float32 CUDA scales")
         scales = scales.contiguous()
     db, queries, valid = db.contiguous(), queries.contiguous(), valid.contiguous()
+    body = scan_body(key, "float32" if key == "float32" else "bfloat16", d,
+                     db.data_ptr(), queries.data_ptr())
+    code = BODY_CODES[body]
     lib = build.load("fused_topk")
     sm = torch.cuda.get_device_properties(db.device).multi_processor_count
-    qt, chunks, rows = plan(n, b, k, sm, lib.wdbx_fused_topk_partial_smem)
+
+    def smem(qt, cap):
+        return lib.wdbx_fused_topk_partial_smem(code, qt, cap)
+
+    qt, chunks, rows = plan(n, b, k, sm, smem, body)
+    cap = tiled_cap(qt, k, smem) if body == "fma_tiled" else _cap(k)
     part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=db.device)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=db.device)
     with torch.cuda.device(db.device):
         rc = lib.wdbx_fused_topk_partial(
-            SLAB_CODES[key], qt, db.data_ptr(), queries.data_ptr(),
+            code, SLAB_CODES[key], qt, db.data_ptr(), queries.data_ptr(),
             valid.data_ptr(), scales.data_ptr() if scales is not None else None,
-            n, d, b, k, _cap(k), rows, chunks,
+            n, d, b, k, cap, rows, chunks,
             part_v.data_ptr(), part_i.data_ptr(), _stream(db),
         )
     if rc != 0:
-        raise RuntimeError(f"fused_topk_partial[{key}] launch failed: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"fused_topk_partial[{key}] ({body}) launch "
+                           f"failed: CUDA error {rc}")
     fused_topk_partial.launches[key] += 1
+    fused_topk_partial.bodies[body] += 1
     return part_v, part_i
 
 
 fused_topk_partial.launches = {key: 0 for key in SLAB_CODES}
+#: launches by scan body
+fused_topk_partial.bodies = {body: 0 for body in BODY_CODES}
 
 
 def topk_merge_partials(
@@ -175,8 +270,9 @@ topk_merge_partials.launches = 0
 
 
 def reset_launches() -> None:
-    for key in fused_topk_partial.launches:
-        fused_topk_partial.launches[key] = 0
+    for counts in (fused_topk_partial.launches, fused_topk_partial.bodies):
+        for key in counts:
+            counts[key] = 0
     topk_merge_partials.launches = 0
 
 
