@@ -11,16 +11,21 @@ Phases (each prints JSON lines; any failure exits non-zero):
              k in {10, 256} (float32: {1, 10, 128, 256, 1024}, each query
              tile of the tiled body), ~10% invalid rows, plus all-invalid
              and k > valid cases; then ragged shapes (B=5 and 37, N off
-             the 128-row tile, k=1 and 1024, d=100, float32 d=98); the
-             scan body of every launch (a float32 view off a 16-byte
-             boundary and d=98 must take the CUDA-core body, the other
-             float32 cases the tiled one); a corpus of duplicated rows
+             the 128-row tile, k=1 and 1024, bf16 / int8 at d=768 with k
+             10 and 50, d=100, float32 d=98); the scan body of every
+             launch must be the shape rule's (want_body: bf16 / int8 take
+             the pipelined body where its buffers fit, and every such case
+             also runs the first tensor-core body against the plain
+             version); corpora of duplicated rows (float32, bf16, int8)
              searched twice must give identical slots
+  merge      stage 2 against its plain version: k in {1, 10, 50, 128,
+             1024}, B in {1, 128}, m off a multiple of 32, ties, -inf
+             entries and all -inf rows
   main       the facade: WDBX(INDEX_DTYPE=bfloat16) bulk-loads 1,048,576
              unit rows, answers vector_search_batch (B=128) and
              vector_search; every hit list is held against the plain
              version on the index's slab, and recall@10 against a float32
-             oracle must reach 0.9938
+             oracle must reach 0.9938; the pipelined body must serve it
   default_facade
              WDBX() with the default INDEX_DTYPE (float32 flat) at
              1,048,576 x 384: vector_search_batch (B=128) held against
@@ -31,17 +36,21 @@ Phases (each prints JSON lines; any failure exits non-zero):
              timed with CUDA events; all NB batches of its output are held
              against the plain version, and the float32 and bf16 raw
              recall@10 must reach 0.9938 (float32 must run the tiled
-             body); one batch of 128 times the kernels (also with every
-             row masked: stage 1 without selection), the merge, the
-             plain version and the library call; then an
+             body, bf16 and int8 the pipelined one, int4 the first
+             tensor-core body); one batch of 128 times the kernels (also
+             with every row masked: stage 1 without selection; bf16 and
+             int8 also through the first tensor-core body), the merge
+             (eagerly and in a CUDA graph, beside torch.topk, at k 10, 128
+             and 1024), the plain version and the library call; then an
              int8 facade search with the raw-store rerank (RAW_STORE=ram),
-             whose recall@10 must reach 0.9938 too
+             whose recall@10 must reach 0.9938 too (pipelined body)
   clustered_kernels
              the clustered block scan (K3 v2, K4 v1) against its plain
              version: every slab type and query type, d=768, c in {256,
              1024}, a block list with a dead suffix and an interior hole,
-             an all-dead list, ~10% invalid rows, k in {10, 128}, B in
-             {1, 128}
+             an all-dead list, ~10% invalid rows, k in {10, 50, 128}, B in
+             {1, 128}; the body of every case must be the shape rule's,
+             and the pipelined body's cases also run the first one
   clustered  benchmarks/clustered_10m.py's point: 10,000,000 x 768 rows of
              a 4096-component mixture, generated on the card chunk by
              chunk, int8 ClusteredIVFIndex (nlist 4096) filled by
@@ -51,18 +60,21 @@ Phases (each prints JSON lines; any failure exits non-zero):
              oracle streamed over the regenerated corpus, the x5 float32
              rerank at nprobe 1 gated at 0.97; B=1 at nprobe 4 (narrow
              blocks) and 1 (the ranges scan); stage 1 / stage 2 / call
-             times beside the bound from the batch's live blocks
+             times beside the bound from the batch's live blocks (bf16
+             queries must run the pipelined body, also timed against the
+             first tensor-core body; int8 queries the first)
   clustered_facade
              WDBX(INDEX_TYPE=ivf, IVF_NPROBE=2, int8, RAW_STORE=ram) at
              1,048,576 x 384 (a 1024-component mixture):
              vector_search_batch unfiltered and at 10% (pushdown) and 1%
              (exact masked route) filter selectivity, and vector_search;
              every kernel-path call of the index against the plain
-             version, recall@10 gated at 0.95, and the unfiltered batch's
-             block list must not cover every live block; then float32,
-             bf16 and int4 clustered indexes (int4 also with int8
-             queries) through search_pipelined, timed (float32 must run
-             the tiled body)
+             version, recall@10 gated at 0.95, the unfiltered batch's
+             block list must not cover every live block, and the kernel
+             route must run the pipelined body; then float32, bf16 and
+             int4 clustered indexes (int4 also with int8 queries) through
+             search_pipelined, timed (float32 must run the tiled body,
+             bf16 the pipelined one, int4 the first tensor-core body)
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -82,8 +94,10 @@ Phases (each prints JSON lines; any failure exits non-zero):
              trip; K5 stage 1 / stage 2 / call times beside the bound
 Then a "paths" line (launches of each driven path, by kernel and by
 stage-1 scan body), a "kernels" line (launches on the driven paths,
-times, bounds; the float32 rows also their body, score-only and merge
-times) and, last, {"ok": true, "device": {...}}.
+times, bounds; each stage-1 row also its body, score-only, merge time
+and parts, and where the pipelined body ran the first tensor-core
+body's time as old_ms; the merge row its CUDA-graph times and its times
+at k 10, 128 and 1024) and, last, {"ok": true, "device": {...}}.
 
 Launch counts: every path (main, the default facade, each pipelined
 slab, the int8 facade, each clustered path) runs with the kernels'
@@ -114,6 +128,11 @@ KERNEL_ROWS = 65536  # rows of the kernel-against-plain cases
 ATOL = 1e-4  # kernel vs plain: same exact products, other summation order
 # float32 k of the kernel cases: each picks a query tile of the tiled body
 F32_KS = (1, 10, 128, 256, 1024)
+MERGE_KS = (1, 10, 50, 128, 1024)  # k of the stage-2 cases
+# the stage-1 body each flat slab type's driven path must take
+PATH_BODY = {"float32": "fma_tiled", "bfloat16": "mma_pipe",
+             "int8": "mma_pipe", "int4": "mma"}
+MERGE_TIMED_KS = (10, 128, 1024)  # k of the stage-2 times (bf16 partials)
 REPLACES = {
     "float32": "wdbx_tpu/kernels/fused_topk.py:153",
     "bfloat16": "wdbx_tpu/kernels/fused_topk.py:153",
@@ -164,6 +183,29 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20):
+    """Device time of one ``fn()`` without the host's launch cost: ``reps``
+    calls captured in a CUDA graph, replayed and timed with CUDA events.
+    Returns the time, or the capture's error as a string."""
+    import torch
+
+    try:
+        fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        return cuda_ms(graph.replay, reps=5, warm=1) / reps
+    except RuntimeError as e:  # a capture the runtime refused
+        torch.cuda.synchronize()
+        return f"not measured: {e}"[:200]
 
 
 def rescorer(db, queries, scales=None, int4=False):
@@ -264,6 +306,32 @@ def _slab(dtype, x):
     return x.to(getattr(torch, dtype)), None, False
 
 
+def want_body(dtype, qtype, d, b, k, aligned=True):
+    """The stage-1 body the shape rule gives a launch: ``mma_pipe`` for
+    bf16 slabs and int8 slabs with bf16 queries whose 128 buffers fit
+    beside the resident queries for k (``fused_topk.pipe_qt`` on the
+    kernel's own shared-memory sizes), ``mma`` for the other tensor-core
+    cases, ``fma_tiled`` / ``fma`` for float32 and ragged widths."""
+    from wdbx_tpu_torch.kernels import build
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    if dtype == "float32":
+        return "fma_tiled" if d % 4 == 0 and aligned else "fma"
+    if d % (64 if qtype == "int8" else 32) or not aligned:
+        return "fma"
+    if dtype in ("bfloat16", "int8") and qtype == "bfloat16":
+        lib = build.load("fused_topk")
+        code = tf.SLAB_CODES[dtype]
+
+        def smem(qt, cap):
+            return lib.wdbx_fused_topk_partial_smem(
+                tf.BODY_CODES["mma_pipe"], code, qt, cap, d)
+
+        if tf.pipe_qt(b, k, d, smem) is not None:
+            return "mma_pipe"
+    return "mma"
+
+
 def _body_of(run):
     """The scan body of the one stage-1 launch ``run()`` makes, and its
     result."""
@@ -294,6 +362,7 @@ def phase_kernels(n_rows, seed):
     every = ("float32", "bfloat16", "int8", "int4")
     shapes = [(n_rows, 384, 128, (10, 256), every),
               (10_000, 384, 5, (1, 1024), every),
+              (3_000, 768, 37, (10, 50), ("bfloat16", "int8")),
               (3_000, 100, 37, (10,), every),
               (3_000, 98, 37, (10,), ("float32",))]
     errs, bodies = {}, {}
@@ -327,14 +396,22 @@ def phase_kernels(n_rows, seed):
                 got = tf.topk_merge_partials(pv, pi, k)
                 torch.cuda.synchronize()
                 name = f"{dtype}/n{n}_d{d}_b{b}/{case}"
-                if dtype == "float32":
-                    unaligned = sl.data_ptr() % 16 != 0
-                    if unaligned != (case == "unaligned_view"):
-                        fail(f"{name}: slab alignment is not the case's")
-                    want = "fma" if unaligned or d % 4 else "fma_tiled"
-                    if body != want:
-                        fail(f"{name}: ran the {body} body, expected {want}")
+                unaligned = sl.data_ptr() % 16 != 0
+                if unaligned != (case == "unaligned_view"):
+                    fail(f"{name}: slab alignment is not the case's")
+                want = want_body(dtype, "float32" if dtype == "float32"
+                                 else "bfloat16", d, b, k, not unaligned)
+                if body != want:
+                    fail(f"{name}: ran the {body} body, expected {want}")
                 err = check_topk(name, ref, got, rescore)
+                if body == "mma_pipe":
+                    # the first tensor-core body on the same inputs
+                    pv2, pi2 = tf.fused_topk_partial(
+                        sl, qk, vmask, k, scales=scales, int4=int4,
+                        body="mma")
+                    err = max(err, check_topk(
+                        name + "/mma", ref, tf.topk_merge_partials(pv2, pi2, k),
+                        rescore))
                 merge_err = check_topk(name + "/merge",
                                        tf.merge_partials_plain(pv, pi, k),
                                        got, rescore, atol=0.0)
@@ -358,36 +435,86 @@ def phase_kernels(n_rows, seed):
 
 
 def phase_determinism(g, errs):
-    """The float32 body on a corpus of 8 copies of 8,192 rows (copies
-    8,192 rows apart, so in other chunks): two runs give the same scores
-    and slots bit for bit, and k=11 cuts through a group of copies, so
-    the plain version may pick other copies: equal except at ties."""
+    """Each body on a corpus of 8 copies of 8,192 rows (copies 8,192
+    rows apart, so in other chunks): float32 (the tiled body), bf16 and
+    int8 (the pipelined body). Two runs give the same scores and slots
+    bit for bit, and k=11 cuts through a group of copies, so the plain
+    version may pick other copies: equal except at ties."""
     import torch
 
     from wdbx_tpu_torch.kernels import fused_topk as tf
 
     base = torch.randn((8192, 384), generator=g, device="cuda")
     x = (base / base.norm(dim=1, keepdim=True)).repeat(8, 1)
-    q = tf._prep_queries(x, torch.randn((128, 384), generator=g,
-                                        device="cuda"), None, True)
+    q = torch.randn((128, 384), generator=g, device="cuda")
     valid = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
-    runs = []
-    for _ in range(2):
-        body, (pv, pi) = _body_of(
-            lambda: tf.fused_topk_partial(x, q, valid, 11))
-        runs.append((pv, pi) + tf.topk_merge_partials(pv, pi, 11))
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(*runs))
-    err = check_topk("float32/duplicates/k11",
-                     tf.fused_topk_plain(x, q, valid, 11), runs[0][2:],
-                     rescorer(x, q))
-    emit({"phase": "kernels", "case": "float32/duplicates/k11",
-          "body": body, "copies": 8, "identical_runs": same,
-          "max_abs_err": err, "tol": ATOL})
-    if body != "fma_tiled" or not same:
-        fail(f"duplicates: body {body}, identical runs {same}")
-    errs["fused_topk_partial[float32]"] = max(
-        errs["fused_topk_partial[float32]"], err)
+    for dtype, want in (("float32", "fma_tiled"), ("bfloat16", "mma_pipe"),
+                        ("int8", "mma_pipe")):
+        slab, scales, _ = _slab(dtype, x)
+        qk = tf._prep_queries(slab, q, scales, True)
+        runs = []
+        for _ in range(2):
+            body, (pv, pi) = _body_of(lambda: tf.fused_topk_partial(
+                slab, qk, valid, 11, scales=scales))
+            runs.append((pv, pi) + tf.topk_merge_partials(pv, pi, 11))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        name = f"{dtype}/duplicates/k11"
+        err = check_topk(name, tf.fused_topk_plain(slab, qk, valid, 11,
+                                                   scales=scales),
+                         runs[0][2:], rescorer(slab, qk, scales))
+        emit({"phase": "kernels", "case": name, "body": body, "copies": 8,
+              "identical_runs": same, "max_abs_err": err, "tol": ATOL})
+        if body != want or not same:
+            fail(f"{name}: body {body}, identical runs {same}")
+        key = f"fused_topk_partial[{dtype}]"
+        errs[key] = max(errs[key], err)
+
+
+def phase_merge(seed, errs):
+    """Stage 2 against its plain version on synthetic partials: k in
+    {1, 10, 50, 128, 1024}, B in {1, 128}, m = 33 k + 7 candidates a
+    query (off a multiple of 32), about 20% of them -inf, repeated
+    scores (ties), and rows that are all -inf."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    n_cases = 0
+    for b in (1, 128):
+        for k in MERGE_KS:
+            m = 33 * k + 7
+            pv = torch.randn((b, 1, m), generator=g, device="cuda")
+            pv = torch.round(pv * 64) / 64  # repeated scores: ties
+            pv[torch.rand((b, 1, m), generator=g, device="cuda") < 0.2] = \
+                float("-inf")
+            if b > 1:
+                pv[0] = float("-inf")
+            pv[b // 2, :, : m // 2] = float("-inf")
+            pos = torch.arange(m, device="cuda", dtype=torch.int32)
+            pi = (m - 1 - pos).expand(b, 1, m).contiguous()
+            pi = torch.where(torch.isneginf(pv), -1, pi)
+
+            def rescore(qrow, slot, pv=pv, m=m):
+                return pv[qrow.to(pv.device), 0, m - 1 - slot.to(pv.device)]
+
+            for case, v in (("random", pv),
+                            ("all_inf", torch.full_like(pv, float("-inf")))):
+                if case == "all_inf" and k not in (1, 1024):
+                    continue
+                got = tf.topk_merge_partials(v, pi, k)
+                torch.cuda.synchronize()
+                err = check_topk(f"merge/b{b}_k{k}_m{m}/{case}",
+                                 tf.merge_partials_plain(v, pi, k), got,
+                                 rescore, atol=0.0)
+                if case == "all_inf" and not torch.isneginf(got[0]).all():
+                    fail(f"merge b{b} k{k}: an all -inf input gave rows")
+                errs["topk_merge_partials"] = max(
+                    errs.get("topk_merge_partials", 0.0), err)
+                n_cases += 1
+    emit({"phase": "merge", "cases": n_cases, "ks": list(MERGE_KS),
+          "max_abs_err": errs["topk_merge_partials"], "tol": 0.0})
 
 
 def _counts():
@@ -512,8 +639,10 @@ def phase_main(x, qs, truth, paths, tmp):
     one = db.vector_search(qs[3, 0].tolist(), limit=10)
     wall = time.perf_counter() - t0
     paths["main"] = _counts()
-    if paths["main"]["fused_topk_partial[bfloat16]"] < 4:
-        fail(f"main path did not run the bf16 kernel: {paths['main']}")
+    if paths["main"]["fused_topk_partial[bfloat16]"] < 4 or \
+            paths["main"]["fused_topk_partial.bodies.mma_pipe"] < 4:
+        fail(f"main path did not run the pipelined bf16 body: "
+             f"{paths['main']}")
     if len(one) != 10 or any(len(h) != 10 for h in hits):
         fail("main path returned short hit lists")
     scores = np.array([[s for _, s, _ in row] for row in hits])
@@ -587,6 +716,29 @@ def _bound_ms(dtype, n, d, b, k) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def time_merge(pv, pi, k) -> dict:
+    """Stage 2 on (B, parts, k) partials: the kernel, its plain version
+    and torch.topk over the same partials, beside the bytes bound."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    b = pv.shape[0]
+
+    def merge():
+        return tf.topk_merge_partials(pv, pi, k)
+
+    def library():
+        return torch.topk(pv.reshape(b, -1), k, dim=1)
+
+    return {"ms": cuda_ms(merge),
+            "plain_ms": cuda_ms(lambda: tf.merge_partials_plain(pv, pi, k)),
+            "library_ms": cuda_ms(library),
+            "graph_ms": graph_ms(merge), "library_graph_ms": graph_ms(library),
+            "bound_ms": (pv.numel() * 8 + b * k * 12) / HBM_BYTES_S * 1e3,
+            "parts": int(pv.shape[1])}
+
+
 def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
     import torch
 
@@ -604,7 +756,7 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
         scores, slots = index.search_pipelined(qstack, k=k)
         paths[f"pipelined[{dtype}]"] = _counts()
         name = f"fused_topk_partial[{dtype}]"
-        body = "fma_tiled" if dtype == "float32" else "mma"
+        body = PATH_BODY[dtype]
         if paths[f"pipelined[{dtype}]"][
                 f"fused_topk_partial.bodies.{body}"] < 1:
             fail(f"pipelined {dtype} did not run the {body} body: "
@@ -640,6 +792,10 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
         none_valid = torch.zeros_like(valid)
         score_only_ms = cuda_ms(lambda: tf.fused_topk_partial(
             slab, qk, none_valid, k, scales=scales, int4=int4))
+        old_ms = None
+        if body == "mma_pipe":  # the first tensor-core body, same inputs
+            old_ms = cuda_ms(lambda: tf.fused_topk_partial(
+                slab, qk, valid, k, scales=scales, body="mma"))
         pv, pi = part()
         # and at B=128 (another tiling than the NB*B launch)
         err = check_topk(f"{dtype}/n{n_rows}_b{b}",
@@ -648,10 +804,7 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
                          tf.topk_merge_partials(pv, pi, k),
                          rescorer(slab, qk, scales, int4))
         errs[name] = max(errs[name], err)
-        merge_ms = cuda_ms(lambda: tf.topk_merge_partials(pv, pi, k))
-        merge_plain_ms = cuda_ms(lambda: tf.merge_partials_plain(pv, pi, k))
-        merge_library_ms = cuda_ms(
-            lambda: torch.topk(pv.reshape(b, -1), k, dim=1))
+        merge = time_merge(pv, pi, k)
         plain_ms = cuda_ms(lambda: tf.fused_topk_plain(
             slab, qk, valid, k, scales=scales, int4=int4), reps=3, warm=1)
         if int4:
@@ -662,20 +815,29 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
             library_ms = cuda_ms(lambda: torch.topk(
                 torch.matmul(lib_q, lib_slab.T), k, dim=1), reps=3, warm=1)
         bound, by = _bound_ms(dtype, n_rows, d, b, k)
-        mb_bytes = pv.numel() * 8 + b * k * 12
+        merge_at_k = {}
+        if dtype == "bfloat16":  # stage 2 at deeper k, on this slab's partials
+            for kk in MERGE_TIMED_KS:
+                if kk == k:
+                    merge_at_k[kk] = merge
+                    continue
+                pvk, pik = tf.fused_topk_partial(slab, qk, valid, kk)
+                merge_at_k[kk] = time_merge(pvk, pik, kk)
+                del pvk, pik
         timings[name] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": library_ms, "body": body,
+            "old_ms": old_ms,
             "score_only_ms": score_only_ms, "parts": pv.shape[1],
-            "merge_ms": merge_ms, "merge_plain_ms": merge_plain_ms,
-            "merge_library_ms": merge_library_ms,
-            "merge_bound_ms": mb_bytes / HBM_BYTES_S * 1e3,
+            "merge_ms": merge["ms"], "merge": merge,
+            "merge_at_k": merge_at_k,
         }
         emit({"phase": "pipelined", "dtype": dtype, "n": n_rows, "nb": nb,
               "b": b, "k": k, "call_ms": call_ms,
               "ms_per_batch": call_ms / nb, "qps": nb * b / call_ms * 1e3,
               "kernel_ms_b128": ms, "score_only_ms_b128": score_only_ms,
-              "merge_ms_b128": merge_ms, "body": body,
+              "old_body_ms_b128": old_ms,
+              "merge_ms_b128": merge["ms"], "body": body,
               "parts_b128": pv.shape[1],
               "bound_ms_b128": bound, "bound_by": by,
               "plain_ms_b128": plain_ms, "library_ms_b128": library_ms,
@@ -697,6 +859,9 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
     hits = db.vector_search_batch(qs[0], limit=10)
     wall = time.perf_counter() - t0
     paths["facade_int8_rerank"] = _counts()
+    if paths["facade_int8_rerank"]["fused_topk_partial.bodies.mma_pipe"] < 1:
+        fail(f"int8 facade did not run the pipelined body: "
+             f"{paths['facade_int8_rerank']}")
     rec = _recall(hits, truth[:b])
     emit({"phase": "pipelined", "path": "facade int8 + rerank", "n": n_rows,
           "b": b, "limit": 10, "wall_s": round(wall, 4),
@@ -851,6 +1016,11 @@ def time_block_scan(index, q, k, nprobe, gen, qprec):
     pv, pi = stage1()
     body = [b for b, n in cs.clustered_block_partial.bodies.items()
             if n != before[b]][0]
+    old_ms = None
+    if body == "mma_pipe":  # the first tensor-core body, same inputs
+        old_ms = cuda_ms(lambda: cs.clustered_block_partial(
+            slab, valid, scales, uniq, ok, qq, qs, k, c, int4=int4, gen=gen,
+            body="mma"))
     merge_ms = cuda_ms(lambda: tf.topk_merge_partials(pv, pi, k))
     plain_ms = cuda_ms(lambda: cs.clustered_block_topk_plain(
         slab, valid, scales, uniq, ok, qn, k, c, int4=int4, qprec=qprec),
@@ -876,6 +1046,7 @@ def time_block_scan(index, q, k, nprobe, gen, qprec):
     return {"ms": ms, "score_only_ms": score_only_ms, "merge_ms": merge_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by, "body": body,
+            "old_ms": old_ms,
             "parts": int(pv.shape[1]), "live_blocks": live,
             "u": int(len(uniq)), "c": c}
 
@@ -884,10 +1055,12 @@ def phase_clustered_kernels(seed, errs):
     """K3 / K4 against their plain version on the card: every slab type
     and query type of both generations, d=768, c in {256, 1024}, a block
     list with a dead suffix and an interior hole, an all-dead list, ~10%
-    invalid rows, k in {10, 128}, B in {1, 128}."""
+    invalid rows, k in {10, 50, 128}, B in {1, 128}; the pipelined body's
+    cases also through the first tensor-core body."""
     import torch
 
     from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels import fused_topk as tf
     from wdbx_tpu_torch.kernels.quant import prep_query_block
 
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -918,7 +1091,7 @@ def phase_clustered_kernels(seed, errs):
                 qq, qs, _ = prep_query_block(q, slab.dtype,
                                              scales is not None, qprec)
                 rescore = block_rescorer(slab, qq, qs, scales, int4)
-                for k in (10, 128):
+                for k in (10, 50, 128):
                     for case, u_, ok_ in lists:
                         kw = dict(int4=int4, qprec=qprec) if gen == "v2" \
                             else {}
@@ -934,10 +1107,18 @@ def phase_clustered_kernels(seed, errs):
                         torch.cuda.synchronize()
                         key = clu_name(cs.mode_key(gen, sk, qk))
                         name = f"{key}/c{c}_b{b}_k{k}/{case}"
-                        want = "fma_tiled" if sk == "float32" else "mma"
+                        want = want_body(sk, qk, d, b, k)
                         if body != [want]:
                             fail(f"{name}: ran {body}, expected {want}")
                         err = check_topk(name, ref, got, rescore)
+                        if want == "mma_pipe":
+                            # the first tensor-core body, same inputs
+                            pv2, pi2 = cs.clustered_block_partial(
+                                slab, valid, scales, u_, ok_, qq, qs, k, c,
+                                int4=int4, gen=gen, body="mma")
+                            err = max(err, check_topk(
+                                name + "/mma", ref,
+                                tf.topk_merge_partials(pv2, pi2, k), rescore))
                         if case == "all_dead" and not torch.isneginf(
                                 got[0]).all():
                             fail(f"{name}: a dead list returned rows")
@@ -1040,8 +1221,11 @@ def phase_clustered(seed, paths, timings, errs):
         name = f"clustered_10m[nprobe{nprobe},k{kk},{gen},q={qprec}]"
         out, wall = drive(name, nprobe, kk, gen, qprec)
         key = clu_name(cs_key(gen, "int8", qprec))
-        if paths[name][key] < 1:
-            fail(f"{name} did not run {key}: {paths[name]}")
+        body = "mma" if qprec == "int8" else "mma_pipe"
+        if paths[name][key] < 1 or \
+                paths[name][f"clustered_block_partial.bodies.{body}"] < 1:
+            fail(f"{name} did not run {key} with the {body} body: "
+                 f"{paths[name]}")
         err, live = check_pipelined(name, index, qstack, kk, out)
         errs[key] = max(errs.get(key, 0.0), err)
         results[name] = out
@@ -1234,9 +1418,11 @@ def phase_clustered_facade(seed, paths, timings, errs, tmp):
         want = "exact" if label == "filter_1pct" else "kernel"
         if routes != [want]:
             fail(f"{name}: routes {routes}, expected [{want!r}]")
-        if want == "kernel" and paths[name][clu_name(
-                cs_key("v2", "int8", "bf16"))] < 1:
-            fail(f"{name}: K3 was not launched")
+        if want == "kernel" and (paths[name][clu_name(
+                cs_key("v2", "int8", "bf16"))] < 1 or paths[name][
+                "clustered_block_partial.bodies.mma_pipe"] < 1):
+            fail(f"{name}: K3 was not launched with the pipelined body: "
+                 f"{paths[name]}")
     # one query at a time (B=1)
     name = "clustered_facade[vector_search]"
     calls.clear()
@@ -1273,7 +1459,8 @@ def phase_clustered_facade(seed, paths, timings, errs, tmp):
         torch.cuda.synchronize()
         paths[name] = _counts()
         key = clu_name(cs_key("v2", dtype, qprec))
-        body = "fma_tiled" if dtype == "float32" else "mma"
+        body = {"float32": "fma_tiled", "bfloat16": "mma_pipe"}.get(
+            dtype, "mma")
         if paths[name][key] < 1 or \
                 paths[name][f"clustered_block_partial.bodies.{body}"] < 1:
             fail(f"{name} did not run {key} with the {body} body: "
@@ -1746,12 +1933,15 @@ def phase_dense_ivf(seed, paths, timings, errs, tmp):
     torch.cuda.empty_cache()
 
 
-def _f32_extras(dtype, t) -> dict:
-    """The float32 rows' scan body, stage-1 time with every row masked
-    (no selection), stage-2 time on their partials and the part count."""
-    if dtype != "float32":
-        return {}
-    return {k: t[k] for k in ("body", "score_only_ms", "merge_ms", "parts")}
+def _extras(t) -> dict:
+    """A stage-1 row's scan body, its time with every row masked (no
+    selection), stage-2 time on its partials, the part count and, where
+    the pipelined body ran, the first tensor-core body's time on the same
+    inputs (``old_ms``)."""
+    out = {k: t[k] for k in ("body", "score_only_ms", "merge_ms", "parts")}
+    if t.get("old_ms") is not None:
+        out["old_ms"] = t["old_ms"]
+    return out
 
 
 def main() -> None:
@@ -1766,6 +1956,7 @@ def main() -> None:
     card = phase_device()
     phase_build()
     errs = phase_kernels(KERNEL_ROWS, args.seed)
+    phase_merge(args.seed, errs)
     phase_clustered_kernels(args.seed, errs)
     phase_ivf_kernels(args.seed, errs)
     paths: dict[str, dict] = {}
@@ -1800,17 +1991,20 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **_f32_extras(dtype, t),
+            **_extras(t),
         })
     mt = timings["fused_topk_partial[bfloat16]"]
     kernels.append({
         "name": "topk_merge_partials", "route": "cuda", "source": SOURCE,
         "replaces": "wdbx_tpu/kernels/fused_topk.py:127",
         "launches": total["topk_merge_partials"],
-        "max_abs_err": errs["topk_merge_partials"], "ms": mt["merge_ms"],
-        "plain_ms": mt["merge_plain_ms"],
-        "bound_ms": mt["merge_bound_ms"], "bound_by": "bytes",
-        "library_ms": mt["merge_library_ms"],
+        "max_abs_err": errs["topk_merge_partials"], "ms": mt["merge"]["ms"],
+        "plain_ms": mt["merge"]["plain_ms"],
+        "bound_ms": mt["merge"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": mt["merge"]["library_ms"],
+        "graph_ms": mt["merge"]["graph_ms"],
+        "library_graph_ms": mt["merge"]["library_graph_ms"],
+        "parts": mt["merge"]["parts"], "at_k": mt["merge_at_k"],
     })
     for gen, slab, qprec in (("v2", "float32", "bf16"),
                              ("v2", "bfloat16", "bf16"),
@@ -1825,7 +2019,7 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **_f32_extras(slab, t),
+            **_extras(t),
         })
     for dtype in ("bfloat16", "float32"):
         name = f"ivf_bucket_partial[{dtype}]"

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_fused_topk import tiled_smem
+from test_torch_fused_topk import pipe_smem, tiled_smem
 from test_torch_ops import TOL, assert_topk_match
 from wdbx_tpu.index.clustered import _dedup_blocks as j_dedup
 from wdbx_tpu.kernels import quant as jquant
@@ -246,3 +246,29 @@ def test_plan_tiled_block_scan_fits_every_k():
     for k in range(1, 129):
         qt = tcs.plan(512, 128, k, 132, tiled_smem, body="fma_tiled")[0]
         assert tiled_smem(qt, tf._cap(k)) <= tf.SMEM_MAX
+
+
+@pytest.mark.parametrize("u,b,k,d", [
+    (512, 128, 10, 384), (1024, 128, 10, 768), (512, 128, 50, 768),
+    (4096, 8192, 10, 384), (1, 1, 10, 384), (37, 5, 64, 384)])
+@pytest.mark.parametrize("slab", ["bfloat16", "int8"])
+def test_plan_pipe_groups_whole_waves(u, b, k, d, slab):
+    smem = pipe_smem(slab, d)
+    qt, ways, groups = tcs.plan(u, b, k, 132, smem, body="mma_pipe", d=d)
+    assert qt == tf.pipe_qt(b, k, d, smem) and ways == 0
+    assert smem(qt, tf.tiled_cap(qt, k, smem)) <= tf.SMEM_MAX
+    # a CTA's span of the live tiles stays within 32 list entries, and
+    # the grid (one CTA a SM) is a whole number of waves
+    assert groups * 31 >= u and groups <= 65535
+    assert (-(-b // qt) * groups) % 132 == 0
+
+
+def test_plan_pipe_block_scan_fits_every_k():
+    # the clustered kernel path serves k <= 128 (KERNEL_K_MAX); the
+    # pipelined body takes what fits, the rest stays on scan_mma
+    for d in (384, 768):
+        smem = pipe_smem("int8", d)
+        served = [k for k in range(1, 129)
+                  if tf.pipe_qt(128, k, d, smem) is not None]
+        assert served == list(range(1, len(served) + 1))
+        assert len(served) >= 50  # the filtered search's k=50 fits

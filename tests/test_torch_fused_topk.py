@@ -153,10 +153,10 @@ def test_plan_tiled_fits_every_k(b):
     ("float32", "float32", 98, 0, 0, "fma"),
     ("float32", "float32", 384, 4, 0, "fma"),
     ("float32", "float32", 384, 0, 8, "fma"),
-    ("bfloat16", "bfloat16", 384, 0, 0, "mma"),
+    ("bfloat16", "bfloat16", 384, 0, 0, "mma_pipe"),
     ("bfloat16", "bfloat16", 100, 0, 0, "fma"),
     ("bfloat16", "bfloat16", 384, 2, 0, "fma"),
-    ("int8", "bfloat16", 96, 0, 0, "mma"),
+    ("int8", "bfloat16", 96, 0, 0, "mma_pipe"),
     ("int8", "int8", 96, 0, 0, "fma"),  # s8 products take 64 dims a slice
     ("int4", "int8", 768, 0, 0, "mma"),
 ])
@@ -186,3 +186,110 @@ def test_tiled_cap_grows_into_the_spare_shared_memory(k):
         assert tiled_smem(qt, cap) <= tf.SMEM_MAX
         assert cap == max(tf._cap(k), 128) or \
             tiled_smem(qt, cap + 1) > tf.SMEM_MAX
+
+
+def pipe_smem(slab, d):
+    """Shared memory of a pipelined tensor-core CTA
+    (``csrc/topk_common.cuh``, ``pipe_smem_bytes``): the 3-stage ring of
+    128 rows x 128 bytes, the resident queries (rows padded to a whole
+    slice plus 8 or 16 elements), two tiles of row scales, then the 128
+    warp buffers."""
+    per = 128 if slab == "int8" else 64
+    stride = -(-d // per) * per + (16 if slab == "int8" else 8)
+
+    def smem(qt, cap):
+        return 4 * (3 * 128 * 128 // 4 + qt * stride // 2 + 2 * 128
+                    + 2 * 128 + 2 * 128 * cap)
+
+    return smem
+
+
+@pytest.mark.parametrize("slab,qtype,d,db_off,q_off,want", [
+    ("bfloat16", "bfloat16", 384, 0, 0, "mma_pipe"),
+    ("bfloat16", "bfloat16", 768, 0, 0, "mma_pipe"),
+    ("int8", "bfloat16", 384, 0, 0, "mma_pipe"),
+    ("int8", "bfloat16", 768, 0, 0, "mma_pipe"),
+    ("int8", "bfloat16", 1536, 0, 0, "mma_pipe"),
+    ("int8", "bfloat16", 1568, 0, 0, "mma"),  # queries too wide to stay
+    ("bfloat16", "bfloat16", 2048, 0, 0, "mma"),
+    ("int4", "bfloat16", 384, 0, 0, "mma"),  # int4 keeps scan_mma
+    ("int8", "int8", 384, 0, 0, "mma"),  # int8 queries keep scan_mma
+    ("int8", "int8", 768, 0, 0, "mma"),
+    ("bfloat16", "bfloat16", 384, 0, 2, "fma"),  # unaligned queries
+    ("int8", "bfloat16", 384, 8, 0, "fma"),  # unaligned slab
+    ("int8", "bfloat16", 400, 0, 0, "fma"),
+])
+def test_scan_body_rule_for_the_pipelined_body(slab, qtype, d, db_off, q_off,
+                                               want):
+    assert tf.scan_body(slab, qtype, d, 4096 + db_off, 8192 + q_off) == want
+
+
+def test_scan_body_of_unaligned_bf16_views():
+    buf = torch.zeros(64 * 384 + 1, dtype=torch.bfloat16)
+    view = buf[1:].view(64, 384)
+    q = torch.zeros((5, 384), dtype=torch.bfloat16)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert tf.scan_body("bfloat16", "bfloat16", 384, view.data_ptr(),
+                        q.data_ptr()) == "fma"
+
+
+@pytest.mark.parametrize("slab", ["bfloat16", "int8"])
+@pytest.mark.parametrize("d", [384, 768])
+def test_pipe_qt_rule_and_fit(slab, d):
+    smem = pipe_smem(slab, d)
+    for b in (1, 5, 37, 128, 8192):
+        for k in range(1, tf.K_MAX + 1):
+            qt = tf.pipe_qt(b, k, d, smem)
+            if qt is None:
+                # no query tile's 128 buffers fit beside its queries
+                assert all(smem(x, tf._cap(k)) > tf.SMEM_MAX or
+                           x * d * 2 > tf.PIPE_QUERY_BYTES
+                           for x in tf.PIPE_QT)
+                continue
+            assert qt in tf.PIPE_QT and qt * d * 2 <= tf.PIPE_QUERY_BYTES
+            cap = tf.tiled_cap(qt, k, smem)
+            assert tf._cap(k) <= cap and smem(qt, cap) <= tf.SMEM_MAX
+    # the driven points: k=10 at B=128 takes 128 queries at d=384, 64 at
+    # d=768; k=50 fits too; k=1024 does not
+    assert tf.pipe_qt(128, 10, d, smem) == (128 if d == 384 else 64)
+    assert tf.pipe_qt(128, 50, d, smem) is not None
+    assert tf.pipe_qt(128, 1024, d, smem) is None
+
+
+def test_pick_body_sends_deep_k_to_scan_mma():
+    def smem_of(code):
+        return pipe_smem("int8", 384) if code == tf.BODY_CODES["mma_pipe"] \
+            else (lambda qt, cap: 0)
+
+    assert tf.pick_body("int8", "bfloat16", 128, 10, 384, 4096, 8192,
+                        smem_of) == "mma_pipe"
+    assert tf.pick_body("int8", "bfloat16", 128, 1024, 384, 4096, 8192,
+                        smem_of) == "mma"
+    assert tf.pick_body("int8", "int8", 128, 10, 384, 4096, 8192,
+                        smem_of) == "mma"
+
+
+@pytest.mark.parametrize("n,b,k,d", [
+    (1 << 20, 128, 10, 384), (1 << 20, 8192, 10, 384), (1 << 20, 1, 10, 384),
+    (65536, 128, 1, 384), (65536, 128, 50, 768), (65536, 5, 64, 384),
+    (10_000, 37, 10, 768), (100, 3, 1, 384)])
+@pytest.mark.parametrize("slab", ["bfloat16", "int8"])
+def test_plan_pipe_covers_slab_in_whole_waves(n, b, k, d, slab):
+    smem = pipe_smem(slab, d)
+    qt, chunks, rows = tf.plan(n, b, k, 132, smem, body="mma_pipe", d=d)
+    assert qt == tf.pipe_qt(b, k, d, smem)
+    assert smem(qt, tf.tiled_cap(qt, k, smem)) <= tf.SMEM_MAX
+    # every row in exactly one chunk of whole 128-row tiles
+    assert rows % 128 == 0 and chunks * rows >= n > (chunks - 1) * rows
+    assert chunks <= 65535
+    # one CTA a SM: the grid is whole waves of 132, each SM an equal share
+    qtiles, tiles = -(-b // qt), -(-n // 128)
+    waves = -(-qtiles * chunks // 132)
+    assert waves * rows // 128 <= 1.05 * qtiles * tiles / 132 + 2
+
+
+def test_plan_pipe_at_the_driven_point():
+    # 1M x 384, B=128, k=10 on 132 SMs: one wave of 131 chunks of 63 tiles
+    for slab in ("bfloat16", "int8"):
+        assert tf.plan(1 << 20, 128, 10, 132, pipe_smem(slab, 384),
+                       body="mma_pipe", d=384) == (128, 131, 63 * 128)

@@ -59,3 +59,13 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert mod in got["modules"], mod
     if not got["cuda"]:
         assert got["raised"] and "device='cpu'" in got["raised"]
+
+
+def test_root_exports_the_dense_ivf_index():
+    from wdbx_tpu_torch import IVFIndex
+    from wdbx_tpu_torch.index.ivf import IVFIndex as dense
+
+    import wdbx_tpu_torch
+
+    assert IVFIndex is dense
+    assert "IVFIndex" in wdbx_tpu_torch.__all__

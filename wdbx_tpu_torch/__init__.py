@@ -14,13 +14,15 @@ device unless the caller passes ``device="cpu"``:
 
 __version__ = "0.1.0"
 
-__all__ = ["WDBX", "WDBXConfig", "VectorStore", "FlatIndex", "__version__"]
+__all__ = ["WDBX", "WDBXConfig", "VectorStore", "FlatIndex", "IVFIndex",
+           "__version__"]
 
 _LAZY = {
     "WDBX": ("wdbx_tpu_torch.core.wdbx", "WDBX"),
     "WDBXConfig": ("wdbx_tpu_torch.core.config", "WDBXConfig"),
     "VectorStore": ("wdbx_tpu_torch.store.vector_store", "VectorStore"),
     "FlatIndex": ("wdbx_tpu_torch.index.flat", "FlatIndex"),
+    "IVFIndex": ("wdbx_tpu_torch.index.ivf", "IVFIndex"),
 }
 
 

@@ -1,15 +1,20 @@
 // Shared pieces of the stage-1 score + top-k kernels (sm_90a, CUDA C++):
 // the per-query candidate buffer and its warp-level radix select
-// (CtaSel), the tile loaders, the in-register int4 unpack, and the three
-// scan bodies that score a list of row tiles into a CtaSel:
+// (CtaSel), the tile loaders, the in-register int4 unpack, and the four
+// scan bodies that score a list of row tiles:
 //   scan_fma_tiled  float32 slabs with float32 queries, d % 4 == 0 and
 //                   16-byte aligned operands: register-tiled CUDA-core
 //                   FMAs fed by a cp.async ring, selection from registers
 //   scan_fma        CUDA-core float32 FMAs (every other width / type off
 //                   the tensor-core slices, and unaligned views)
+//   scan_mma_pipe   bf16 slabs and int8 slabs with bf16 queries:
+//                   mma.sync bf16 x bf16 -> f32 on queries resident in
+//                   shared memory, fed by a cp.async ring, selection from
+//                   registers (a register top-k up to k = 32)
 //   scan_mma        mma.sync on the tensor cores: bf16 x bf16 -> f32
-//                   (bf16 / int8 / int4 slabs with bf16 queries), or
-//                   s8 x s8 -> s32 (int8 / int4 slabs with int8 queries)
+//                   (the other bf16-query cases: int4 slabs, and k or d
+//                   too large for scan_mma_pipe), or s8 x s8 -> s32 (int8
+//                   / int4 slabs with int8 queries)
 // They walk a Tiles object: RangeTiles is one contiguous row range (the
 // fused flat scan, fused_topk.cu), BlockTiles the c-row blocks a CTA
 // read from a block list and SpanTiles a CTA's equal share of the row
@@ -40,7 +45,7 @@ enum SlabType { kF32 = 0, kBF16 = 1, kI8 = 2, kI4 = 3 };
 // Query element types: float32, bf16, int8 codes with a per-query scale.
 enum QueryType { kQF32 = 0, kQBF16 = 1, kQI8 = 2 };
 // Stage-1 scan bodies, by the code the C entry points take.
-enum Body { kBodyFma = 0, kBodyMma = 1, kBodyFmaTiled = 2 };
+enum Body { kBodyFma = 0, kBodyMma = 1, kBodyFmaTiled = 2, kBodyMmaPipe = 3 };
 
 __host__ __device__ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -215,7 +220,10 @@ __device__ __forceinline__ void sel_cut(const Sel& s, int k, int lane) {
   sel_compact(s, c, t, k - (int)above, lane);
 }
 
-// Offer one candidate per lane; cap >= k + 32 keeps room after a cut.
+// Offer one candidate per lane; cap >= k + 32 keeps room after a cut. A
+// full buffer is cut by sel_shrink, or by sel_cut with CUT (which needs
+// no histogram: s.hist may then be null).
+template <bool CUT = false>
 __device__ __forceinline__ void sel_offer(const Sel& s, float v, int id,
                                           int k, int cap, int lane) {
   bool want = v > *s.thr;
@@ -224,7 +232,10 @@ __device__ __forceinline__ void sel_offer(const Sel& s, float v, int id,
   int c = *s.count;
   int n = __popc(m);
   if (c + n > cap) {
-    sel_shrink(s, k, lane);
+    if constexpr (CUT)
+      sel_cut(s, k, lane);
+    else
+      sel_shrink(s, k, lane);
     want = v > *s.thr;
     m = __ballot_sync(kFull, want);
     if (m == 0) return;
@@ -559,7 +570,7 @@ size_t fma_tiled_smem_bytes(int qt, int cap) {
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !in (src
 // is then not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -1180,6 +1191,690 @@ __device__ void scan_mma(const Tiles& tiles, const CtaSel& sel,
     sel.offer_tile<R>(St, RS, r0, q0, b, warp, lane);
   }
   __syncthreads();
+}
+
+
+// ---------------------------------------------------------------------
+// The pipelined tensor-core body for bf16-query products (bf16 slabs, and
+// int8 slabs with bf16 queries). A 1M x 384 int8 slab is 0.12 ms of bytes
+// on this card and its bf16 products at B = 128 another 0.10 ms at the
+// dense peak, so the body is built to keep both the copies and the
+// tensor cores busy with few other instructions:
+//  * the CTA's QT = 128 / WR queries are loaded once (cp.async) and stay
+//    resident in shared memory for the whole chunk, in rows padded so
+//    that fragment loads are free of bank conflicts;
+//  * 128-row tiles stream through a kPStages ring of 128 bytes a row (64
+//    bf16 or 128 int8 dims a slice), 16-byte cp.async.cg copies with an
+//    XOR swizzle of the 16-byte chunks, one barrier per slice; int8 rows
+//    land raw;
+//  * warp w owns the 16 queries [16 (w / WR), 16 (w / WR) + 16) of the
+//    CTA over the rows [RW (w % WR), RW (w % WR) + RW) of a tile, RW =
+//    128 / WR: mma.sync m16n8k16 with the queries as A (ldmatrix.x4) and
+//    the rows as B (ldmatrix.x4: two 8-row n-tiles of bf16, or four of
+//    int8, converted to bf16 in registers by a byte permute and a
+//    float32 magic number, exact for every int8 code; the A fragment
+//    then takes the same order of the 16 dims of a step);
+//  * selection needs no CTA barrier: each warp selects for its own 16
+//    queries. At the end of a tile each thread scales its scores (the row
+//    scale, 1 for bf16), masks them and compares them with its two
+//    queries' thresholds (one vote a tile when nothing survives). The
+//    four lanes of a quad hold a query's 128 scores of the tile. Up to k
+//    = 4 kPipeKQ (KQ > 0) the quad keeps the query's top k in registers
+//    (KQ slots a lane, the quad's minimum as the threshold) and inserts
+//    survivors one a round, best first while a lane holds several, so no
+//    buffer and no cut exist. Above it each warp keeps a shared buffer a
+//    query: survivors are appended in lane order, then row order; a
+//    flood is cut in registers (quad_kth) and a full buffer by sel_cut;
+//  * the WR warps that share a query write separate partials, so the CTA
+//    writes WR parts a query: (B, parts * WR, k).
+// The same inputs give the same slots on every run. smem holds the ring,
+// the queries, the tiles' row scales (pipe_words) and then the 128 warp
+// buffers (pipe_sel_words; used above 4 kPipeKQ only).
+constexpr int kPRows = 128;     // rows per tile
+constexpr int kPStages = 3;     // cp.async ring depth
+constexpr int kPRowBytes = 128; // bytes of a row a slice
+constexpr int kPBufs = 128;     // candidate buffers: 8 warps x 16 queries
+constexpr int kPipeKQ = 8;      // register top-k slots a lane: k <= 32
+
+// Resident query row stride in bf16 elements: the width rounded up to a
+// whole slice, plus 8 (bf16 slabs: ldmatrix rows 16 bytes apart mod 128)
+// or 16 (int8 slabs: 8-byte fragment loads, rows 32 bytes apart).
+__host__ __device__ inline int pipe_qstride(int slab, int d) {
+  const int per = slab == kI8 ? kPRowBytes : kPRowBytes / 2;  // dims a slice
+  return (d + per - 1) / per * per + (slab == kI8 ? 16 : 8);
+}
+
+__host__ __device__ inline size_t pipe_words(int slab, int qt, int d) {
+  return (size_t)kPStages * kPRows * kPRowBytes / 4 +
+         (size_t)qt * pipe_qstride(slab, d) / 2 + 2 * kPRows;
+}
+
+__host__ __device__ inline size_t pipe_sel_words(int cap) {
+  return 2 * (size_t)kPBufs + 2 * (size_t)kPBufs * cap;
+}
+
+size_t pipe_smem_bytes(int slab, int qt, int cap, int d) {
+  return (pipe_words(slab, qt, d) + pipe_sel_words(cap)) * 4;
+}
+
+// The 128 warp buffers of the pipelined body, after its tiles.
+struct PipeSel {
+  int* cnt;    // [kPBufs]
+  float* thr;  // [kPBufs]
+  float* sv;   // [kPBufs][cap]
+  int* si;     // [kPBufs][cap]
+  int cap, k;
+
+  __device__ PipeSel(void* p, int cap_, int k_) : cap(cap_), k(k_) {
+    cnt = static_cast<int*>(p);
+    thr = reinterpret_cast<float*>(cnt + kPBufs);
+    sv = thr + kPBufs;
+    si = reinterpret_cast<int*>(sv + (size_t)kPBufs * cap);
+  }
+
+  __device__ Sel at(int j) const {
+    return Sel{sv + (size_t)j * cap, si + (size_t)j * cap, cnt + j, thr + j,
+               nullptr};
+  }
+
+  // Cut each of this warp's 16 buffers to k and write it (unsorted, -inf
+  // / -1 pads) as part `part` of query qbase + j's (b, nparts, k) partials.
+  __device__ void write(int qbase, int b, int part, int nparts, float* part_v,
+                        int* part_i, int warp, int lane) const {
+    for (int j = 0; j < 16; ++j) {
+      const int qg = qbase + j;
+      if (qg >= b) break;
+      const Sel s = at(warp * 16 + j);
+      sel_cut(s, k, lane);
+      const int c = *s.count;
+      const size_t base = ((size_t)qg * nparts + part) * k;
+      for (int e = lane; e < k; e += 32) {
+        const bool have = e < c;
+        part_v[base + e] = have ? s.v[e] : -INFINITY;
+        part_i[base + e] = have ? s.i[e] : -1;
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Four int8 codes (bytes 0..3 of w) as two bf16 pairs, exactly: each byte
+// biased to 0..255 goes into the low mantissa of 2^23 (a byte permute),
+// the float subtraction of 2^23 + 128 gives the code, and the pair
+// conversion rounds nothing (|code| <= 128 has 8 significant bits).
+__device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr uint32_t kMagic = 0x4B000000u;  // 2^23
+  const float f0 = __uint_as_float(__byte_perm(u, kMagic, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, kMagic, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, kMagic, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, kMagic, 0x7653)) - 8388736.f;
+  lo = pack_bf16(f0, f1);
+  hi = pack_bf16(f2, f3);
+}
+
+
+// Append the survivors of one query held in acc[.][2h + j] (bit 2n + j of
+// `bits`: row rowg + 8n + j) to buffer s, from slot c: this lane's
+// survivors take ranks r, r + 1, ... in row order, and those of rank
+// below `take` are written and cleared from `bits`.
+template <int NT>
+__device__ __forceinline__ void pipe_put(const Sel& s, const float (&acc)[NT][4],
+                                         int h, unsigned& bits, int c, int r,
+                                         int take, int rowg) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = 2 * n + j;
+      if ((bits >> i) & 1u) {
+        if (r >= 0 && r < take) {
+          s.v[c + r] = h ? acc[n][2 + j] : acc[n][j];
+          s.i[c + r] = rowg + 8 * n + j;
+          bits &= ~(1u << i);
+        }
+        ++r;
+      }
+    }
+}
+
+// A flood (a query's survivors of one tile outnumber k and overflow its
+// buffer, as in a CTA's first tile): the k-th best survivor key of each
+// quad's query (half H of the accumulators), two bits a step, the three
+// counts of a step (at most 128 each) sharing one quad sum. Every lane
+// takes part; a quad with no flood computes a key it does not use. The
+// scores are turned into their keys in place and back (exact).
+template <int H, int NT>
+__device__ __forceinline__ unsigned quad_kth(float (&acc)[NT][4],
+                                             unsigned bits, int k) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const unsigned key =
+          (bits >> (2 * n + j)) & 1u ? f2key(acc[n][2 * H + j]) : 0u;
+      acc[n][2 * H + j] = __uint_as_float(key);
+    }
+  const unsigned want = (unsigned)k;
+  unsigned t = 0;
+  for (int bit = 30; bit >= 0; bit -= 2) {
+    const unsigned t1 = t | (1u << bit), t2 = t | (2u << bit),
+                   t3 = t | (3u << bit);
+    unsigned n = 0;
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const unsigned key = __float_as_uint(acc[i][2 * H + j]);
+        n += (key >= t1) | (key >= t2) << 8 | (key >= t3) << 16;
+      }
+    n += __shfl_xor_sync(kFull, n, 1);
+    n += __shfl_xor_sync(kFull, n, 2);
+    t = (n >> 16) >= want ? t3
+        : ((n >> 8) & 255u) >= want ? t2
+        : (n & 255u) >= want ? t1 : t;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const unsigned key = __float_as_uint(acc[n][2 * H + j]);
+      acc[n][2 * H + j] = key ? key2f(key) : 0.f;
+    }
+  return t;
+}
+
+// Inclusive prefix over the 4 lanes of a quad, and the quad's total.
+__device__ __forceinline__ unsigned quad_incl(unsigned x, int t) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, x, o, 4);
+    if (t >= o) x += y;
+  }
+  return x;
+}
+
+// Insert one survivor (value v of row `row`, quad-uniform) into the
+// quad's register top-k of one query (slots tv / ti, 4 j + t < k active,
+// inactive slots +inf) when it beats the quad's minimum qthr: the minimum
+// slot (the lowest lane's, then its lowest slot, on ties) takes it, and
+// qthr becomes the new minimum. Every lane of the warp calls it.
+template <int KQ>
+__device__ __forceinline__ void reg_insert(float (&tv)[KQ], int (&ti)[KQ],
+                                           float& qthr, float v, int row,
+                                           int t) {
+  const bool take = v > qthr;  // quad-uniform; every lane shuffles
+  float m = INFINITY;
+  int lj = 0;
+#pragma unroll
+  for (int j = 0; j < KQ; ++j)
+    if (tv[j] < m) {
+      m = tv[j];
+      lj = j;
+    }
+  int who = t;
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    const float om = __shfl_xor_sync(kFull, m, o);
+    const int ow = __shfl_xor_sync(kFull, who, o);
+    if (om < m || (om == m && ow < who)) {
+      m = om;
+      who = ow;
+    }
+  }
+  if (take && who == t) {
+#pragma unroll
+    for (int j = 0; j < KQ; ++j)
+      if (j == lj) {
+        tv[j] = v;
+        ti[j] = row;
+      }
+  }
+  m = INFINITY;
+#pragma unroll
+  for (int j = 0; j < KQ; ++j) m = fminf(m, tv[j]);
+  m = fminf(m, __shfl_xor_sync(kFull, m, 1));
+  qthr = fminf(m, __shfl_xor_sync(kFull, m, 2));
+}
+
+// The quad's next pending survivor of query half H (bit 2n + j of
+// `bits`: row rowg + 8n + j of lane t), taken from `bits` and broadcast to
+// the quad as (v, row); v is -inf when the quad has none pending. With
+// `best` it is the quad's best (ties to the lower lane, then the lower
+// row), else the lowest pending row of the quad's lowest lane holding one.
+template <int H, int NT>
+__device__ __forceinline__ void reg_next(const float (&acc)[NT][4],
+                                         unsigned& bits, int rowg, int lane,
+                                         bool best, float& v, int& row) {
+  const int t = lane & 3;
+  float m = -INFINITY;
+  int li = 0, who = t;
+  if (best) {
+#pragma unroll
+    for (int a = 0; a < NT; ++a)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if ((bits >> (2 * a + j)) & 1u && acc[a][2 * H + j] > m) {
+          m = acc[a][2 * H + j];
+          li = 2 * a + j;
+        }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float om = __shfl_xor_sync(kFull, m, o);
+      const int ow = __shfl_xor_sync(kFull, who, o);
+      if (om > m || (om == m && ow < who)) {
+        m = om;
+        who = ow;
+      }
+    }
+    li = __shfl_sync(kFull, li, (lane & ~3) | who);
+  } else {
+    const unsigned qm =
+        (__ballot_sync(kFull, bits != 0u) >> (lane & ~3)) & 15u;
+    who = qm ? __ffs(qm) - 1 : 0;
+    if (t == who && bits) {
+      li = __ffs(bits) - 1;
+#pragma unroll
+      for (int a = 0; a < NT; ++a)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (li == 2 * a + j) m = acc[a][2 * H + j];
+    }
+    m = __shfl_sync(kFull, m, (lane & ~3) | who);
+    li = __shfl_sync(kFull, li, (lane & ~3) | who);
+  }
+  if (t == who && m > -INFINITY) bits &= ~(1u << li);
+  v = m;
+  row = rowg + 2 * (who - t) + 8 * (li >> 1) + (li & 1);
+}
+
+// Drop the pending survivors that no longer beat the quad's threshold.
+template <int H, int NT>
+__device__ __forceinline__ unsigned reg_drop(const float (&acc)[NT][4],
+                                             unsigned bits, float qthr) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (!(acc[i][2 * H + j] > qthr)) bits &= ~(1u << (2 * i + j));
+  return bits;
+}
+
+// Both queries' survivors of a tile into their quads' register top-k:
+// each round every quad inserts one pending survivor of each query, then
+// drops what fell below the raised thresholds. While some lane holds two
+// or more, the round takes each quad's best (a flood, as in a CTA's first
+// tile or a tile of a nearer cluster, then takes k rounds), else the
+// cheaper lowest pending row. The order is fixed by the inputs: the same
+// inputs give the same slots.
+template <int NT, int KQ>
+__device__ __forceinline__ void reg_offer(const float (&acc)[NT][4],
+                                          unsigned b0, unsigned b1,
+                                          float (&tv)[2][KQ], int (&ti)[2][KQ],
+                                          float (&qthr)[2], int rowg,
+                                          int lane) {
+  while (__any_sync(kFull, (b0 | b1) != 0u)) {
+    float v0, v1;
+    int r0, r1;
+    const bool best =
+        __any_sync(kFull, (b0 & (b0 - 1)) != 0u || (b1 & (b1 - 1)) != 0u);
+    reg_next<0>(acc, b0, rowg, lane, best, v0, r0);
+    reg_next<1>(acc, b1, rowg, lane, best, v1, r1);
+    reg_insert(tv[0], ti[0], qthr[0], v0, r0, lane & 3);
+    reg_insert(tv[1], ti[1], qthr[1], v1, r1, lane & 3);
+    b0 = reg_drop<0>(acc, b0, qthr[0]);
+    b1 = reg_drop<1>(acc, b1, qthr[1]);
+  }
+}
+
+template <int SLAB, int WR, int KQ, class Tiles>
+__device__ void scan_mma_pipe(const Tiles& tiles, const PipeSel& sel,
+                              unsigned char* smem, const void* __restrict__ db,
+                              const void* __restrict__ q,
+                              const uint8_t* __restrict__ valid,
+                              const float* __restrict__ scales, int d, int b,
+                              int q0, float* __restrict__ part_v,
+                              int* __restrict__ part_i, int part,
+                              int nparts) {
+  static_assert(SLAB == kBF16 || SLAB == kI8, "bf16-query products");
+  static_assert(WR == 1 || WR == 2 || WR == 4, "128, 64 or 32 queries");
+  constexpr bool I8 = SLAB == kI8;
+  constexpr int QT = 128 / WR, RW = kPRows / WR, NT = RW / 8;
+  constexpr int STAGE = kPRows * kPRowBytes;  // bytes per ring stage
+  constexpr int KS = I8 ? 8 : 4;              // k16 steps a slice
+  const int QS = pipe_qstride(SLAB, d);
+  unsigned char* const ring = smem;
+  __nv_bfloat16* const Qs =
+      reinterpret_cast<__nv_bfloat16*>(smem + kPStages * STAGE);
+  float* const rbuf = reinterpret_cast<float*>(Qs + QT * QS);  // [2][128]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = warp / WR, rowbase = (warp % WR) * RW;
+  const int row_bytes = I8 ? d : 2 * d;
+  const int slices = (row_bytes + kPRowBytes - 1) / kPRowBytes;
+  const int ntiles = tiles.count(kPRows);
+  const char* const rb = static_cast<const char*>(db);
+
+  if (lane < 16) {
+    sel.cnt[warp * 16 + lane] = 0;
+    sel.thr[warp * 16 + lane] = -INFINITY;
+  }
+  {  // the queries, once: zero past the batch and past d
+    const int qch = QS / 8, dch = d / 8;
+    const char* const qsrc = static_cast<const char*>(q);
+    for (int e = tid; e < QT * qch; e += kThreads) {
+      const int r = e / qch, c = e - r * qch;
+      const bool in = q0 + r < b && c < dch;
+      cp_async16(Qs + r * QS + c * 8,
+                     in ? qsrc + ((size_t)(q0 + r) * d + c * 8) * 2 : q, in);
+    }
+    cp_async_commit();
+  }
+
+  // This thread's 16-byte chunks of a slice: chunk cc of rows cr + 32 u,
+  // stored at chunk cc ^ (row & 7) of the row.
+  const int cr = tid >> 3, cc = tid & 7;
+  int it = 0, isl = 0, ist = 0;  // the copy cursor: tile, slice, stage
+  const char* rsrc = rb;
+  unsigned rin = 0;
+  auto fetch = [&]() {
+    if (it < ntiles) {
+      if (isl == 0) {
+        int r0, rend;
+        tiles.tile(it, kPRows, r0, rend);
+        rsrc = rb + (size_t)(r0 + cr) * row_bytes + cc * 16;
+        rin = 0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) rin |= (unsigned)(r0 + cr + 32 * u < rend) << u;
+      }
+      const int col = isl * kPRowBytes;
+      const bool cin = col + cc * 16 < row_bytes;
+      unsigned char* const st = ring + ist * STAGE;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = cr + 32 * u;
+        const bool in = cin && ((rin >> u) & 1u);
+        cp_async16(st + r * kPRowBytes + ((cc ^ (r & 7)) << 4),
+                       in ? rsrc + (size_t)u * 32 * row_bytes + col : db, in);
+      }
+      if (++isl == slices) {
+        isl = 0;
+        ++it;
+      }
+      ist = ist + 1 == kPStages ? 0 : ist + 1;
+    }
+    cp_async_commit();  // an empty group keeps the wait count uniform
+  };
+
+  // Validity and scale of row tid of a tile, loaded a tile ahead and
+  // stored at the tile's first slice: the scale (1 for bf16) or NaN.
+  int pend_ok = 0;
+  float pend_sc = 1.f;
+  auto rowinfo = [&](int tt) {
+    if (tid < kPRows && tt < ntiles) {
+      int r0, rend;
+      tiles.tile(tt, kPRows, r0, rend);
+      const int row = r0 + tid;
+      pend_ok = row < rend ? (int)__ldg(valid + row) : 0;
+      if constexpr (I8) pend_sc = row < rend ? __ldg(scales + row) : 1.f;
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // register top-k (KQ > 0, k <= 4 KQ): the quad of lanes 4g..4g+3 holds
+  // queries g (h = 0) and g + 8 (h = 1), slot 4 j + t active below k
+  constexpr int KR = KQ > 0 ? KQ : 1;
+  float tv[2][KR];
+  int ti[2][KR];
+  float qthr[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < KR; ++j) {
+      tv[h][j] = 4 * j + t < sel.k ? -INFINITY : INFINITY;
+      ti[h][j] = -1;
+    }
+
+  rowinfo(0);
+#pragma unroll
+  for (int s = 0; s < kPStages - 1; ++s) fetch();
+  int cst = 0;  // the ring stage of the slice being scored
+  const __nv_bfloat16* const Qw = Qs + qb * 16 * QS;
+  for (int tt = 0; tt < ntiles; ++tt) {
+    int tile_r0, rend;
+    tiles.tile(tt, kPRows, tile_r0, rend);
+    float* const ri = rbuf + (tt & 1) * kPRows;
+    for (int sl = 0; sl < slices; ++sl) {
+      cp_async_wait<kPStages - 2>();
+      __syncthreads();  // this slice landed; the previous one is consumed
+      if (sl == 0 && tid < kPRows) {
+        ri[tid] = pend_ok ? pend_sc : __int_as_float(0x7fffffff);
+        rowinfo(tt + 1);
+      }
+      fetch();
+      const unsigned char* const st = ring + cst * STAGE;
+      cst = cst + 1 == kPStages ? 0 : cst + 1;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        if constexpr (I8) {
+          // A in the order the int8 B fragments take: dims 4t..4t+3 of
+          // the step's 16 (a0 / a2 of query g, a1 / a3 of query g + 8)
+          const int kc = sl * 128 + kk * 16 + 4 * t;
+          const uint2 x0 = *reinterpret_cast<const uint2*>(Qw + g * QS + kc);
+          const uint2 x1 =
+              *reinterpret_cast<const uint2*>(Qw + (g + 8) * QS + kc);
+#pragma unroll
+          for (int nq = 0; nq < NT / 4; ++nq) {
+            const int r = rowbase + nq * 32 + lane;
+            uint32_t raw[4];
+            ldsm_x4(raw, st + r * kPRowBytes + ((kk ^ (r & 7)) << 4));
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              uint32_t b0, b1;
+              i8x4_bf16(raw[i], b0, b1);
+              mma_bf16(acc[nq * 4 + i], x0.x, x1.x, x0.y, x1.y, b0, b1);
+            }
+          }
+        } else {
+          uint32_t a[4];
+          ldsm_x4(a, Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * QS +
+                         sl * 64 + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            const int r = rowbase + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+            const int ch = kk * 2 + ((lane >> 3) & 1);
+            uint32_t bq[4];
+            ldsm_x4(bq, st + r * kPRowBytes + ((ch ^ (r & 7)) << 4));
+            mma_bf16(acc[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+            mma_bf16(acc[2 * np + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    if (slices == 1) __syncthreads();  // this tile's row scales are stored
+
+    // tile done: scale, mask, compare with the thresholds, append
+    const int buf0 = warp * 16 + g, buf1 = buf0 + 8;
+    const int qg0 = q0 + qb * 16 + g;
+    const float thr0 =
+        qg0 < b ? (KQ > 0 ? qthr[0] : sel.thr[buf0]) : INFINITY;
+    const float thr1 =
+        qg0 + 8 < b ? (KQ > 0 ? qthr[1] : sel.thr[buf1]) : INFINITY;
+    const int rowg = tile_r0 + rowbase + 2 * t;
+    unsigned bits0 = 0, bits1 = 0;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 sc =
+          *reinterpret_cast<const float2*>(ri + rowbase + 2 * t + 8 * n);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float x = j ? sc.y : sc.x;
+        const bool ok = x == x;
+        if constexpr (I8) {
+          acc[n][j] *= x;
+          acc[n][2 + j] *= x;
+        }
+        if (ok && acc[n][j] > thr0) bits0 |= 1u << (2 * n + j);
+        if (ok && acc[n][2 + j] > thr1) bits1 |= 1u << (2 * n + j);
+      }
+    }
+    if constexpr (KQ > 0) {
+      if (__any_sync(kFull, (bits0 | bits1) != 0u))
+        reg_offer(acc, bits0, bits1, tv, ti, qthr, rowg, lane);
+    } else if (__any_sync(kFull, (bits0 | bits1) != 0u)) {
+      // both queries' survivor counts in one word (at most 128 a quad)
+      unsigned own = __popc(bits0) | (unsigned)__popc(bits1) << 16;
+      unsigned incl = quad_incl(own, t);
+      unsigned tot = __shfl_sync(kFull, incl, 3, 4);
+      const int c0 = sel.cnt[buf0], c1 = sel.cnt[buf1];
+      // floods are cut in registers to the tile's k best (and ties),
+      // which raises the query's threshold to the k-th of them
+      const bool flood0 = (int)(tot & 0xffffu) > sel.k &&
+                          c0 + (int)(tot & 0xffffu) > sel.cap;
+      const bool flood1 = (int)(tot >> 16) > sel.k &&
+                          c1 + (int)(tot >> 16) > sel.cap;
+      if (__any_sync(kFull, flood0 || flood1)) {
+        if (__any_sync(kFull, flood0)) {
+          const unsigned kt = quad_kth<0>(acc, bits0, sel.k);
+          if (flood0) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                if (!(f2key(acc[n][j]) >= kt)) bits0 &= ~(1u << (2 * n + j));
+            if (t == 0 && key2f(kt) > sel.thr[buf0]) sel.thr[buf0] = key2f(kt);
+          }
+        }
+        if (__any_sync(kFull, flood1)) {
+          const unsigned kt = quad_kth<1>(acc, bits1, sel.k);
+          if (flood1) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                if (!(f2key(acc[n][2 + j]) >= kt))
+                  bits1 &= ~(1u << (2 * n + j));
+            if (t == 0 && key2f(kt) > sel.thr[buf1]) sel.thr[buf1] = key2f(kt);
+          }
+        }
+        own = __popc(bits0) | (unsigned)__popc(bits1) << 16;
+        incl = quad_incl(own, t);
+        tot = __shfl_sync(kFull, incl, 3, 4);
+      }
+      const unsigned excl = incl - own;
+      const int tot0 = tot & 0xffffu, tot1 = tot >> 16;
+      const bool slow0 = tot0 > 0 && c0 + tot0 > sel.cap;
+      const bool slow1 = tot1 > 0 && c1 + tot1 > sel.cap;
+      {  // the other queries' survivors, one a lane a step (few a tile
+         // once the thresholds rise): this lane's slots follow its rank in
+         // the quad (lane order), its survivors go lowest row first
+        unsigned f0 = slow0 ? 0u : bits0, f1 = slow1 ? 0u : bits1;
+        int p0 = buf0 * sel.cap + c0 + (int)(excl & 0xffffu);
+        int p1 = buf1 * sel.cap + c1 + (int)(excl >> 16);
+        while (__any_sync(kFull, (f0 | f1) != 0u)) {
+          if (f0 | f1) {
+            const bool h = f0 == 0u;
+            const int i = __ffs(h ? f1 : f0) - 1;
+            float v = 0.f;
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int j = 0; j < 2; ++j)
+                v = i == 2 * n + j ? (h ? acc[n][2 + j] : acc[n][j]) : v;
+            const int pos = h ? p1++ : p0++;
+            sel.sv[pos] = v;
+            sel.si[pos] = rowg + 8 * (i >> 1) + (i & 1);
+            if (h)
+              f1 &= f1 - 1;
+            else
+              f0 &= f0 - 1;
+          }
+        }
+      }
+      __syncwarp();
+      if (t == 0) {
+        if (!slow0 && tot0 > 0) sel.cnt[buf0] = c0 + tot0;
+        if (!slow1 && tot1 > 0) sel.cnt[buf1] = c1 + tot1;
+      }
+      const unsigned slow = __reduce_or_sync(
+          kFull, t == 0 ? (unsigned)slow0 << g | (unsigned)slow1 << (g + 8)
+                        : 0u);
+      __syncwarp();
+      // A query whose buffer overflows: the whole warp appends what fits,
+      // cuts the buffer to k (sel_cut), drops the survivors below the new
+      // threshold, and goes on until none is left. One copy of the code.
+#pragma unroll 1
+      for (int j = 0; j < 16; ++j) {
+        if (!((slow >> j) & 1u)) continue;
+        const int gj = j & 7, hj = j >> 3;
+        const Sel s = sel.at(warp * 16 + j);
+        unsigned mine = g == gj ? (hj ? bits1 : bits0) : 0u;
+        for (;;) {
+          const unsigned n = __popc(mine);
+          const unsigned inc = quad_incl(n, t);
+          const int left = (int)__shfl_sync(kFull, inc, gj * 4 + 3);
+          if (left == 0) break;
+          const int c = *s.count;
+          if (c + left > sel.cap && c > sel.k) {
+            sel_cut(s, sel.k, lane);
+            const float th = *s.thr;
+#pragma unroll
+            for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const float v = hj ? acc[nn][2 + jj] : acc[nn][jj];
+                if (!(v > th)) mine &= ~(1u << (2 * nn + jj));
+              }
+            continue;
+          }
+          const int take = min(left, sel.cap - c);
+          pipe_put(s, acc, hj, mine, c, (int)(inc - n), take, rowg);
+          __syncwarp();
+          if (lane == 0) *s.count = c + take;
+          __syncwarp();
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+  // this warp's 16 queries as part `part` of their (b, nparts, k) partials
+  const int qbase = q0 + qb * 16;
+  if constexpr (KQ > 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qg = qbase + g + 8 * h;
+      if (qg >= b) continue;
+      const size_t base = ((size_t)qg * nparts + part) * sel.k;
+#pragma unroll
+      for (int j = 0; j < KQ; ++j) {
+        const int e = 4 * j + t;
+        if (e < sel.k) {
+          part_v[base + e] = tv[h][j];
+          part_i[base + e] = ti[h][j];
+        }
+      }
+    }
+  } else {
+    sel.write(qbase, b, part, nparts, part_v, part_i, warp, lane);
+  }
 }
 
 }  // namespace

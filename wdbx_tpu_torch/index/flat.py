@@ -439,8 +439,11 @@ class FlatIndex(VectorIndex):
         non-freed slots only)."""
         m = np.asarray(slot_mask[: self._next_slot], bool)
         matched = int(np.count_nonzero(m))
-        if self._free and matched:
-            fr = np.asarray([s for s in self._free if s < len(m)], np.int64)
+        # dead-but-unrecycled slots: the free list plus (on IVF layouts)
+        # the rebuild quarantine
+        dead = list(self._free) + list(getattr(self, "_quarantine", []))
+        if dead and matched:
+            fr = np.asarray([s for s in dead if s < len(m)], np.int64)
             if len(fr):
                 matched -= int(np.count_nonzero(m[fr]))
         return matched / max(1, self._size)
@@ -562,6 +565,9 @@ class FlatIndex(VectorIndex):
     def _load_locked(self, path: str) -> bool:
         if not os.path.exists(path + ".meta.json"):
             return False
+        # storage is being replaced wholesale: an in-flight background
+        # rebuild must abandon its snapshot
+        self._layout_gen = getattr(self, "_layout_gen", 0) + 1
         with open(path + ".meta.json") as f:
             meta = json.load(f)
         if meta["dim"] != self.dim:

@@ -10,9 +10,10 @@ blocks a CTA reads from the deduplicated block list, with its group of
 list entries and its query tile, and keeps each query's k best; stage 2
 is the fused scan's ``topk_merge_partials``. v1 is v2 with bf16 / float
 queries (its function), under its own launch counter. The scan body
-follows the fused scan's rule (``fused_topk.scan_body``): float32 slabs
-take the register-tiled body, whose CTAs split the live blocks' tiles
-evenly among themselves on the card.
+follows the fused scan's rule (``fused_topk.pick_body``): float32 slabs
+take the register-tiled body, bf16 slabs and int8 slabs with bf16
+queries the pipelined tensor-core body; the CTAs of both split the live
+blocks' tiles evenly among themselves on the card.
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
 tensor they run ``clustered_block_topk_plain`` (gather the listed
@@ -63,24 +64,31 @@ def mode_key(gen: str, slab: str, qtype: str) -> str:
 
 
 def plan(u: int, b: int, k: int, sm_count: int, partial_smem,
-         body: str = "mma") -> tuple[int, int, int]:
+         body: str = "mma", d: int = 0) -> tuple[int, int, int]:
     """Stage-1 grid ``(qt, ways, groups)``.
 
     The tiled float32 body (``body="fma_tiled"``, ``partial_smem`` its
     size): ``fused_topk.tiled_qt`` queries per CTA, ``ways`` 0 (unused:
     each CTA takes an equal span of the live blocks' tiles, counted on
     the card), and groups for one whole number of waves, at least
-    ``u / 31`` so that a span stays within 32 list entries.
+    ``u / 31`` so that a span stays within 32 list entries. The
+    pipelined body (``body="mma_pipe"``, width ``d``) the same, with
+    ``fused_topk.pipe_qt`` queries per CTA and one CTA a SM.
     The other bodies: 64 queries per CTA when their candidate buffers
     fit beside the tiles, else 16; ``ways`` list entries per CTA, so
     that the grid holds about four CTAs per SM."""
     cap = _ft._cap(k)
-    if body == "fma_tiled":
-        qt = _ft.tiled_qt(b, k, partial_smem)
+    if body in ("fma_tiled", "mma_pipe"):
+        pipe = body == "mma_pipe"
+        qt = (_ft.pipe_qt(b, k, d, partial_smem) if pipe
+              else _ft.tiled_qt(b, k, partial_smem))
+        if qt is None:
+            raise ValueError(f"k={k} at d={d} does not fit the pipelined body")
         qtiles = -(-b // qt)
         smem = partial_smem(qt, _ft.tiled_cap(qt, k, partial_smem))
         groups = _ft.whole_waves(
-            qtiles, _ft.cta_slots(sm_count, smem), -(-u // _SPAN_ENTRIES))
+            qtiles, _ft.cta_slots(sm_count, smem, 1 if pipe else 2),
+            -(-u // _SPAN_ENTRIES))
         return qt, 0, groups
     qt = 64 if partial_smem(64, cap) <= 160 * 1024 else 16
     if partial_smem(qt, cap) > 226 * 1024:
@@ -111,10 +119,13 @@ def clustered_block_partial(
     c: int,
     int4: bool = False,
     gen: str = "v2",
+    body: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stage 1 on the card: ``(B, groups, k)`` float32 scores and int32
-    global slab positions, each group's k best per query (unsorted;
-    -inf / -1 pads). ``qq`` / ``qs`` come from ``prep_query_block``."""
+    """Stage 1 on the card: ``(B, parts, k)`` float32 scores and int32
+    global slab positions, each part's k best per query (unsorted;
+    -inf / -1 pads). ``qq`` / ``qs`` come from ``prep_query_block``.
+    ``body`` names the scan body instead of the shape rule's, as in
+    ``fused_topk.fused_topk_partial``."""
     from wdbx_tpu_torch.kernels import build
 
     skey = _ft.slab_key(slab, int4)
@@ -147,24 +158,32 @@ def clustered_block_partial(
     slab, valid, qq = slab.contiguous(), valid.contiguous(), qq.contiguous()
     uniq = uniq.to(torch.int32).contiguous()
     ok = ok.to(torch.int32).contiguous()
-    body = _ft.scan_body(skey, qkey, d, slab.data_ptr(), qq.data_ptr())
-    code = _ft.BODY_CODES[body]
     lib = build.load("clustered_scan")
+    slab_code = _ft.SLAB_CODES[skey]
+
+    def smem_of(code):
+        return lambda qt, cap: lib.wdbx_clustered_block_partial_smem(
+            code, slab_code, qt, cap, d)
+
+    if body is None:
+        body = _ft.pick_body(skey, qkey, b, k, d, slab.data_ptr(),
+                             qq.data_ptr(), smem_of)
+    elif body not in _ft.BODY_CODES:
+        raise ValueError(f"no scan body {body!r}")
+    code = _ft.BODY_CODES[body]
+    smem = smem_of(code)
     sm = torch.cuda.get_device_properties(slab.device).multi_processor_count
-
-    def smem(qt, cap):
-        return lib.wdbx_clustered_block_partial_smem(code, qt, cap)
-
-    qt, ways, groups = plan(u, b, k, sm, smem, body)
-    cap = (_ft.tiled_cap(qt, k, smem) if body == "fma_tiled"
-           else _ft._cap(k))
-    part_v = torch.empty((b, groups, k), dtype=torch.float32,
+    qt, ways, groups = plan(u, b, k, sm, smem, body, d)
+    tiled = body in ("fma_tiled", "mma_pipe")
+    cap = _ft.tiled_cap(qt, k, smem) if tiled else _ft._cap(k)
+    parts = groups * (128 // qt if body == "mma_pipe" else 1)
+    part_v = torch.empty((b, parts, k), dtype=torch.float32,
                          device=slab.device)
-    part_i = torch.empty((b, groups, k), dtype=torch.int32,
+    part_i = torch.empty((b, parts, k), dtype=torch.int32,
                          device=slab.device)
-    with torch.cuda.device(slab.device):
+    with _ft._on(slab):
         rc = lib.wdbx_clustered_block_partial(
-            code, _ft.SLAB_CODES[skey], QUERY_CODES[qkey], qt,
+            code, slab_code, QUERY_CODES[qkey], qt,
             slab.data_ptr(), qq.data_ptr(), qscale.data_ptr(),
             valid.data_ptr(),
             scales.data_ptr() if scales is not None else None,

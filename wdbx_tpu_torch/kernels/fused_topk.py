@@ -7,11 +7,16 @@ in ``csrc/fused_topk.cu``; that file's header gives the bound on the
 card and the design. In short: stage 1 (``fused_topk_partial``) streams
 row chunks in parallel CTAs and keeps each query's k best per chunk,
 stage 2 (``topk_merge_partials``) merges the chunks into the sorted
-``(B, k)`` result. Stage 1 runs one of three scan bodies, which
-``scan_body`` picks from the shapes alone: the register-tiled float32
+``(B, k)`` result. Stage 1 runs one of four scan bodies, which
+``pick_body`` picks from the shapes alone: the register-tiled float32
 body for float32 slabs with ``d % 4 == 0`` and 16-byte aligned slab and
-queries, the tensor-core body for bf16 / int8 / int4 slabs with
-``d % 32 == 0`` and aligned operands, the CUDA-core body otherwise.
+queries; the pipelined tensor-core body for bf16 slabs and int8 slabs
+with bf16 queries, ``d % 32 == 0``, aligned operands and candidate
+buffers that fit for k; the first tensor-core body for the other bf16 /
+int8 / int4 cases with ``d % 32 == 0`` and aligned operands; the
+CUDA-core body otherwise. ``fused_topk_partial(..., body=...)`` reaches
+any body whose rule the arguments meet, for timing one against
+another.
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
 tensor they run the plain version (``fused_topk_plain``: matmul, scale,
@@ -28,6 +33,7 @@ Differences from the JAX kernel, all deliberate:
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -67,7 +73,12 @@ def _cap(k: int) -> int:
 
 
 #: stage-1 scan bodies of ``csrc/topk_common.cuh``, by their C code
-BODY_CODES = {"fma": 0, "mma": 1, "fma_tiled": 2}
+BODY_CODES = {"fma": 0, "mma": 1, "fma_tiled": 2, "mma_pipe": 3}
+#: query tiles of the pipelined tensor-core body (its CTA writes 128 / qt
+#: parts a query), and the shared memory its resident queries may take:
+#: 128 queries at d <= 384, 64 at d <= 768, 32 at d <= 1536
+PIPE_QT = (32, 64, 128)
+PIPE_QUERY_BYTES = 96 * 1024
 #: query tiles of the tiled float32 body, and the shared memory a CTA
 #: may ask for (227 KB less the kernels' static arrays)
 TILED_QT = (16, 32, 64, 128)
@@ -79,15 +90,39 @@ def scan_body(slab: str, qtype: str, d: int, db_ptr: int,
               q_ptr: int) -> str:
     """The stage-1 body a launch takes, from the slab and query types,
     the width and the operands' addresses: ``"fma_tiled"`` for float32
-    slabs with ``d % 4 == 0``, ``"mma"`` for bf16 / int8 / int4 slabs with
-    ``d % 32 == 0`` (``d % 64 == 0`` with int8 queries), both with 16-byte
-    aligned slab and queries; ``"fma"`` otherwise. The C entry points
-    refuse a body whose rule the arguments break."""
+    slabs with ``d % 4 == 0``; ``"mma_pipe"`` for bf16 slabs and int8
+    slabs with bf16 queries, ``d % 32 == 0`` and 32 queries of width d
+    within ``PIPE_QUERY_BYTES`` (d <= 1536); ``"mma"`` for the other bf16
+    / int8 / int4 cases with ``d % 32 == 0`` (``d % 64 == 0`` with int8
+    queries); all with 16-byte aligned slab and queries; ``"fma"``
+    otherwise. ``pipe_qt`` may still send a ``"mma_pipe"`` launch to
+    ``"mma"`` when no query tile's buffers fit for its k. The C entry
+    points refuse a body whose rule the arguments break."""
     aligned = db_ptr % 16 == 0 and q_ptr % 16 == 0
     if slab == "float32":
         return "fma_tiled" if d % 4 == 0 and aligned else "fma"
     width = 64 if qtype == "int8" else 32
-    return "mma" if d % width == 0 and aligned else "fma"
+    if d % width or not aligned:
+        return "fma"
+    if slab in ("bfloat16", "int8") and qtype == "bfloat16" and \
+            PIPE_QT[0] * d * 2 <= PIPE_QUERY_BYTES:
+        return "mma_pipe"
+    return "mma"
+
+
+def pipe_qt(b: int, k: int, d: int, partial_smem) -> int | None:
+    """Queries per CTA of the pipelined body: the smallest of
+    ``PIPE_QT`` that holds the batch among those whose resident queries
+    fit ``PIPE_QUERY_BYTES`` and whose 128 candidate buffers fit beside
+    them for this k (``partial_smem(qt, cap)``), else the largest that
+    fits; None when none does (k beyond ~90 at d=384: the launch takes
+    ``"mma"``)."""
+    cap = _cap(k)
+    fits = [qt for qt in PIPE_QT if qt * d * 2 <= PIPE_QUERY_BYTES
+            and partial_smem(qt, cap) <= SMEM_MAX]
+    if not fits:
+        return None
+    return next((qt for qt in fits if qt >= b), fits[-1])
 
 
 def tiled_qt(b: int, k: int, partial_smem) -> int:
@@ -122,34 +157,41 @@ def whole_waves(qtiles: int, slots: int, need: int = 1) -> int:
     return per_wave * max(1, -(-need // per_wave))
 
 
-def cta_slots(sm_count: int, smem: int) -> int:
+def cta_slots(sm_count: int, smem: int, per_sm: int = 2) -> int:
     """CTAs the card runs at once at ``smem`` bytes each (the SM's 228
-    KB, 1 KB reserved a CTA; at most 2 a SM for the tiled body's
-    registers)."""
-    return sm_count * max(1, min(2, _SM_SMEM // (smem + 1024)))
+    KB, 1 KB reserved a CTA; at most ``per_sm`` a SM for the registers:
+    2 for the tiled body, 1 for the pipelined one)."""
+    return sm_count * max(1, min(per_sm, _SM_SMEM // (smem + 1024)))
 
 
 def plan(n: int, b: int, k: int, sm_count: int, partial_smem,
-         body: str = "mma") -> tuple[int, int, int]:
+         body: str = "mma", d: int = 0) -> tuple[int, int, int]:
     """Stage-1 tiling ``(qt, chunks, rows_per_chunk)``.
 
     The tiled float32 body (``body="fma_tiled"``, ``partial_smem`` its
     size): ``tiled_qt`` queries per CTA, and as many row chunks as make
     the grid one whole number of waves, so that every SM gets an equal
     share of long chunks (131 chunks of 63 tiles at 1M rows, B=128).
+    The pipelined body (``body="mma_pipe"``, width ``d``): the same with
+    ``pipe_qt`` queries per CTA and one CTA a SM (131 chunks of 63 tiles
+    at 1M x 384, B=128).
     The other bodies: 64 queries per CTA when their candidate buffers
     fit in shared memory beside the tiles (k up to ~140), else 16;
     enough row chunks for ~4 CTAs per SM. CTAs of one chunk are
     adjacent in the grid, so the query tiles of a large batch read each
     chunk while it is in L2."""
     cap = _cap(k)
-    if body == "fma_tiled":
-        qt = tiled_qt(b, k, partial_smem)
+    if body in ("fma_tiled", "mma_pipe"):
+        pipe = body == "mma_pipe"
+        qt = (pipe_qt(b, k, d, partial_smem) if pipe
+              else tiled_qt(b, k, partial_smem))
+        if qt is None:
+            raise ValueError(f"k={k} at d={d} does not fit the pipelined body")
         qtiles = -(-b // qt)
         tiles = -(-n // _ROWS)
         smem = partial_smem(qt, tiled_cap(qt, k, partial_smem))
         parts = min(tiles, 65535, whole_waves(
-            qtiles, cta_slots(sm_count, smem)))
+            qtiles, cta_slots(sm_count, smem, 1 if pipe else 2)))
         rows = -(-tiles // parts) * _ROWS
         return qt, -(-n // rows), rows
     qt = 64 if partial_smem(64, cap) <= 160 * 1024 else 16
@@ -164,7 +206,32 @@ def plan(n: int, b: int, k: int, sm_count: int, partial_smem,
 
 
 def _stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``t``'s card (the raw
+    accessor where this PyTorch build has it: a launch's host cost)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on(t: torch.Tensor):
+    """The launch context for ``t``'s card: nothing to switch when it is
+    the current one (the common case, and the cheap one)."""
+    if t.device.index in (None, torch.cuda.current_device()):
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def pick_body(key: str, qtype: str, b: int, k: int, d: int, db_ptr: int,
+              q_ptr: int, smem_of) -> str:
+    """``scan_body``'s choice, with a ``"mma_pipe"`` launch whose buffers
+    fit no query tile for this k (``pipe_qt``) sent to ``"mma"``.
+    ``smem_of(code)`` gives the shared-memory function of a body code."""
+    body = scan_body(key, qtype, d, db_ptr, q_ptr)
+    if body == "mma_pipe" and pipe_qt(
+            b, k, d, smem_of(BODY_CODES[body])) is None:
+        return "mma"
+    return body
 
 
 def fused_topk_partial(
@@ -174,11 +241,15 @@ def fused_topk_partial(
     k: int,
     scales: torch.Tensor | None = None,
     int4: bool = False,
+    body: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stage 1 on the card: ``(B, chunks, k)`` float32 scores and int32
-    row indices, each chunk's k best per query (unsorted; -inf / -1
+    """Stage 1 on the card: ``(B, parts, k)`` float32 scores and int32
+    row indices, each part's k best per query (unsorted; -inf / -1
     pads). ``queries`` must already have the kernel's type: float32 for
-    a float32 slab, bf16 otherwise."""
+    a float32 slab, bf16 otherwise. ``body`` names the scan body
+    (``BODY_CODES``) instead of the shape rule's (``pick_body``), for
+    timing one body against another; the C entry point refuses a body
+    whose rule the arguments break."""
     from wdbx_tpu_torch.kernels import build
 
     key = slab_key(db, int4)
@@ -203,22 +274,30 @@ def fused_topk_partial(
             raise ValueError("int8/int4 slabs need (N,) float32 CUDA scales")
         scales = scales.contiguous()
     db, queries, valid = db.contiguous(), queries.contiguous(), valid.contiguous()
-    body = scan_body(key, "float32" if key == "float32" else "bfloat16", d,
-                     db.data_ptr(), queries.data_ptr())
-    code = BODY_CODES[body]
     lib = build.load("fused_topk")
+    slab_code = SLAB_CODES[key]
+
+    def smem_of(code):
+        return lambda qt, cap: lib.wdbx_fused_topk_partial_smem(
+            code, slab_code, qt, cap, d)
+
+    if body is None:
+        body = pick_body(key, "float32" if key == "float32" else "bfloat16",
+                         b, k, d, db.data_ptr(), queries.data_ptr(), smem_of)
+    elif body not in BODY_CODES:
+        raise ValueError(f"no scan body {body!r}")
+    code = BODY_CODES[body]
+    smem = smem_of(code)
     sm = torch.cuda.get_device_properties(db.device).multi_processor_count
-
-    def smem(qt, cap):
-        return lib.wdbx_fused_topk_partial_smem(code, qt, cap)
-
-    qt, chunks, rows = plan(n, b, k, sm, smem, body)
-    cap = tiled_cap(qt, k, smem) if body == "fma_tiled" else _cap(k)
-    part_v = torch.empty((b, chunks, k), dtype=torch.float32, device=db.device)
-    part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=db.device)
-    with torch.cuda.device(db.device):
+    qt, chunks, rows = plan(n, b, k, sm, smem, body, d)
+    tiled = body in ("fma_tiled", "mma_pipe")
+    cap = tiled_cap(qt, k, smem) if tiled else _cap(k)
+    parts = chunks * (128 // qt if body == "mma_pipe" else 1)
+    part_v = torch.empty((b, parts, k), dtype=torch.float32, device=db.device)
+    part_i = torch.empty((b, parts, k), dtype=torch.int32, device=db.device)
+    with _on(db):
         rc = lib.wdbx_fused_topk_partial(
-            code, SLAB_CODES[key], qt, db.data_ptr(), queries.data_ptr(),
+            code, slab_code, qt, db.data_ptr(), queries.data_ptr(),
             valid.data_ptr(), scales.data_ptr() if scales is not None else None,
             n, d, b, k, cap, rows, chunks,
             part_v.data_ptr(), part_i.data_ptr(), _stream(db),
@@ -253,9 +332,9 @@ def topk_merge_partials(
     m = part_v.shape[1] * part_v.shape[2]
     part_v, part_i = part_v.contiguous(), part_i.contiguous()
     lib = build.load("fused_topk")
-    out_v = torch.empty((b, k), dtype=torch.float32, device=part_v.device)
-    out_i = torch.empty((b, k), dtype=torch.int64, device=part_v.device)
-    with torch.cuda.device(part_v.device):
+    out_v = part_v.new_empty((b, k))
+    out_i = part_v.new_empty((b, k), dtype=torch.int64)
+    with _on(part_v):
         rc = lib.wdbx_topk_merge_partials(
             part_v.data_ptr(), part_i.data_ptr(), b, m, k, _cap(k),
             out_v.data_ptr(), out_i.data_ptr(), _stream(part_v),
