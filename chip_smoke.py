@@ -11,13 +11,14 @@ Phases (each prints JSON lines; any failure exits non-zero):
              k in {10, 256} (float32: {1, 10, 128, 256, 1024}, each query
              tile of the tiled body), ~10% invalid rows, plus all-invalid
              and k > valid cases; then ragged shapes (B=5 and 37, N off
-             the 128-row tile, k=1 and 1024, bf16 / int8 at d=768 with k
-             10 and 50, d=100, float32 d=98); the scan body of every
-             launch must be the shape rule's (want_body: bf16 / int8 take
-             the pipelined body where its buffers fit, and every such case
-             also runs the first tensor-core body against the plain
-             version); corpora of duplicated rows (float32, bf16, int8)
-             searched twice must give identical slots
+             the 128-row tile, k=1 and 1024, bf16 / int8 / int4 at d=768
+             with k 10 and 50, B=1 at k 1 / 10 / 50, d=100, float32
+             d=98); the scan body of every launch must be the shape
+             rule's (want_body: bf16 / int8 / int4 take the pipelined body
+             where its buffers fit, and every such case also runs the
+             first tensor-core body against the plain version); corpora
+             of duplicated rows (float32, bf16, int8, int4) searched twice
+             must give identical slots
   merge      stage 2 against its plain version: k in {1, 10, 50, 128,
              1024}, B in {1, 128}, m off a multiple of 32, ties, -inf
              entries and all -inf rows
@@ -36,10 +37,10 @@ Phases (each prints JSON lines; any failure exits non-zero):
              timed with CUDA events; all NB batches of its output are held
              against the plain version, and the float32 and bf16 raw
              recall@10 must reach 0.9938 (float32 must run the tiled
-             body, bf16 and int8 the pipelined one, int4 the first
-             tensor-core body); one batch of 128 times the kernels (also
-             with every row masked: stage 1 without selection; bf16 and
-             int8 also through the first tensor-core body), the merge
+             body, bf16, int8 and int4 the pipelined one); one batch of
+             128 times the kernels (also with every row masked: stage 1
+             without selection; bf16, int8 and int4 also through the
+             first tensor-core body), the merge
              (eagerly and in a CUDA graph, beside torch.topk, at k 10, 128
              and 1024), the plain version and the library call; then an
              int8 facade search with the raw-store rerank (RAW_STORE=ram),
@@ -49,20 +50,23 @@ Phases (each prints JSON lines; any failure exits non-zero):
              version: every slab type and query type, d=768, c in {256,
              1024}, a block list with a dead suffix and an interior hole,
              an all-dead list, ~10% invalid rows, k in {10, 50, 128}, B in
-             {1, 128}; the body of every case must be the shape rule's,
-             and the pipelined body's cases also run the first one
+             {1, 128}; the int4 and int8-query modes also at d 384 and
+             768, B in {1, 5, 37, 128}, k in {1, 10, 50}; the body of every
+             case must be the shape rule's, and the pipelined body's cases
+             also run the first one; int8 and int4 slabs of duplicated
+             rows searched twice with int8 queries give identical slots
   clustered  benchmarks/clustered_10m.py's point: 10,000,000 x 768 rows of
              a 4096-component mixture, generated on the card chunk by
              chunk, int8 ClusteredIVFIndex (nlist 4096) filled by
              build_from; search_pipelined (NB=8, B=128) at nprobe 1 and 4,
-             k=50, v1 and int8 queries, every batch against the plain
-             version on the same block list; recall@10 against a float32
-             oracle streamed over the regenerated corpus, the x5 float32
-             rerank at nprobe 1 gated at 0.97; B=1 at nprobe 4 (narrow
-             blocks) and 1 (the ranges scan); stage 1 / stage 2 / call
-             times beside the bound from the batch's live blocks (bf16
-             queries must run the pipelined body, also timed against the
-             first tensor-core body; int8 queries the first)
+             k=50, v1, and int8 queries at nprobe 1 and 4, k 10 and 50,
+             every batch against the plain version on the same block
+             list; recall@10 against a float32 oracle streamed over the
+             regenerated corpus, the x5 float32 rerank at nprobe 1 gated
+             at 0.97; B=1 at nprobe 4 (narrow blocks) and 1 (the ranges
+             scan); stage 1 / stage 2 / call times beside the bound from
+             the batch's live blocks (every path must run the pipelined
+             body, also timed against the first tensor-core body)
   clustered_facade
              WDBX(INDEX_TYPE=ivf, IVF_NPROBE=2, int8, RAW_STORE=ram) at
              1,048,576 x 384 (a 1024-component mixture):
@@ -74,7 +78,7 @@ Phases (each prints JSON lines; any failure exits non-zero):
              route must run the pipelined body; then float32, bf16 and
              int4 clustered indexes (int4 also with int8 queries) through
              search_pipelined, timed (float32 must run the tiled body,
-             bf16 the pipelined one, int4 the first tensor-core body)
+             bf16 and int4 the pipelined one)
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -131,7 +135,7 @@ F32_KS = (1, 10, 128, 256, 1024)
 MERGE_KS = (1, 10, 50, 128, 1024)  # k of the stage-2 cases
 # the stage-1 body each flat slab type's driven path must take
 PATH_BODY = {"float32": "fma_tiled", "bfloat16": "mma_pipe",
-             "int8": "mma_pipe", "int4": "mma"}
+             "int8": "mma_pipe", "int4": "mma_pipe"}
 MERGE_TIMED_KS = (10, 128, 1024)  # k of the stage-2 times (bf16 partials)
 REPLACES = {
     "float32": "wdbx_tpu/kernels/fused_topk.py:153",
@@ -308,27 +312,30 @@ def _slab(dtype, x):
 
 def want_body(dtype, qtype, d, b, k, aligned=True):
     """The stage-1 body the shape rule gives a launch: ``mma_pipe`` for
-    bf16 slabs and int8 slabs with bf16 queries whose 128 buffers fit
-    beside the resident queries for k (``fused_topk.pipe_qt`` on the
-    kernel's own shared-memory sizes), ``mma`` for the other tensor-core
-    cases, ``fma_tiled`` / ``fma`` for float32 and ragged widths."""
+    bf16 / int8 / int4 slabs (d % 32 == 0 with bf16 queries, d % 64 == 0
+    with int8 queries) when 32 queries of width d stay resident and some
+    query tile's 128 buffers fit beside them for k (``fused_topk.pipe_qt``
+    on the kernel's own shared-memory sizes), ``mma`` for the other
+    tensor-core cases, ``fma_tiled`` / ``fma`` for float32 and ragged
+    widths."""
     from wdbx_tpu_torch.kernels import build
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
     from wdbx_tpu_torch.kernels import fused_topk as tf
 
     if dtype == "float32":
         return "fma_tiled" if d % 4 == 0 and aligned else "fma"
     if d % (64 if qtype == "int8" else 32) or not aligned:
         return "fma"
-    if dtype in ("bfloat16", "int8") and qtype == "bfloat16":
-        lib = build.load("fused_topk")
-        code = tf.SLAB_CODES[dtype]
+    lib = build.load("clustered_scan")
 
-        def smem(qt, cap):
-            return lib.wdbx_fused_topk_partial_smem(
-                tf.BODY_CODES["mma_pipe"], code, qt, cap, d)
+    def smem(qt, cap):
+        return lib.wdbx_clustered_block_partial_smem(
+            tf.BODY_CODES["mma_pipe"], tf.SLAB_CODES[dtype],
+            cs.QUERY_CODES[qtype], qt, cap, d)
 
-        if tf.pipe_qt(b, k, d, smem) is not None:
-            return "mma_pipe"
+    if tf.PIPE_QT[0] * d * tf.QUERY_BYTES[qtype] <= tf.PIPE_QUERY_BYTES \
+            and tf.pipe_qt(b, k, d, smem, qtype) is not None:
+        return "mma_pipe"
     return "mma"
 
 
@@ -362,7 +369,8 @@ def phase_kernels(n_rows, seed):
     every = ("float32", "bfloat16", "int8", "int4")
     shapes = [(n_rows, 384, 128, (10, 256), every),
               (10_000, 384, 5, (1, 1024), every),
-              (3_000, 768, 37, (10, 50), ("bfloat16", "int8")),
+              (3_000, 768, 37, (10, 50), ("bfloat16", "int8", "int4")),
+              (3_000, 384, 1, (1, 10, 50), ("bfloat16", "int8", "int4")),
               (3_000, 100, 37, (10,), every),
               (3_000, 98, 37, (10,), ("float32",))]
     errs, bodies = {}, {}
@@ -436,8 +444,9 @@ def phase_kernels(n_rows, seed):
 
 def phase_determinism(g, errs):
     """Each body on a corpus of 8 copies of 8,192 rows (copies 8,192
-    rows apart, so in other chunks): float32 (the tiled body), bf16 and
-    int8 (the pipelined body). Two runs give the same scores and slots
+    rows apart, so in other chunks): float32 (the tiled body), bf16,
+    int8 and int4 (the pipelined body). Two runs give the same scores
+    and slots
     bit for bit, and k=11 cuts through a group of copies, so the plain
     version may pick other copies: equal except at ties."""
     import torch
@@ -449,20 +458,20 @@ def phase_determinism(g, errs):
     q = torch.randn((128, 384), generator=g, device="cuda")
     valid = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
     for dtype, want in (("float32", "fma_tiled"), ("bfloat16", "mma_pipe"),
-                        ("int8", "mma_pipe")):
-        slab, scales, _ = _slab(dtype, x)
+                        ("int8", "mma_pipe"), ("int4", "mma_pipe")):
+        slab, scales, int4 = _slab(dtype, x)
         qk = tf._prep_queries(slab, q, scales, True)
         runs = []
         for _ in range(2):
             body, (pv, pi) = _body_of(lambda: tf.fused_topk_partial(
-                slab, qk, valid, 11, scales=scales))
+                slab, qk, valid, 11, scales=scales, int4=int4))
             runs.append((pv, pi) + tf.topk_merge_partials(pv, pi, 11))
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(*runs))
         name = f"{dtype}/duplicates/k11"
         err = check_topk(name, tf.fused_topk_plain(slab, qk, valid, 11,
-                                                   scales=scales),
-                         runs[0][2:], rescorer(slab, qk, scales))
+                                                   scales=scales, int4=int4),
+                         runs[0][2:], rescorer(slab, qk, scales, int4))
         emit({"phase": "kernels", "case": name, "body": body, "copies": 8,
               "identical_runs": same, "max_abs_err": err, "tol": ATOL})
         if body != want or not same:
@@ -795,7 +804,7 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
         old_ms = None
         if body == "mma_pipe":  # the first tensor-core body, same inputs
             old_ms = cuda_ms(lambda: tf.fused_topk_partial(
-                slab, qk, valid, k, scales=scales, body="mma"))
+                slab, qk, valid, k, scales=scales, int4=int4, body="mma"))
         pv, pi = part()
         # and at B=128 (another tiling than the NB*B launch)
         err = check_topk(f"{dtype}/n{n_rows}_b{b}",
@@ -1051,12 +1060,19 @@ def time_block_scan(index, q, k, nprobe, gen, qprec):
             "u": int(len(uniq)), "c": c}
 
 
+# the K3 modes with int4 rows or int8 queries, swept at more shapes
+MOVED_MODES = (("v2", "int4", "bfloat16"), ("v2", "int8", "int8"),
+               ("v2", "int4", "int8"))
+
+
 def phase_clustered_kernels(seed, errs):
     """K3 / K4 against their plain version on the card: every slab type
     and query type of both generations, d=768, c in {256, 1024}, a block
     list with a dead suffix and an interior hole, an all-dead list, ~10%
-    invalid rows, k in {10, 50, 128}, B in {1, 128}; the pipelined body's
-    cases also through the first tensor-core body."""
+    invalid rows, k in {10, 50, 128}, B in {1, 128}; the int4 and
+    int8-query modes also at d 384 and 768 with B in {1, 5, 37, 128} and
+    k in {1, 10, 50}; the pipelined body's cases also through the first
+    tensor-core body. Then int8 queries on corpora of duplicated rows."""
     import torch
 
     from wdbx_tpu_torch.kernels import clustered_scan as cs
@@ -1064,72 +1080,126 @@ def phase_clustered_kernels(seed, errs):
     from wdbx_tpu_torch.kernels.quant import prep_query_block
 
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    cap, d = 65536, 768
-    x = torch.randn((cap, d), generator=g, device="cuda")
-    x = x / x.norm(dim=1, keepdim=True)
-    valid = torch.rand((cap,), generator=g, device="cuda") > 0.1
-    q_all = torch.randn((128, d), generator=g, device="cuda")
-    slabs = {dt: _slab(dt, x) for dt in ("float32", "bfloat16", "int8",
-                                         "int4")}
+    cap = 65536
     n_cases = 0
-    for c in (256, 1024):
-        nblocks = cap // c
-        uniq = torch.randperm(nblocks, generator=g, device="cuda")[:24]
-        ok = torch.zeros(24, dtype=torch.bool, device="cuda")
-        ok[:18] = True
-        ok[5] = False  # interior hole; entries 18.. are the dead suffix
-        for gen, sk, qk in cs.MODES:
-            slab, scales, int4 = slabs[sk]
-            qprec = "int8" if qk == "int8" else "bf16"
-            wrapper = (cs.clustered_block_topk_v2 if gen == "v2"
-                       else cs.clustered_block_topk)
-            lists = [("list", uniq, ok)]
-            if c == 1024:
-                lists.append(("all_dead", uniq, torch.zeros_like(ok)))
-            for b in (1, 128):
-                q = q_all[:b]
-                qq, qs, _ = prep_query_block(q, slab.dtype,
-                                             scales is not None, qprec)
-                rescore = block_rescorer(slab, qq, qs, scales, int4)
-                for k in (10, 50, 128):
-                    for case, u_, ok_ in lists:
-                        kw = dict(int4=int4, qprec=qprec) if gen == "v2" \
-                            else {}
-                        before = dict(cs.clustered_block_partial.bodies)
-                        got = wrapper(slab, valid, scales, u_, ok_, q, k=k,
-                                      c=c, **kw)
-                        body = [x for x, n in
-                                cs.clustered_block_partial.bodies.items()
-                                if n != before[x]]
-                        ref = cs.clustered_block_topk_plain(
-                            slab, valid, scales, u_, ok_, q, k, c,
-                            int4=int4, qprec=qprec)
-                        torch.cuda.synchronize()
-                        key = clu_name(cs.mode_key(gen, sk, qk))
-                        name = f"{key}/c{c}_b{b}_k{k}/{case}"
-                        want = want_body(sk, qk, d, b, k)
-                        if body != [want]:
-                            fail(f"{name}: ran {body}, expected {want}")
-                        err = check_topk(name, ref, got, rescore)
-                        if want == "mma_pipe":
-                            # the first tensor-core body, same inputs
-                            pv2, pi2 = cs.clustered_block_partial(
-                                slab, valid, scales, u_, ok_, qq, qs, k, c,
-                                int4=int4, gen=gen, body="mma")
-                            err = max(err, check_topk(
-                                name + "/mma", ref,
-                                tf.topk_merge_partials(pv2, pi2, k), rescore))
-                        if case == "all_dead" and not torch.isneginf(
-                                got[0]).all():
-                            fail(f"{name}: a dead list returned rows")
-                        errs[key] = max(errs.get(key, 0.0), err)
-                        n_cases += 1
+    sweeps = ((768, cs.MODES, (1, 128), (10, 50, 128)),
+              (768, MOVED_MODES, (5, 37), (1, 10, 50)),
+              (384, MOVED_MODES, (1, 5, 37, 128), (1, 10, 50)))
+    d_now = None
+    for d, modes, batches, ks in sweeps:
+        if d != d_now:
+            x = torch.randn((cap, d), generator=g, device="cuda")
+            x = x / x.norm(dim=1, keepdim=True)
+            valid = torch.rand((cap,), generator=g, device="cuda") > 0.1
+            q_all = torch.randn((128, d), generator=g, device="cuda")
+            slabs = {dt: _slab(dt, x) for dt in ("float32", "bfloat16",
+                                                 "int8", "int4")}
+            d_now = d
+        for c in (256, 1024):
+            nblocks = cap // c
+            uniq = torch.randperm(nblocks, generator=g, device="cuda")[:24]
+            ok = torch.zeros(24, dtype=torch.bool, device="cuda")
+            ok[:18] = True
+            ok[5] = False  # interior hole; entries 18.. are the dead suffix
+            for gen, sk, qk in modes:
+                slab, scales, int4 = slabs[sk]
+                qprec = "int8" if qk == "int8" else "bf16"
+                wrapper = (cs.clustered_block_topk_v2 if gen == "v2"
+                           else cs.clustered_block_topk)
+                lists = [("list", uniq, ok)]
+                if c == 1024:
+                    lists.append(("all_dead", uniq, torch.zeros_like(ok)))
+                for b in batches:
+                    q = q_all[:b]
+                    qq, qs, _ = prep_query_block(q, slab.dtype,
+                                                 scales is not None, qprec)
+                    rescore = block_rescorer(slab, qq, qs, scales, int4)
+                    for k in ks:
+                        for case, u_, ok_ in lists:
+                            kw = dict(int4=int4, qprec=qprec) \
+                                if gen == "v2" else {}
+                            before = dict(cs.clustered_block_partial.bodies)
+                            got = wrapper(slab, valid, scales, u_, ok_, q,
+                                          k=k, c=c, **kw)
+                            body = [x for x, n in
+                                    cs.clustered_block_partial.bodies.items()
+                                    if n != before[x]]
+                            ref = cs.clustered_block_topk_plain(
+                                slab, valid, scales, u_, ok_, q, k, c,
+                                int4=int4, qprec=qprec)
+                            torch.cuda.synchronize()
+                            key = clu_name(cs.mode_key(gen, sk, qk))
+                            name = f"{key}/d{d}_c{c}_b{b}_k{k}/{case}"
+                            want = want_body(sk, qk, d, b, k)
+                            if body != [want]:
+                                fail(f"{name}: ran {body}, expected {want}")
+                            err = check_topk(name, ref, got, rescore)
+                            if want == "mma_pipe":
+                                # the first tensor-core body, same inputs
+                                pv2, pi2 = cs.clustered_block_partial(
+                                    slab, valid, scales, u_, ok_, qq, qs, k,
+                                    c, int4=int4, gen=gen, body="mma")
+                                err = max(err, check_topk(
+                                    name + "/mma", ref,
+                                    tf.topk_merge_partials(pv2, pi2, k),
+                                    rescore))
+                            if case == "all_dead" and not torch.isneginf(
+                                    got[0]).all():
+                                fail(f"{name}: a dead list returned rows")
+                            errs[key] = max(errs.get(key, 0.0), err)
+                            n_cases += 1
     emit({"phase": "clustered_kernels", "cases": n_cases, "cap": cap,
-          "d": d, "tol": ATOL,
+          "d": [768, 384], "tol": ATOL,
           "max_abs_err": {k: v for k, v in errs.items()
                           if k.startswith("clustered")}})
     del slabs, x, valid
     torch.cuda.empty_cache()
+    phase_clustered_determinism(g, errs)
+
+
+def phase_clustered_determinism(g, errs):
+    """int8 queries against int8 and int4 slabs of 8 copies of 8,192
+    rows (c = 1,024: every copy in other blocks), all 64 blocks listed:
+    two runs give the same scores and slots bit for bit, and k=11 cuts
+    through a group of copies, so the plain version may pick other
+    copies: equal except at ties."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+    from wdbx_tpu_torch.kernels.quant import prep_query_block
+
+    base = torch.randn((8192, 384), generator=g, device="cuda")
+    x = (base / base.norm(dim=1, keepdim=True)).repeat(8, 1)
+    q = torch.randn((128, 384), generator=g, device="cuda")
+    valid = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
+    c = 1024
+    uniq = torch.arange(x.shape[0] // c, dtype=torch.int32, device="cuda")
+    ok = torch.ones_like(uniq, dtype=torch.bool)
+    for sk in ("int8", "int4"):
+        slab, scales, int4 = _slab(sk, x)
+        qq, qs, _ = prep_query_block(q, slab.dtype, True, "int8")
+        runs = []
+        for _ in range(2):
+            before = dict(cs.clustered_block_partial.bodies)
+            pv, pi = cs.clustered_block_partial(slab, valid, scales, uniq, ok,
+                                                qq, qs, 11, c, int4=int4)
+            body = [b for b, n in cs.clustered_block_partial.bodies.items()
+                    if n != before[b]]
+            runs.append((pv, pi) + tf.topk_merge_partials(pv, pi, 11))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        key = clu_name(cs.mode_key("v2", sk, "int8"))
+        name = f"{key}/duplicates/k11"
+        err = check_topk(name, cs.clustered_block_topk_plain(
+            slab, valid, scales, uniq, ok, q, 11, c, int4=int4, qprec="int8"),
+            runs[0][2:], block_rescorer(slab, qq, qs, scales, int4))
+        emit({"phase": "clustered_kernels", "case": name, "body": body,
+              "copies": 8, "identical_runs": same, "max_abs_err": err,
+              "tol": ATOL})
+        if body != ["mma_pipe"] or not same:
+            fail(f"{name}: body {body}, identical runs {same}")
+        errs[key] = max(errs[key], err)
 
 
 def _stream_truth(chunks, q, k, cand_src=None):
@@ -1215,13 +1285,15 @@ def phase_clustered(seed, paths, timings, errs):
         return out, wall
 
     results = {}
-    for nprobe, gen, qprec, kk in ((1, "v2", "bf16", 10), (4, "v2", "bf16", 10),
-                                   (1, "v2", "bf16", 50), (1, "v1", "bf16", 10),
-                                   (1, "v2", "int8", 10)):
+    for nprobe, gen, qprec, kk in (
+            (1, "v2", "bf16", 10), (4, "v2", "bf16", 10),
+            (1, "v2", "bf16", 50), (1, "v1", "bf16", 10),
+            (1, "v2", "int8", 10), (4, "v2", "int8", 10),
+            (1, "v2", "int8", 50)):
         name = f"clustered_10m[nprobe{nprobe},k{kk},{gen},q={qprec}]"
         out, wall = drive(name, nprobe, kk, gen, qprec)
         key = clu_name(cs_key(gen, "int8", qprec))
-        body = "mma" if qprec == "int8" else "mma_pipe"
+        body = "mma_pipe"
         if paths[name][key] < 1 or \
                 paths[name][f"clustered_block_partial.bodies.{body}"] < 1:
             fail(f"{name} did not run {key} with the {body} body: "
@@ -1262,8 +1334,9 @@ def phase_clustered(seed, paths, timings, errs):
     rec["rerank_x5_nprobe1"] = _slot_recall(rerank, truth)
     rec["raw_v1_nprobe1"] = _slot_recall(torch.as_tensor(slots_of(
         results["clustered_10m[nprobe1,k10,v1,q=bf16]"])), truth)
-    rec["raw_qint8_nprobe1"] = _slot_recall(torch.as_tensor(slots_of(
-        results["clustered_10m[nprobe1,k10,v2,q=int8]"])), truth)
+    for p in (1, 4):
+        rec[f"raw_qint8_nprobe{p}"] = _slot_recall(torch.as_tensor(slots_of(
+            results[f"clustered_10m[nprobe{p},k10,v2,q=int8]"])), truth)
     emit({"phase": "clustered", "recall_at_10": rec, "queries": nb * b,
           "oracle_s": oracle_s, "bar_rerank_x5_nprobe1": RERANK_BAR})
     if rec["rerank_x5_nprobe1"] < RERANK_BAR:
@@ -1459,8 +1532,7 @@ def phase_clustered_facade(seed, paths, timings, errs, tmp):
         torch.cuda.synchronize()
         paths[name] = _counts()
         key = clu_name(cs_key("v2", dtype, qprec))
-        body = {"float32": "fma_tiled", "bfloat16": "mma_pipe"}.get(
-            dtype, "mma")
+        body = "fma_tiled" if dtype == "float32" else "mma_pipe"
         if paths[name][key] < 1 or \
                 paths[name][f"clustered_block_partial.bodies.{body}"] < 1:
             fail(f"{name} did not run {key} with the {body} body: "

@@ -253,14 +253,44 @@ def test_plan_tiled_block_scan_fits_every_k():
     (4096, 8192, 10, 384), (1, 1, 10, 384), (37, 5, 64, 384)])
 @pytest.mark.parametrize("slab", ["bfloat16", "int8"])
 def test_plan_pipe_groups_whole_waves(u, b, k, d, slab):
-    smem = pipe_smem(slab, d)
-    qt, ways, groups = tcs.plan(u, b, k, 132, smem, body="mma_pipe", d=d)
-    assert qt == tf.pipe_qt(b, k, d, smem) and ways == 0
+    _check_pipe_groups(u, b, k, d, slab, "bfloat16")
+
+
+@pytest.mark.parametrize("u,b,k,d", [
+    (512, 128, 10, 384), (1024, 128, 10, 768), (512, 128, 50, 768),
+    (4096, 8192, 10, 384), (1, 1, 10, 384), (37, 5, 64, 384)])
+@pytest.mark.parametrize("slab,qtype", [
+    ("int4", "bfloat16"), ("int8", "int8"), ("int4", "int8")])
+def test_plan_pipe_groups_whole_waves_int4_and_int8_queries(u, b, k, d, slab,
+                                                            qtype):
+    _check_pipe_groups(u, b, k, d, slab, qtype)
+
+
+def _check_pipe_groups(u, b, k, d, slab, qtype):
+    smem = pipe_smem(slab, d, qtype)
+    qt, ways, groups = tcs.plan(u, b, k, 132, smem, body="mma_pipe", d=d,
+                                qtype=qtype)
+    assert qt == tf.pipe_qt(b, k, d, smem, qtype) and ways == 0
     assert smem(qt, tf.tiled_cap(qt, k, smem)) <= tf.SMEM_MAX
     # a CTA's span of the live tiles stays within 32 list entries, and
     # the grid (one CTA a SM) is a whole number of waves
     assert groups * 31 >= u and groups <= 65535
     assert (-(-b // qt) * groups) % 132 == 0
+
+
+@pytest.mark.parametrize("slab", ["int8", "int4"])
+def test_plan_pipe_at_the_driven_int8_query_point(slab):
+    # 10M x 768, nprobe 1, B=128, k=10 with int8 queries (about 490 live
+    # blocks of a 512-entry list): 128 resident queries, one CTA a SM, one
+    # whole wave
+    smem = pipe_smem(slab, 768, "int8")
+    assert tcs.plan(512, 128, 10, 132, smem, body="mma_pipe", d=768,
+                    qtype="int8") == (128, 0, 132)
+    # k=50 keeps the pipelined body with 64 queries a CTA: two tiles of
+    # the batch, still whole waves
+    qt, _, groups = tcs.plan(512, 128, 50, 132, smem, body="mma_pipe",
+                             d=768, qtype="int8")
+    assert qt == 64 and (2 * groups) % 132 == 0
 
 
 def test_plan_pipe_block_scan_fits_every_k():

@@ -158,7 +158,14 @@ def test_plan_tiled_fits_every_k(b):
     ("bfloat16", "bfloat16", 384, 2, 0, "fma"),
     ("int8", "bfloat16", 96, 0, 0, "mma_pipe"),
     ("int8", "int8", 96, 0, 0, "fma"),  # s8 products take 64 dims a slice
-    ("int4", "int8", 768, 0, 0, "mma"),
+    ("int4", "int8", 768, 0, 0, "mma_pipe"),
+    ("int8", "int8", 768, 0, 0, "mma_pipe"),
+    ("int4", "bfloat16", 384, 0, 0, "mma_pipe"),
+    ("int4", "bfloat16", 768, 0, 0, "mma_pipe"),
+    ("int4", "bfloat16", 96, 0, 0, "mma_pipe"),  # 48 packed bytes a row
+    ("int4", "bfloat16", 48, 0, 0, "fma"),  # 24 bytes: not whole chunks
+    ("int4", "int8", 96, 0, 0, "fma"),  # 48 bytes: not whole k32 steps
+    ("int4", "bfloat16", 1568, 0, 0, "mma"),  # queries too wide to stay
 ])
 def test_scan_body_rule(slab, qtype, d, db_off, q_off, want):
     assert tf.scan_body(slab, qtype, d, 4096 + db_off, 8192 + q_off) == want
@@ -188,18 +195,22 @@ def test_tiled_cap_grows_into_the_spare_shared_memory(k):
             tiled_smem(qt, cap + 1) > tf.SMEM_MAX
 
 
-def pipe_smem(slab, d):
+def pipe_smem(slab, d, qtype="bfloat16"):
     """Shared memory of a pipelined tensor-core CTA
     (``csrc/topk_common.cuh``, ``pipe_smem_bytes``): the 3-stage ring of
-    128 rows x 128 bytes, the resident queries (rows padded to a whole
-    slice plus 8 or 16 elements), two tiles of row scales, then the 128
-    warp buffers."""
-    per = 128 if slab == "int8" else 64
-    stride = -(-d // per) * per + (16 if slab == "int8" else 8)
+    128 rows x 128 bytes, the resident queries (a query's bytes rounded
+    up to a whole 128-byte slice, plus 16, or 32 for bf16 queries against
+    int8 / int4 codes), two tiles of row scales, then the 128 warp
+    buffers, or for int4 rows against bf16 queries at least the 64 KB
+    bf16 staging tile that takes their room."""
+    qbytes = d * tf.QUERY_BYTES[qtype]
+    pad = 32 if qtype == "bfloat16" and slab != "bfloat16" else 16
+    stride = -(-qbytes // 128) * 128 + pad
+    stage = 128 * 512 if slab == "int4" and qtype == "bfloat16" else 0
 
     def smem(qt, cap):
-        return 4 * (3 * 128 * 128 // 4 + qt * stride // 2 + 2 * 128
-                    + 2 * 128 + 2 * 128 * cap)
+        return (4 * (3 * 128 * 128 // 4 + qt * stride // 4 + 2 * 128)
+                + max(4 * (2 * 128 + 2 * 128 * cap), stage))
 
     return smem
 
@@ -212,9 +223,9 @@ def pipe_smem(slab, d):
     ("int8", "bfloat16", 1536, 0, 0, "mma_pipe"),
     ("int8", "bfloat16", 1568, 0, 0, "mma"),  # queries too wide to stay
     ("bfloat16", "bfloat16", 2048, 0, 0, "mma"),
-    ("int4", "bfloat16", 384, 0, 0, "mma"),  # int4 keeps scan_mma
-    ("int8", "int8", 384, 0, 0, "mma"),  # int8 queries keep scan_mma
-    ("int8", "int8", 768, 0, 0, "mma"),
+    ("int4", "bfloat16", 384, 0, 0, "mma_pipe"),
+    ("int8", "int8", 384, 0, 0, "mma_pipe"),
+    ("int8", "int8", 768, 0, 0, "mma_pipe"),
     ("bfloat16", "bfloat16", 384, 0, 2, "fma"),  # unaligned queries
     ("int8", "bfloat16", 384, 8, 0, "fma"),  # unaligned slab
     ("int8", "bfloat16", 400, 0, 0, "fma"),
@@ -233,7 +244,7 @@ def test_scan_body_of_unaligned_bf16_views():
                         q.data_ptr()) == "fma"
 
 
-@pytest.mark.parametrize("slab", ["bfloat16", "int8"])
+@pytest.mark.parametrize("slab", ["bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("d", [384, 768])
 def test_pipe_qt_rule_and_fit(slab, d):
     smem = pipe_smem(slab, d)
@@ -266,14 +277,36 @@ def test_pick_body_sends_deep_k_to_scan_mma():
     assert tf.pick_body("int8", "bfloat16", 128, 1024, 384, 4096, 8192,
                         smem_of) == "mma"
     assert tf.pick_body("int8", "int8", 128, 10, 384, 4096, 8192,
+                        smem_of) == "mma_pipe"
+    assert tf.pick_body("int4", "int8", 128, 1024, 384, 4096, 8192,
                         smem_of) == "mma"
+
+
+@pytest.mark.parametrize("slab", ["int8", "int4"])
+@pytest.mark.parametrize("d", [384, 768, 1536])
+def test_pipe_qt_with_int8_queries(slab, d):
+    # one byte a dim: 128 resident queries up to d = 768, 64 at 1536
+    smem = pipe_smem(slab, d, "int8")
+    for b in (1, 5, 37, 128, 8192):
+        for k in range(1, 129):
+            qt = tf.pipe_qt(b, k, d, smem, "int8")
+            if qt is None:
+                assert all(smem(x, tf._cap(k)) > tf.SMEM_MAX or
+                           x * d > tf.PIPE_QUERY_BYTES for x in tf.PIPE_QT)
+                continue
+            assert qt in tf.PIPE_QT and qt * d <= tf.PIPE_QUERY_BYTES
+            assert smem(qt, tf.tiled_cap(qt, k, smem)) <= tf.SMEM_MAX
+    assert tf.pipe_qt(128, 10, d, smem, "int8") == (128 if d <= 768 else 64)
+    assert tf.pipe_qt(128, 50, d, smem, "int8") is not None
+    # bf16 queries of the same width take twice the bytes
+    assert tf.pipe_qt(128, 10, 768, pipe_smem(slab, 768), "bfloat16") == 64
 
 
 @pytest.mark.parametrize("n,b,k,d", [
     (1 << 20, 128, 10, 384), (1 << 20, 8192, 10, 384), (1 << 20, 1, 10, 384),
     (65536, 128, 1, 384), (65536, 128, 50, 768), (65536, 5, 64, 384),
     (10_000, 37, 10, 768), (100, 3, 1, 384)])
-@pytest.mark.parametrize("slab", ["bfloat16", "int8"])
+@pytest.mark.parametrize("slab", ["bfloat16", "int8", "int4"])
 def test_plan_pipe_covers_slab_in_whole_waves(n, b, k, d, slab):
     smem = pipe_smem(slab, d)
     qt, chunks, rows = tf.plan(n, b, k, 132, smem, body="mma_pipe", d=d)
@@ -290,6 +323,7 @@ def test_plan_pipe_covers_slab_in_whole_waves(n, b, k, d, slab):
 
 def test_plan_pipe_at_the_driven_point():
     # 1M x 384, B=128, k=10 on 132 SMs: one wave of 131 chunks of 63 tiles
-    for slab in ("bfloat16", "int8"):
+    # (K2 int4 included: the flat engine at INDEX_DTYPE=int4)
+    for slab in ("bfloat16", "int8", "int4"):
         assert tf.plan(1 << 20, 128, 10, 132, pipe_smem(slab, 384),
                        body="mma_pipe", d=384) == (128, 131, 63 * 128)

@@ -32,16 +32,17 @@
 // their c-row tiles for its query tile with the scan bodies of
 // topk_common.cuh, the same code as the fused flat scan, named by the
 // launcher:
-//   * bf16 rows and int8 rows against bf16 queries: scan_mma_pipe
-//     (resident queries, a cp.async ring, int8 converted in registers,
-//     selection from registers), its CTAs taking equal spans of the live
-//     tiles as the float32 body's do, when its rule holds (k and d whose
-//     buffers fit);
+//   * bf16, int8 and int4 rows: scan_mma_pipe (resident queries, a
+//     cp.async ring, selection from registers; bf16 products against bf16
+//     queries with int8 / int4 codes converted in registers, s8 m16n8k32
+//     products on raw bytes against int8 queries, int4 nibbles as u8
+//     codes less 8 sum(q)), its CTAs taking equal spans of the live tiles
+//     as the float32 body's do, when its rule holds (k and d whose buffers
+//     fit);
 //   * otherwise scan_mma: mma.sync bf16 for bf16 rows and for int8 / int4
-//     rows against bf16 queries (int8 converted, int4 unpacked in
-//     registers after the load), mma.sync s8 m16n8k32 for int8 / int4
-//     rows against int8 queries; a group is `ways` consecutive list
-//     entries;
+//     rows against bf16 queries (int8 converted, int4 unpacked after the
+//     load), mma.sync s8 m16n8k32 for int8 / int4 rows against int8
+//     queries; a group is `ways` consecutive list entries;
 //   * float32 rows with float32 queries, d % 4 == 0 and 16-byte aligned
 //     operands: scan_fma_tiled (128 x 128 register tiles of float32
 //     FMAs, a 3-stage cp.async ring, selection from registers; TF32
@@ -183,12 +184,12 @@ clustered_tiled_kernel(const float* __restrict__ db,
   sel.write<true>(q0, b, blockIdx.y, gridDim.y, part_v, part_i, warp, lane);
 }
 
-// The bf16-query tensor-core body (bf16 slabs, int8 slabs with bf16
-// queries): an equal span of the live tiles, as the float32 body; the WR
-// warps that share a query write WR parts of it.
-template <int SLAB, int WR, int KQ>
+// The pipelined tensor-core body: an equal span of the live tiles, as the
+// float32 body; the WR warps that share a query write WR parts of it.
+template <int SLAB, int QTYPE, int WR, int KQ>
 __global__ void __launch_bounds__(kThreads, 1)
 clustered_pipe_kernel(const void* __restrict__ db, const void* __restrict__ q,
+                      const float* __restrict__ qscale,
                       const uint8_t* __restrict__ valid,
                       const float* __restrict__ scales,
                       const int* __restrict__ uniq, const int* __restrict__ ok,
@@ -198,37 +199,59 @@ clustered_pipe_kernel(const void* __restrict__ db, const void* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int blk[kMaxWays];
   __shared__ int wsum[kWarps];
-  const PipeSel sel(reinterpret_cast<uint32_t*>(smem) + pipe_words(SLAB, QT, d),
-                    cap, k);
+  const PipeSel sel(
+      reinterpret_cast<uint32_t*>(smem) + pipe_words(SLAB, QTYPE, QT, d),
+      cap, k);
   const int warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * QT;
   const SpanTiles tiles = cta_span(uniq, ok, nblocks, u, c, blockIdx.y,
                                    gridDim.y, blk, wsum);
-  scan_mma_pipe<SLAB, WR, KQ>(tiles, sel, smem, db, q, valid, scales, d, b,
-                              q0, part_v, part_i, blockIdx.y * WR + warp % WR,
-                              gridDim.y * WR);
+  scan_mma_pipe<SLAB, QTYPE, WR, KQ>(
+      tiles, sel, smem, db, q, qscale, valid, scales, d, b, q0, part_v,
+      part_i, blockIdx.y * WR + warp % WR, gridDim.y * WR);
 }
 
-template <int SLAB, int WR>
-cudaError_t launch_pipe(const void* db, const void* q, const void* valid,
-                        const void* scales, const void* uniq, const void* ok,
-                        int nblocks, int u, int c, int d, int b, int k,
-                        int cap, int groups, void* part_v, void* part_i,
-                        cudaStream_t stream) {
+template <int SLAB, int QTYPE, int WR>
+cudaError_t launch_pipe(const void* db, const void* q, const void* qscale,
+                        const void* valid, const void* scales,
+                        const void* uniq, const void* ok, int nblocks, int u,
+                        int c, int d, int b, int k, int cap, int groups,
+                        void* part_v, void* part_i, cudaStream_t stream) {
   constexpr int QT = 128 / WR;
-  const size_t smem = pipe_smem_bytes(SLAB, QT, cap, d);
-  auto kern = clustered_pipe_kernel<SLAB, WR, 0>;  // k in registers up to 4 kPipeKQ
-  if (k <= 4 * kPipeKQ) kern = clustered_pipe_kernel<SLAB, WR, kPipeKQ>;
+  const size_t smem = pipe_smem_bytes(SLAB, QTYPE, QT, cap, d);
+  // k in registers up to 4 kPipeKQ
+  auto kern = clustered_pipe_kernel<SLAB, QTYPE, WR, 0>;
+  if (k <= 4 * kPipeKQ) kern = clustered_pipe_kernel<SLAB, QTYPE, WR, kPipeKQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((b + QT - 1) / QT, groups);
   kern<<<grid, kThreads, smem, stream>>>(
-      db, q, static_cast<const uint8_t*>(valid),
-      static_cast<const float*>(scales), static_cast<const int*>(uniq),
-      static_cast<const int*>(ok), nblocks, u, c, d, b, k, cap,
-      static_cast<float*>(part_v), static_cast<int*>(part_i));
+      db, q, static_cast<const float*>(qscale),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(scales),
+      static_cast<const int*>(uniq), static_cast<const int*>(ok), nblocks, u,
+      c, d, b, k, cap, static_cast<float*>(part_v), static_cast<int*>(part_i));
   return cudaGetLastError();
+}
+
+template <int SLAB, int QTYPE>
+cudaError_t dispatch_pipe(int qt, const void* db, const void* q,
+                          const void* qs, const void* valid,
+                          const void* scales, const void* uniq,
+                          const void* ok, int nblocks, int u, int c, int d,
+                          int b, int k, int cap, int groups, void* pv,
+                          void* pi, cudaStream_t st) {
+#define WDBX_PIPE(WR)                                                        \
+  return launch_pipe<SLAB, QTYPE, WR>(db, q, qs, valid, scales, uniq, ok,   \
+                                      nblocks, u, c, d, b, k, cap, groups,   \
+                                      pv, pi, st)
+  switch (qt) {
+    case 128: WDBX_PIPE(1);
+    case 64: WDBX_PIPE(2);
+    case 32: WDBX_PIPE(4);
+  }
+#undef WDBX_PIPE
+  return cudaErrorInvalidValue;
 }
 
 template <int TQ>
@@ -303,31 +326,33 @@ cudaError_t dispatch(int slab, int qtype, bool mma, const void* db,
 
 extern "C" {
 
-// Shared memory a stage-1 CTA of qt queries needs: the tiled body's, or
-// the larger of the other two bodies'.
-size_t wdbx_clustered_block_partial_smem(int body, int slab, int qt,
-                                         int cap, int d) {
+// Shared memory a stage-1 CTA of qt queries needs: the tiled or the
+// pipelined body's (which depends on the query type), or the larger of
+// the other two bodies'.
+size_t wdbx_clustered_block_partial_smem(int body, int slab, int qtype,
+                                         int qt, int cap, int d) {
   if (body == kBodyFmaTiled) return fma_tiled_smem_bytes(qt, cap);
-  if (body == kBodyMmaPipe) return pipe_smem_bytes(slab, qt, cap, d);
+  if (body == kBodyMmaPipe) return pipe_smem_bytes(slab, qtype, qt, cap, d);
   const size_t a = partial_smem_bytes(qt, cap), b = mma_smem_bytes(qt, cap);
   return a > b ? a : b;
 }
 
 // body: 0 scan_fma, 1 scan_mma, 2 scan_fma_tiled, 3 scan_mma_pipe
-// (Body); a body whose rule the arguments break is refused: scan_mma
-// takes bf16 / int8 / int4 slabs with d % 32 == 0 (d % 64 == 0 with int8
-// queries), scan_mma_pipe bf16 / int8 slabs with bf16 queries and d % 32
-// == 0, scan_fma_tiled float32 slabs and queries with d % 4 == 0, all
-// with 16-byte aligned slab and queries. slab: 0 float32, 1 bfloat16, 2
-// int8, 3 packed int4 (n rows of the slab, n % c == 0). qtype: 0 float32
-// (float32 slab), 1 bf16, 2 int8 codes with qscale (b,) float32 (int8 /
-// int4 slabs). qt queries per CTA: 128, 64, 32 or 16 (scan_fma_tiled),
-// 128, 64 or 32 (scan_mma_pipe), 64 or 16 (the others). uniq / ok (u,) int32.
-// scan_fma_tiled and scan_mma_pipe: CTA group g takes the g-th equal span
-// of the live entries' 128-row tiles, `ways` is unused and groups * 31 >=
-// u; the others: group g takes entries [g * ways, (g + 1) * ways). part_v
-// (b, parts, k) float32 and part_i (b, parts, k) int32 global slab
-// positions, parts = groups, or groups * 128 / qt for scan_mma_pipe.
+// (Body); a body whose rule the arguments break is refused: scan_mma and
+// scan_mma_pipe take bf16 / int8 / int4 slabs with d % 32 == 0 (d % 64
+// == 0 with int8 queries; scan_mma_pipe's shared memory must fit, or the
+// launch fails), scan_fma_tiled float32 slabs and queries with d % 4 ==
+// 0, all with 16-byte aligned slab and queries. slab: 0 float32, 1
+// bfloat16, 2 int8, 3 packed int4 (n rows of the slab, n % c == 0).
+// qtype: 0 float32 (float32 slab), 1 bf16, 2 int8 codes with qscale (b,)
+// float32 (int8 / int4 slabs). qt queries per CTA: 128, 64, 32 or 16
+// (scan_fma_tiled), 128, 64 or 32 (scan_mma_pipe), 64 or 16 (the others).
+// uniq / ok (u,) int32. scan_fma_tiled and scan_mma_pipe: CTA group g
+// takes the g-th equal span of the live entries' 128-row tiles, `ways` is
+// unused and groups * 31 >= u; the others: group g takes entries [g *
+// ways, (g + 1) * ways). part_v (b, parts, k) float32 and part_i (b,
+// parts, k) int32 global slab positions, parts = groups, or groups * 128 /
+// qt for scan_mma_pipe.
 int wdbx_clustered_block_partial(int body, int slab, int qtype, int qt,
                                  const void* db, const void* q,
                                  const void* qscale, const void* valid,
@@ -359,22 +384,19 @@ int wdbx_clustered_block_partial(int body, int slab, int qtype, int qt,
     return (int)cudaErrorInvalidValue;
   }
   if (body == kBodyMmaPipe) {
-    if ((slab != kBF16 && slab != kI8) || qtype != kQBF16 || d % 32 != 0 ||
-        !aligned || (slab == kI8 && scales == nullptr) ||
+    if (slab == kF32 || d % (qtype == kQI8 ? 64 : 32) != 0 || !aligned ||
+        (slab != kBF16 && scales == nullptr) ||
         (long long)groups * (kMaxWays - 1) < u)
       return (int)cudaErrorInvalidValue;
-#define WDBX_PIPE(S, WR)                                                     \
-  return (int)launch_pipe<S, WR>(db, q, valid, scales, uniq, ok, n / c, u, c, \
-                                 d, b, k, cap, groups, part_v, part_i, st)
-    if (slab == kBF16) {
-      if (qt == 128) WDBX_PIPE(kBF16, 1);
-      if (qt == 64) WDBX_PIPE(kBF16, 2);
-      if (qt == 32) WDBX_PIPE(kBF16, 4);
-    } else {
-      if (qt == 128) WDBX_PIPE(kI8, 1);
-      if (qt == 64) WDBX_PIPE(kI8, 2);
-      if (qt == 32) WDBX_PIPE(kI8, 4);
-    }
+#define WDBX_PIPE(S, Q)                                                    \
+  return (int)dispatch_pipe<S, Q>(qt, db, q, qscale, valid, scales, uniq, \
+                                  ok, n / c, u, c, d, b, k, cap, groups,  \
+                                  part_v, part_i, st)
+    if (slab == kBF16 && qtype == kQBF16) WDBX_PIPE(kBF16, kQBF16);
+    if (slab == kI8 && qtype == kQBF16) WDBX_PIPE(kI8, kQBF16);
+    if (slab == kI4 && qtype == kQBF16) WDBX_PIPE(kI4, kQBF16);
+    if (slab == kI8 && qtype == kQI8) WDBX_PIPE(kI8, kQI8);
+    if (slab == kI4 && qtype == kQI8) WDBX_PIPE(kI4, kQI8);
 #undef WDBX_PIPE
     return (int)cudaErrorInvalidValue;
   }

@@ -37,15 +37,16 @@
 // is not reproduced, which can only raise recall against it.
 // Stage-1 bodies (topk_common.cuh, shared with clustered_scan.cu), named
 // by the launcher:
-//   * bf16 slabs and int8 slabs (bf16 queries), d % 32 == 0, 16-byte
-//     aligned operands and k whose buffers fit: scan_mma_pipe, mma.sync
-//     bf16 -> f32 on queries resident in shared memory, a 3-stage
-//     cp.async ring of 128-byte row slices with one barrier per slice,
-//     ldmatrix fragments (int8 converted in registers), selection from
-//     registers, and the float32 body's whole-wave grid at one CTA a SM;
-//   * int4 slabs and the bf16-query cases off that rule: scan_mma,
-//     mma.sync bf16 -> f32 on the tensor cores when d % 32 == 0 and the
-//     operands are 16-byte aligned;
+//   * bf16, int8 and packed int4 slabs, d % 32 == 0, 16-byte aligned
+//     operands and k whose buffers fit: scan_mma_pipe, mma.sync bf16 ->
+//     f32 on queries resident in shared memory, a 3-stage cp.async ring
+//     of 128-byte row slices with one barrier per slice, ldmatrix
+//     fragments (int8 and int4 codes converted in registers), selection
+//     from registers, and the float32 body's whole-wave grid at one CTA a
+//     SM;
+//   * the tensor-core launches whose buffers fit no query tile (k = 128
+//     or 1024 at these widths): scan_mma, mma.sync bf16 -> f32 with the
+//     slices staged through shared memory;
 //   * float32 slabs with d % 4 == 0 and 16-byte aligned operands:
 //     scan_fma_tiled, the operation-bound case's body: 128-row x
 //     128-query tiles with 8 x 8 float32 accumulators a thread, a
@@ -115,8 +116,9 @@ fused_topk_tiled_kernel(const float* __restrict__ db,
   sel.write<true>(q0, b, blockIdx.y, gridDim.y, part_v, part_i, warp, lane);
 }
 
-// The bf16-query tensor-core body: QT = 128 / WR queries x the chunk's
-// 128-row tiles; the WR warps that share a query write WR parts of it.
+// The pipelined tensor-core body (bf16 queries; bf16, int8 or int4
+// rows): QT = 128 / WR queries x the chunk's 128-row tiles; the WR warps
+// that share a query write WR parts of it.
 template <int SLAB, int WR, int KQ>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_topk_pipe_kernel(const void* __restrict__ db, const void* __restrict__ q,
@@ -126,15 +128,16 @@ fused_topk_pipe_kernel(const void* __restrict__ db, const void* __restrict__ q,
                        float* __restrict__ part_v, int* __restrict__ part_i) {
   constexpr int QT = 128 / WR;
   extern __shared__ __align__(16) unsigned char smem[];
-  const PipeSel sel(reinterpret_cast<uint32_t*>(smem) + pipe_words(SLAB, QT, d),
-                    cap, k);
+  const PipeSel sel(
+      reinterpret_cast<uint32_t*>(smem) + pipe_words(SLAB, kQBF16, QT, d),
+      cap, k);
   const int warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * QT;
   const int row_begin = blockIdx.y * rows_per_chunk;
   const RangeTiles tiles{row_begin, min(n, row_begin + rows_per_chunk)};
-  scan_mma_pipe<SLAB, WR, KQ>(tiles, sel, smem, db, q, valid, scales, d, b,
-                              q0, part_v, part_i, blockIdx.y * WR + warp % WR,
-                              gridDim.y * WR);
+  scan_mma_pipe<SLAB, kQBF16, WR, KQ>(
+      tiles, sel, smem, db, q, nullptr, valid, scales, d, b, q0, part_v,
+      part_i, blockIdx.y * WR + warp % WR, gridDim.y * WR);
 }
 
 template <int SLAB, int WR>
@@ -143,7 +146,7 @@ cudaError_t launch_pipe(const void* db, const void* q, const void* valid,
                         int cap, int rows_per_chunk, int chunks, void* part_v,
                         void* part_i, cudaStream_t stream) {
   constexpr int QT = 128 / WR;
-  const size_t smem = pipe_smem_bytes(SLAB, QT, cap, d);
+  const size_t smem = pipe_smem_bytes(SLAB, kQBF16, QT, cap, d);
   auto kern = fused_topk_pipe_kernel<SLAB, WR, 0>;  // k in registers up to 4 kPipeKQ
   if (k <= 4 * kPipeKQ) kern = fused_topk_pipe_kernel<SLAB, WR, kPipeKQ>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -433,16 +436,16 @@ extern "C" {
 size_t wdbx_fused_topk_partial_smem(int body, int slab, int qt, int cap,
                                     int d) {
   if (body == kBodyFmaTiled) return fma_tiled_smem_bytes(qt, cap);
-  if (body == kBodyMmaPipe) return pipe_smem_bytes(slab, qt, cap, d);
+  if (body == kBodyMmaPipe) return pipe_smem_bytes(slab, kQBF16, qt, cap, d);
   const size_t a = partial_smem_bytes(qt, cap), b = mma_smem_bytes(qt, cap);
   return a > b ? a : b;
 }
 
 // body: 0 scan_fma, 1 scan_mma, 2 scan_fma_tiled, 3 scan_mma_pipe
 // (Body); a body whose rule the arguments break is refused: scan_mma
-// takes bf16 / int8 / int4 slabs with d % 32 == 0, scan_mma_pipe bf16 /
-// int8 slabs with d % 32 == 0 (its shared memory must fit, or the launch
-// fails), scan_fma_tiled float32 slabs with d % 4 == 0, all with 16-byte
+// and scan_mma_pipe take bf16 / int8 / int4 slabs with d % 32 == 0
+// (scan_mma_pipe's shared memory must fit, or the launch fails),
+// scan_fma_tiled float32 slabs with d % 4 == 0, all with 16-byte
 // aligned slab and queries. slab: 0 float32, 1 bfloat16, 2 int8, 3
 // packed int4. qt queries per CTA: 128, 64, 32 or 16 (scan_fma_tiled),
 // 128, 64 or 32 (scan_mma_pipe), 64 or 16 (the others); rows_per_chunk a
@@ -475,15 +478,16 @@ int wdbx_fused_topk_partial(int body, int slab, int qt, const void* db,
     return (int)cudaErrorInvalidValue;
   }
   if (body == kBodyMmaPipe) {
-    if ((slab != kBF16 && slab != kI8) || d % 32 != 0 || !aligned ||
-        (slab == kI8 && scales == nullptr))
+    if (slab == kF32 || d % 32 != 0 || !aligned ||
+        (slab != kBF16 && scales == nullptr))
       return (int)cudaErrorInvalidValue;
-    if (slab == kBF16)
-      return (int)dispatch_pipe<kBF16>(qt, db, q, valid, scales, n, d, b, k,
-                                       cap, rows_per_chunk, chunks, part_v,
-                                       part_i, st);
-    return (int)dispatch_pipe<kI8>(qt, db, q, valid, scales, n, d, b, k, cap,
-                                   rows_per_chunk, chunks, part_v, part_i, st);
+#define WDBX_PIPE(S)                                                       \
+  return (int)dispatch_pipe<S>(qt, db, q, valid, scales, n, d, b, k, cap, \
+                               rows_per_chunk, chunks, part_v, part_i, st)
+    if (slab == kBF16) WDBX_PIPE(kBF16);
+    if (slab == kI8) WDBX_PIPE(kI8);
+    WDBX_PIPE(kI4);
+#undef WDBX_PIPE
   }
   const bool mma = body == kBodyMma;
   if ((body != kBodyFma && !mma) ||

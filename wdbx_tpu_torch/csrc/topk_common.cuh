@@ -7,14 +7,14 @@
 //                   FMAs fed by a cp.async ring, selection from registers
 //   scan_fma        CUDA-core float32 FMAs (every other width / type off
 //                   the tensor-core slices, and unaligned views)
-//   scan_mma_pipe   bf16 slabs and int8 slabs with bf16 queries:
-//                   mma.sync bf16 x bf16 -> f32 on queries resident in
-//                   shared memory, fed by a cp.async ring, selection from
-//                   registers (a register top-k up to k = 32)
-//   scan_mma        mma.sync on the tensor cores: bf16 x bf16 -> f32
-//                   (the other bf16-query cases: int4 slabs, and k or d
-//                   too large for scan_mma_pipe), or s8 x s8 -> s32 (int8
-//                   / int4 slabs with int8 queries)
+//   scan_mma_pipe   bf16 / int8 / int4 slabs: mma.sync bf16 x bf16 -> f32
+//                   (bf16 queries) or s8 x s8 / s8 x u8 -> s32 (int8
+//                   queries) on queries resident in shared memory, fed by
+//                   a cp.async ring, selection from registers (a register
+//                   top-k up to k = 32)
+//   scan_mma        the first mma.sync body: the tensor-core launches
+//                   whose k or d scan_mma_pipe cannot hold, and the
+//                   old-body times
 // They walk a Tiles object: RangeTiles is one contiguous row range (the
 // fused flat scan, fused_topk.cu), BlockTiles the c-row blocks a CTA
 // read from a block list and SpanTiles a CTA's equal share of the row
@@ -1195,36 +1195,54 @@ __device__ void scan_mma(const Tiles& tiles, const CtaSel& sel,
 
 
 // ---------------------------------------------------------------------
-// The pipelined tensor-core body for bf16-query products (bf16 slabs, and
-// int8 slabs with bf16 queries). A 1M x 384 int8 slab is 0.12 ms of bytes
-// on this card and its bf16 products at B = 128 another 0.10 ms at the
-// dense peak, so the body is built to keep both the copies and the
-// tensor cores busy with few other instructions:
+// The pipelined tensor-core body (bf16, int8 and packed int4 slabs; bf16
+// queries, or int8 queries against int8 / int4 codes). A 1M x 384 int8
+// slab is 0.12 ms of bytes on this card and its bf16 products at B = 128
+// another 0.10 ms at the dense peak, so the body is built to keep both
+// the copies and the tensor cores busy with few other instructions:
 //  * the CTA's QT = 128 / WR queries are loaded once (cp.async) and stay
 //    resident in shared memory for the whole chunk, in rows padded so
 //    that fragment loads are free of bank conflicts;
 //  * 128-row tiles stream through a kPStages ring of 128 bytes a row (64
-//    bf16 or 128 int8 dims a slice), 16-byte cp.async.cg copies with an
-//    XOR swizzle of the 16-byte chunks, one barrier per slice; int8 rows
-//    land raw;
+//    bf16, 128 int8 or 256 int4 dims a slice), 16-byte cp.async.cg copies
+//    with an XOR swizzle of the 16-byte chunks, one barrier per slice;
+//    int8 and int4 rows land raw. The k-steps of a slice stop at the
+//    row's bytes (int4 at d = 384 is 1.5 slices);
 //  * warp w owns the 16 queries [16 (w / WR), 16 (w / WR) + 16) of the
 //    CTA over the rows [RW (w % WR), RW (w % WR) + RW) of a tile, RW =
-//    128 / WR: mma.sync m16n8k16 with the queries as A (ldmatrix.x4) and
-//    the rows as B (ldmatrix.x4: two 8-row n-tiles of bf16, or four of
-//    int8, converted to bf16 in registers by a byte permute and a
-//    float32 magic number, exact for every int8 code; the A fragment
-//    then takes the same order of the 16 dims of a step);
+//    128 / WR. The queries are A (ldmatrix.x4), the rows B (ldmatrix.x4
+//    of raw ring bytes):
+//    - bf16 rows: m16n8k16 bf16, two 8-row n-tiles a ldmatrix;
+//    - int8 / int4 codes against bf16 queries: m16n8k16 bf16 on four
+//      8-row n-tiles of one 16-byte chunk a ldmatrix, each lane's 4 bytes
+//      converted in registers, exactly (int8: a byte permute and a
+//      float32 magic number; int4: the nibbles into the mantissa of bf16
+//      128, then one bf16x2 subtraction of 136); the A fragment takes the
+//      same order of the step's dims, and an int4 chunk feeds two
+//      products: its low nibbles (dims j) and its high nibbles (dims j +
+//      d/2, the packing of kernels/quant.py). Up to k = 4 kPipeKQ the
+//      int4 rows are converted once a slice instead, by the whole CTA,
+//      into a 64 KB bf16 staging tile in the room of the warp buffers,
+//      and the warps read it as bf16 rows (a second barrier a slice, 8x
+//      fewer conversions);
+//    - int8 queries: m16n8k32 on raw bytes, which ldmatrix lays out as
+//      the s8 fragments: s8 x s8 against int8 rows; against int4 rows the
+//      nibbles (x & 0x0f0f0f0f, (x >> 4) & 0x0f0f0f0f) are the biased
+//      codes as u8, an s8 x u8 product, and 8 sum(q) (summed once a CTA)
+//      comes off each query's int32 sum at the tile's end: exact;
 //  * selection needs no CTA barrier: each warp selects for its own 16
-//    queries. At the end of a tile each thread scales its scores (the row
-//    scale, 1 for bf16), masks them and compares them with its two
-//    queries' thresholds (one vote a tile when nothing survives). The
-//    four lanes of a quad hold a query's 128 scores of the tile. Up to k
-//    = 4 kPipeKQ (KQ > 0) the quad keeps the query's top k in registers
-//    (KQ slots a lane, the quad's minimum as the threshold) and inserts
-//    survivors one a round, best first while a lane holds several, so no
-//    buffer and no cut exist. Above it each warp keeps a shared buffer a
-//    query: survivors are appended in lane order, then row order; a
-//    flood is cut in registers (quad_kth) and a full buffer by sel_cut;
+//    queries. At the end of a tile each thread scales its scores (int8
+//    queries: the int32 sum times the row scale, then times the query
+//    scale, scan_mma's order; else the row scale, 1 for bf16), masks them
+//    and compares them with its two queries' thresholds (one vote a tile
+//    when nothing survives). The four lanes of a quad hold a query's 128
+//    scores of the tile. Up to k = 4 kPipeKQ (KQ > 0) the quad keeps the
+//    query's top k in registers (KQ slots a lane, the quad's minimum as
+//    the threshold) and inserts survivors one a round, best first while a
+//    lane holds several, so no buffer and no cut exist. Above it each
+//    warp keeps a shared buffer a query: survivors are appended in lane
+//    order, then row order; a flood is cut in registers (quad_kth) and a
+//    full buffer by sel_cut;
 //  * the WR warps that share a query write separate partials, so the CTA
 //    writes WR parts a query: (B, parts * WR, k).
 // The same inputs give the same slots on every run. smem holds the ring,
@@ -1236,25 +1254,36 @@ constexpr int kPRowBytes = 128; // bytes of a row a slice
 constexpr int kPBufs = 128;     // candidate buffers: 8 warps x 16 queries
 constexpr int kPipeKQ = 8;      // register top-k slots a lane: k <= 32
 
-// Resident query row stride in bf16 elements: the width rounded up to a
-// whole slice, plus 8 (bf16 slabs: ldmatrix rows 16 bytes apart mod 128)
-// or 16 (int8 slabs: 8-byte fragment loads, rows 32 bytes apart).
-__host__ __device__ inline int pipe_qstride(int slab, int d) {
-  const int per = slab == kI8 ? kPRowBytes : kPRowBytes / 2;  // dims a slice
-  return (d + per - 1) / per * per + (slab == kI8 ? 16 : 8);
+// Resident query row stride in bytes: the query's bytes rounded up to a
+// whole slice, plus 16 (A by ldmatrix: rows 16 bytes apart mod 128) or
+// 32 (bf16 queries against int8 / int4 codes: 8-byte fragment loads,
+// rows 32 bytes apart).
+__host__ __device__ inline int pipe_qbytes(int slab, int qtype, int d) {
+  const int bytes = qtype == kQI8 ? d : 2 * d;
+  return (bytes + kPRowBytes - 1) / kPRowBytes * kPRowBytes +
+         (qtype != kQI8 && slab != kBF16 ? 32 : 16);
 }
 
-__host__ __device__ inline size_t pipe_words(int slab, int qt, int d) {
+__host__ __device__ inline size_t pipe_words(int slab, int qtype, int qt,
+                                             int d) {
   return (size_t)kPStages * kPRows * kPRowBytes / 4 +
-         (size_t)qt * pipe_qstride(slab, d) / 2 + 2 * kPRows;
+         (size_t)qt * pipe_qbytes(slab, qtype, d) / 4 + 2 * kPRows;
 }
 
 __host__ __device__ inline size_t pipe_sel_words(int cap) {
   return 2 * (size_t)kPBufs + 2 * (size_t)kPBufs * cap;
 }
 
-size_t pipe_smem_bytes(int slab, int qt, int cap, int d) {
-  return (pipe_words(slab, qt, d) + pipe_sel_words(cap)) * 4;
+// int4 rows against bf16 queries with the register top-k convert each
+// slice once into a bf16 staging tile of 128 rows x 256 dims, kept where
+// the warp buffers would be (the register top-k leaves them unused).
+constexpr int kStageRowBytes = 512;
+constexpr size_t kStageBytes = (size_t)kPRows * kStageRowBytes;
+
+size_t pipe_smem_bytes(int slab, int qtype, int qt, int cap, int d) {
+  size_t sel = pipe_sel_words(cap) * 4;
+  if (slab == kI4 && qtype == kQBF16 && sel < kStageBytes) sel = kStageBytes;
+  return pipe_words(slab, qtype, qt, d) * 4 + sel;
 }
 
 // The 128 warp buffers of the pipelined body, after its tiles.
@@ -1319,6 +1348,51 @@ __device__ __forceinline__ void i8x4_bf16(uint32_t w, uint32_t& lo,
   const float f3 = __uint_as_float(__byte_perm(u, kMagic, 0x7653)) - 8388736.f;
   lo = pack_bf16(f0, f1);
   hi = pack_bf16(f2, f3);
+}
+
+// The eight int4 codes of packed bytes 0..3 of w (biased by +8) as four
+// bf16 pairs, exactly: lo01 / lo23 hold the low nibbles of bytes 0, 1 /
+// 2, 3, hi01 / hi23 their high nibbles. A nibble n in the low mantissa
+// bits of bf16 128 (0x4300 | n) is 128 + n, and one bf16x2 subtraction of
+// 136 gives n - 8 (no rounding: every value is a small integer).
+__device__ __forceinline__ void i4x8_bf16(uint32_t w, uint32_t& lo01,
+                                          uint32_t& lo23, uint32_t& hi01,
+                                          uint32_t& hi23) {
+  const uint32_t p01 = __byte_perm(w, 0u, 0x4140);  // byte 0 | byte 1 << 16
+  const uint32_t p23 = __byte_perm(w, 0u, 0x4342);
+  auto cvt = [](uint32_t x) {
+    const uint32_t y = (x & 0x000f000fu) | 0x43004300u;
+    const uint32_t bias = 0x43084308u;  // (136, 136)
+    __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&y),
+                               *reinterpret_cast<const __nv_bfloat162*>(&bias));
+    return *reinterpret_cast<uint32_t*>(&v);
+  };
+  lo01 = cvt(p01);
+  lo23 = cvt(p23);
+  hi01 = cvt(p01 >> 4);
+  hi23 = cvt(p23 >> 4);
+}
+
+// m16n8k32 integer products into accumulators kept as float registers
+// holding int32 bits (the pipelined body's one accumulator array): s8 x
+// s8, or s8 x u8 (U8: int8 queries against biased int4 codes).
+template <bool U8>
+__device__ __forceinline__ void mma_s8_bits(float (&c)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint32_t b0,
+                                            uint32_t b1) {
+  int x[4] = {__float_as_int(c[0]), __float_as_int(c[1]),
+              __float_as_int(c[2]), __float_as_int(c[3])};
+  if constexpr (U8)
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  else
+    mma_s8(x, a0, a1, a2, a3, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __int_as_float(x[e]);
 }
 
 
@@ -1535,49 +1609,92 @@ __device__ __forceinline__ void reg_offer(const float (&acc)[NT][4],
   }
 }
 
-template <int SLAB, int WR, int KQ, class Tiles>
+template <int SLAB, int QTYPE, int WR, int KQ, class Tiles>
 __device__ void scan_mma_pipe(const Tiles& tiles, const PipeSel& sel,
                               unsigned char* smem, const void* __restrict__ db,
                               const void* __restrict__ q,
+                              const float* __restrict__ qscale,
                               const uint8_t* __restrict__ valid,
                               const float* __restrict__ scales, int d, int b,
                               int q0, float* __restrict__ part_v,
                               int* __restrict__ part_i, int part,
                               int nparts) {
-  static_assert(SLAB == kBF16 || SLAB == kI8, "bf16-query products");
+  static_assert(SLAB != kF32, "float32 slabs take the FMA bodies");
+  static_assert(QTYPE == kQBF16 || (QTYPE == kQI8 && SLAB != kBF16),
+                "bf16 queries, or int8 queries against int8 / int4 codes");
   static_assert(WR == 1 || WR == 2 || WR == 4, "128, 64 or 32 queries");
-  constexpr bool I8 = SLAB == kI8;
+  constexpr bool S8 = QTYPE == kQI8;
+  constexpr bool I4 = SLAB == kI4;
+  constexpr bool SCALED = SLAB != kBF16;  // rows carry a scale
+  // bf16 queries against int8 / int4 codes take a 16-byte chunk of a row
+  // a k-step (16 or 32 dims), the others 32 bytes (16 bf16 or 32 int8 /
+  // 64 int4 dims)
+  constexpr bool CHUNK = !S8 && SCALED;
+  // int4 rows against bf16 queries with the register top-k: the CTA
+  // converts each slice once into the bf16 staging tile (kStageBytes, in
+  // the warp buffers' room) and the warps take bf16 fragments from it,
+  // instead of every warp converting every row of the slice
+  constexpr bool STAGED = CHUNK && I4 && KQ > 0;
   constexpr int QT = 128 / WR, RW = kPRows / WR, NT = RW / 8;
   constexpr int STAGE = kPRows * kPRowBytes;  // bytes per ring stage
-  constexpr int KS = I8 ? 8 : 4;              // k16 steps a slice
-  const int QS = pipe_qstride(SLAB, d);
+  constexpr int SB = CHUNK ? 16 : 32;         // row bytes a k-step
+  constexpr int KS = kPRowBytes / SB;         // k-steps a slice
+  constexpr int QE = S8 ? 1 : 2;              // bytes a query element
+  const int QB = pipe_qbytes(SLAB, QTYPE, d);
   unsigned char* const ring = smem;
-  __nv_bfloat16* const Qs =
-      reinterpret_cast<__nv_bfloat16*>(smem + kPStages * STAGE);
-  float* const rbuf = reinterpret_cast<float*>(Qs + QT * QS);  // [2][128]
+  unsigned char* const Qs = smem + kPStages * STAGE;
+  float* const rbuf = reinterpret_cast<float*>(Qs + QT * QB);  // [2][128]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int qb = warp / WR, rowbase = (warp % WR) * RW;
-  const int row_bytes = I8 ? d : 2 * d;
+  const int half = d / 2;
+  const int row_bytes = I4 ? half : (SLAB == kBF16 ? 2 * d : d);
   const int slices = (row_bytes + kPRowBytes - 1) / kPRowBytes;
   const int ntiles = tiles.count(kPRows);
   const char* const rb = static_cast<const char*>(db);
+  const char* const qsrc = static_cast<const char*>(q);
 
-  if (lane < 16) {
+  unsigned char* const stg = reinterpret_cast<unsigned char*>(sel.cnt);
+  if (KQ == 0 && lane < 16) {
     sel.cnt[warp * 16 + lane] = 0;
     sel.thr[warp * 16 + lane] = -INFINITY;
   }
   {  // the queries, once: zero past the batch and past d
-    const int qch = QS / 8, dch = d / 8;
-    const char* const qsrc = static_cast<const char*>(q);
+    const int qch = QB / 16, dch = d * QE / 16;
     for (int e = tid; e < QT * qch; e += kThreads) {
       const int r = e / qch, c = e - r * qch;
       const bool in = q0 + r < b && c < dch;
-      cp_async16(Qs + r * QS + c * 8,
-                     in ? qsrc + ((size_t)(q0 + r) * d + c * 8) * 2 : q, in);
+      cp_async16(Qs + r * QB + c * 16,
+                 in ? qsrc + ((size_t)(q0 + r) * d * QE + c * 16) : q, in);
     }
     cp_async_commit();
+  }
+  // int8 queries: this thread's two queries' scales and, against int4
+  // codes, 8 sum(q) (the bias of the u8 nibbles), the quad's lanes
+  // summing every fourth 16-byte chunk
+  float qsc[2] = {1.f, 1.f};
+  int qbias[2] = {0, 0};
+  if constexpr (S8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qg = q0 + qb * 16 + g + 8 * h;
+      if (qg < b) qsc[h] = __ldg(qscale + qg);
+      if constexpr (I4) {
+        int sum = 0;
+        if (qg < b)
+          for (int c = t; c < d / 16; c += 4) {
+            const uint4 v = ldg16(qsrc + (size_t)qg * d + c * 16);
+            sum = __dp4a((int)v.x, 0x01010101, sum);
+            sum = __dp4a((int)v.y, 0x01010101, sum);
+            sum = __dp4a((int)v.z, 0x01010101, sum);
+            sum = __dp4a((int)v.w, 0x01010101, sum);
+          }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        qbias[h] = 8 * sum;
+      }
+    }
   }
 
   // This thread's 16-byte chunks of a slice: chunk cc of rows cr + 32 u,
@@ -1625,10 +1742,11 @@ __device__ void scan_mma_pipe(const Tiles& tiles, const PipeSel& sel,
       tiles.tile(tt, kPRows, r0, rend);
       const int row = r0 + tid;
       pend_ok = row < rend ? (int)__ldg(valid + row) : 0;
-      if constexpr (I8) pend_sc = row < rend ? __ldg(scales + row) : 1.f;
+      if constexpr (SCALED) pend_sc = row < rend ? __ldg(scales + row) : 1.f;
     }
   };
 
+  // float32 sums, or int32 sums kept as their bits (int8 queries)
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -1652,7 +1770,7 @@ __device__ void scan_mma_pipe(const Tiles& tiles, const PipeSel& sel,
 #pragma unroll
   for (int s = 0; s < kPStages - 1; ++s) fetch();
   int cst = 0;  // the ring stage of the slice being scored
-  const __nv_bfloat16* const Qw = Qs + qb * 16 * QS;
+  const unsigned char* const Qw = Qs + qb * 16 * QB;
   for (int tt = 0; tt < ntiles; ++tt) {
     int tile_r0, rend;
     tiles.tile(tt, kPRows, tile_r0, rend);
@@ -1667,15 +1785,77 @@ __device__ void scan_mma_pipe(const Tiles& tiles, const PipeSel& sel,
       fetch();
       const unsigned char* const st = ring + cst * STAGE;
       cst = cst + 1 == kPStages ? 0 : cst + 1;
+      if constexpr (STAGED) {
+        // this thread's chunks cc of rows cr + 32 u: 16 packed bytes give
+        // 16 low and 16 high dims, staged as bf16 at chunks 2 cc, 2 cc + 1
+        // (low half of the row) and 16 + 2 cc, 17 + 2 cc (high half),
+        // swizzled as the ring is
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        if constexpr (I8) {
-          // A in the order the int8 B fragments take: dims 4t..4t+3 of
-          // the step's 16 (a0 / a2 of query g, a1 / a3 of query g + 8)
-          const int kc = sl * 128 + kk * 16 + 4 * t;
-          const uint2 x0 = *reinterpret_cast<const uint2*>(Qw + g * QS + kc);
-          const uint2 x1 =
-              *reinterpret_cast<const uint2*>(Qw + (g + 8) * QS + kc);
+        for (int u = 0; u < 4; ++u) {
+          const int r = cr + 32 * u, sw = r & 7;
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              st + r * kPRowBytes + ((cc ^ sw) << 4));
+          uint32_t lo[8], hi[8];
+          i4x8_bf16(w.x, lo[0], lo[1], hi[0], hi[1]);
+          i4x8_bf16(w.y, lo[2], lo[3], hi[2], hi[3]);
+          i4x8_bf16(w.z, lo[4], lo[5], hi[4], hi[5]);
+          i4x8_bf16(w.w, lo[6], lo[7], hi[6], hi[7]);
+          unsigned char* const row = stg + r * kStageRowBytes;
+          *reinterpret_cast<uint4*>(row + (((2 * cc) ^ sw) << 4)) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          *reinterpret_cast<uint4*>(row + (((2 * cc + 1) ^ sw) << 4)) =
+              make_uint4(lo[4], lo[5], lo[6], lo[7]);
+          *reinterpret_cast<uint4*>(row + (((16 + 2 * cc) ^ sw) << 4)) =
+              make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(row + (((17 + 2 * cc) ^ sw) << 4)) =
+              make_uint4(hi[4], hi[5], hi[6], hi[7]);
+        }
+        __syncthreads();  // the slice's bf16 tile is complete
+        // k16-step kk: staged dims 16 kk, which are the slice's low dims
+        // sl * 128 + 16 kk (kk < 8) or its high dims d/2 + sl * 128 +
+        // 16 (kk - 8)
+        auto sstep = [&](int kk) {
+          const int qd = (kk < 8 ? 0 : half - 128) + sl * kPRowBytes + kk * 16;
+          uint32_t a[4];
+          ldsm_x4(a, Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * QB + qd * 2 +
+                         (lane >> 4) * 16);
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            const int r = rowbase + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+            const int ch = kk * 2 + ((lane >> 3) & 1);
+            uint32_t bq[4];
+            ldsm_x4(bq, stg + r * kStageRowBytes + ((ch ^ (r & 7)) << 4));
+            mma_bf16(acc[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+            mma_bf16(acc[2 * np + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+          }
+        };
+        if ((sl + 1) * kPRowBytes <= row_bytes) {
+#pragma unroll
+          for (int kk = 0; kk < 16; ++kk) sstep(kk);
+        } else {  // a last slice past the row's end: the dims it holds
+          const int kl = (row_bytes - sl * kPRowBytes + 15) / 16;
+          for (int kk = 0; kk < kl; ++kk) {
+            sstep(kk);
+            sstep(8 + kk);
+          }
+        }
+        continue;
+      }
+      // k-step kk: SB bytes of every row of the slice, from row byte col
+      auto kstep = [&](int kk) {
+        const int col = sl * kPRowBytes + kk * SB;
+        if constexpr (CHUNK) {
+          // A in the order the code B fragments take: dims 4t..4t+3 of
+          // the chunk's (a0 / a2 of query g, a1 / a3 of query g + 8); an
+          // int4 chunk's high nibbles are dims d/2 further on
+          const unsigned char* const qa = Qw + g * QB + (col + 4 * t) * 2;
+          const uint2 x0 = *reinterpret_cast<const uint2*>(qa);
+          const uint2 x1 = *reinterpret_cast<const uint2*>(qa + 8 * QB);
+          uint2 y0 = x0, y1 = x1;
+          if constexpr (I4) {
+            y0 = *reinterpret_cast<const uint2*>(qa + 2 * half);
+            y1 = *reinterpret_cast<const uint2*>(qa + 8 * QB + 2 * half);
+          }
 #pragma unroll
           for (int nq = 0; nq < NT / 4; ++nq) {
             const int r = rowbase + nq * 32 + lane;
@@ -1683,25 +1863,63 @@ __device__ void scan_mma_pipe(const Tiles& tiles, const PipeSel& sel,
             ldsm_x4(raw, st + r * kPRowBytes + ((kk ^ (r & 7)) << 4));
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              uint32_t b0, b1;
-              i8x4_bf16(raw[i], b0, b1);
-              mma_bf16(acc[nq * 4 + i], x0.x, x1.x, x0.y, x1.y, b0, b1);
+              if constexpr (I4) {
+                uint32_t l01, l23, h01, h23;
+                i4x8_bf16(raw[i], l01, l23, h01, h23);
+                mma_bf16(acc[nq * 4 + i], x0.x, x1.x, x0.y, x1.y, l01, l23);
+                mma_bf16(acc[nq * 4 + i], y0.x, y1.x, y0.y, y1.y, h01, h23);
+              } else {
+                uint32_t b0, b1;
+                i8x4_bf16(raw[i], b0, b1);
+                mma_bf16(acc[nq * 4 + i], x0.x, x1.x, x0.y, x1.y, b0, b1);
+              }
             }
           }
         } else {
-          uint32_t a[4];
-          ldsm_x4(a, Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * QS +
-                         sl * 64 + kk * 16 + (lane >> 4) * 8);
+          // 32 row bytes: A for 16 queries by one ldmatrix.x4 (bf16 k16,
+          // or int8 k32 whose s8 fragments are the same bytes), B two
+          // 8-row n-tiles a ldmatrix.x4
+          const unsigned char* const qa =
+              Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * QB +
+              (lane >> 4) * 16;
+          uint32_t a[4], ah[4];
+          ldsm_x4(a, qa + col);  // a row byte's query byte: the same offset
+          if constexpr (I4) ldsm_x4(ah, qa + half + col);
 #pragma unroll
           for (int np = 0; np < NT / 2; ++np) {
             const int r = rowbase + np * 16 + (lane & 7) + ((lane >> 4) << 3);
             const int ch = kk * 2 + ((lane >> 3) & 1);
             uint32_t bq[4];
             ldsm_x4(bq, st + r * kPRowBytes + ((ch ^ (r & 7)) << 4));
-            mma_bf16(acc[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
-            mma_bf16(acc[2 * np + 1], a[0], a[1], a[2], a[3], bq[2], bq[3]);
+            if constexpr (I4) {
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const uint32_t b0 = bq[2 * u], b1 = bq[2 * u + 1];
+                mma_s8_bits<true>(acc[2 * np + u], a[0], a[1], a[2], a[3],
+                                  b0 & 0x0f0f0f0fu, b1 & 0x0f0f0f0fu);
+                mma_s8_bits<true>(acc[2 * np + u], ah[0], ah[1], ah[2],
+                                  ah[3], (b0 >> 4) & 0x0f0f0f0fu,
+                                  (b1 >> 4) & 0x0f0f0f0fu);
+              }
+            } else if constexpr (S8) {
+              mma_s8_bits<false>(acc[2 * np], a[0], a[1], a[2], a[3], bq[0],
+                                 bq[1]);
+              mma_s8_bits<false>(acc[2 * np + 1], a[0], a[1], a[2], a[3],
+                                 bq[2], bq[3]);
+            } else {
+              mma_bf16(acc[2 * np], a[0], a[1], a[2], a[3], bq[0], bq[1]);
+              mma_bf16(acc[2 * np + 1], a[0], a[1], a[2], a[3], bq[2],
+                       bq[3]);
+            }
           }
         }
+      };
+      if ((sl + 1) * kPRowBytes <= row_bytes) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) kstep(kk);
+      } else {  // a last slice past the row's end: the steps with its bytes
+        const int kend = (row_bytes - sl * kPRowBytes + SB - 1) / SB;
+        for (int kk = 0; kk < kend; ++kk) kstep(kk);
       }
     }
     if (slices == 1) __syncthreads();  // this tile's row scales are stored
@@ -1723,7 +1941,12 @@ __device__ void scan_mma_pipe(const Tiles& tiles, const PipeSel& sel,
       for (int j = 0; j < 2; ++j) {
         const float x = j ? sc.y : sc.x;
         const bool ok = x == x;
-        if constexpr (I8) {
+        if constexpr (S8) {  // int32 sum (less 8 sum(q)), row, query scale
+          acc[n][j] =
+              (float)(__float_as_int(acc[n][j]) - qbias[0]) * x * qsc[0];
+          acc[n][2 + j] =
+              (float)(__float_as_int(acc[n][2 + j]) - qbias[1]) * x * qsc[1];
+        } else if constexpr (SCALED) {
           acc[n][j] *= x;
           acc[n][2 + j] *= x;
         }

@@ -48,7 +48,7 @@ SIGNATURES = {
                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
         ),
         "wdbx_clustered_block_partial_smem": (
-            ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+            ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),
     },
     "ivf_scan": {
         "wdbx_ivf_bucket_partial": (

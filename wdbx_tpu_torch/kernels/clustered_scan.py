@@ -11,9 +11,10 @@ list entries and its query tile, and keeps each query's k best; stage 2
 is the fused scan's ``topk_merge_partials``. v1 is v2 with bf16 / float
 queries (its function), under its own launch counter. The scan body
 follows the fused scan's rule (``fused_topk.pick_body``): float32 slabs
-take the register-tiled body, bf16 slabs and int8 slabs with bf16
-queries the pipelined tensor-core body; the CTAs of both split the live
-blocks' tiles evenly among themselves on the card.
+take the register-tiled body, bf16 / int8 / int4 slabs the pipelined
+tensor-core body (bf16 products against bf16 queries, s8 products
+against int8 queries) where its buffers fit; the CTAs of both split the
+live blocks' tiles evenly among themselves on the card.
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU
 tensor they run ``clustered_block_topk_plain`` (gather the listed
@@ -64,7 +65,8 @@ def mode_key(gen: str, slab: str, qtype: str) -> str:
 
 
 def plan(u: int, b: int, k: int, sm_count: int, partial_smem,
-         body: str = "mma", d: int = 0) -> tuple[int, int, int]:
+         body: str = "mma", d: int = 0,
+         qtype: str = "bfloat16") -> tuple[int, int, int]:
     """Stage-1 grid ``(qt, ways, groups)``.
 
     The tiled float32 body (``body="fma_tiled"``, ``partial_smem`` its
@@ -72,15 +74,16 @@ def plan(u: int, b: int, k: int, sm_count: int, partial_smem,
     each CTA takes an equal span of the live blocks' tiles, counted on
     the card), and groups for one whole number of waves, at least
     ``u / 31`` so that a span stays within 32 list entries. The
-    pipelined body (``body="mma_pipe"``, width ``d``) the same, with
-    ``fused_topk.pipe_qt`` queries per CTA and one CTA a SM.
+    pipelined body (``body="mma_pipe"``, width ``d``, query type
+    ``qtype``) the same, with ``fused_topk.pipe_qt`` queries per CTA and
+    one CTA a SM.
     The other bodies: 64 queries per CTA when their candidate buffers
     fit beside the tiles, else 16; ``ways`` list entries per CTA, so
     that the grid holds about four CTAs per SM."""
     cap = _ft._cap(k)
     if body in ("fma_tiled", "mma_pipe"):
         pipe = body == "mma_pipe"
-        qt = (_ft.pipe_qt(b, k, d, partial_smem) if pipe
+        qt = (_ft.pipe_qt(b, k, d, partial_smem, qtype) if pipe
               else _ft.tiled_qt(b, k, partial_smem))
         if qt is None:
             raise ValueError(f"k={k} at d={d} does not fit the pipelined body")
@@ -163,7 +166,7 @@ def clustered_block_partial(
 
     def smem_of(code):
         return lambda qt, cap: lib.wdbx_clustered_block_partial_smem(
-            code, slab_code, qt, cap, d)
+            code, slab_code, QUERY_CODES[qkey], qt, cap, d)
 
     if body is None:
         body = _ft.pick_body(skey, qkey, b, k, d, slab.data_ptr(),
@@ -173,7 +176,7 @@ def clustered_block_partial(
     code = _ft.BODY_CODES[body]
     smem = smem_of(code)
     sm = torch.cuda.get_device_properties(slab.device).multi_processor_count
-    qt, ways, groups = plan(u, b, k, sm, smem, body, d)
+    qt, ways, groups = plan(u, b, k, sm, smem, body, d, qkey)
     tiled = body in ("fma_tiled", "mma_pipe")
     cap = _ft.tiled_cap(qt, k, smem) if tiled else _ft._cap(k)
     parts = groups * (128 // qt if body == "mma_pipe" else 1)

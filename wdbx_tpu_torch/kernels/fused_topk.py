@@ -10,11 +10,11 @@ stage 2 (``topk_merge_partials``) merges the chunks into the sorted
 ``(B, k)`` result. Stage 1 runs one of four scan bodies, which
 ``pick_body`` picks from the shapes alone: the register-tiled float32
 body for float32 slabs with ``d % 4 == 0`` and 16-byte aligned slab and
-queries; the pipelined tensor-core body for bf16 slabs and int8 slabs
-with bf16 queries, ``d % 32 == 0``, aligned operands and candidate
-buffers that fit for k; the first tensor-core body for the other bf16 /
-int8 / int4 cases with ``d % 32 == 0`` and aligned operands; the
-CUDA-core body otherwise. ``fused_topk_partial(..., body=...)`` reaches
+queries; the pipelined tensor-core body for bf16, int8 and packed int4
+slabs with ``d % 32 == 0``, aligned operands and candidate buffers that
+fit for k; the first tensor-core body for the tensor-core launches whose
+buffers fit no query tile (k = 128 / 1024 at d = 384); the CUDA-core
+body otherwise. ``fused_topk_partial(..., body=...)`` reaches
 any body whose rule the arguments meet, for timing one against
 another.
 
@@ -76,9 +76,12 @@ def _cap(k: int) -> int:
 BODY_CODES = {"fma": 0, "mma": 1, "fma_tiled": 2, "mma_pipe": 3}
 #: query tiles of the pipelined tensor-core body (its CTA writes 128 / qt
 #: parts a query), and the shared memory its resident queries may take:
-#: 128 queries at d <= 384, 64 at d <= 768, 32 at d <= 1536
+#: bf16 queries 128 at d <= 384, 64 at d <= 768, 32 at d <= 1536; int8
+#: queries (1 byte a dim) 128 at d <= 768, 64 at d <= 1536, 32 at d <= 3072
 PIPE_QT = (32, 64, 128)
 PIPE_QUERY_BYTES = 96 * 1024
+#: bytes a query element takes in the pipelined body's shared memory
+QUERY_BYTES = {"bfloat16": 2, "int8": 1}
 #: query tiles of the tiled float32 body, and the shared memory a CTA
 #: may ask for (227 KB less the kernels' static arrays)
 TILED_QT = (16, 32, 64, 128)
@@ -89,36 +92,40 @@ _SM_SMEM = 228 * 1024  # shared memory of one SM
 def scan_body(slab: str, qtype: str, d: int, db_ptr: int,
               q_ptr: int) -> str:
     """The stage-1 body a launch takes, from the slab and query types,
-    the width and the operands' addresses: ``"fma_tiled"`` for float32
-    slabs with ``d % 4 == 0``; ``"mma_pipe"`` for bf16 slabs and int8
-    slabs with bf16 queries, ``d % 32 == 0`` and 32 queries of width d
-    within ``PIPE_QUERY_BYTES`` (d <= 1536); ``"mma"`` for the other bf16
-    / int8 / int4 cases with ``d % 32 == 0`` (``d % 64 == 0`` with int8
-    queries); all with 16-byte aligned slab and queries; ``"fma"``
-    otherwise. ``pipe_qt`` may still send a ``"mma_pipe"`` launch to
-    ``"mma"`` when no query tile's buffers fit for its k. The C entry
-    points refuse a body whose rule the arguments break."""
+    the width and the operands' addresses, all with 16-byte aligned slab
+    and queries: ``"fma_tiled"`` for float32 slabs with ``d % 4 == 0``;
+    ``"mma_pipe"`` for bf16, int8 and packed int4 slabs with
+    ``d % 32 == 0`` against bf16 queries (an int4 row's d/2 bytes are
+    whole 16-byte chunks) or ``d % 64 == 0`` against int8 queries (int8 /
+    int4 slabs: whole 32-byte k-steps of s8 products), when 32 queries
+    of width d fit ``PIPE_QUERY_BYTES`` (d <= 1536 bf16, 3072 int8);
+    ``"mma"`` for the wider tensor-core cases; ``"fma"`` otherwise
+    (ragged widths, unaligned views). ``pipe_qt`` may still send a
+    ``"mma_pipe"`` launch to ``"mma"`` when no query tile's buffers fit
+    for its k. The C entry points refuse a body whose rule the arguments
+    break."""
     aligned = db_ptr % 16 == 0 and q_ptr % 16 == 0
     if slab == "float32":
         return "fma_tiled" if d % 4 == 0 and aligned else "fma"
     width = 64 if qtype == "int8" else 32
     if d % width or not aligned:
         return "fma"
-    if slab in ("bfloat16", "int8") and qtype == "bfloat16" and \
-            PIPE_QT[0] * d * 2 <= PIPE_QUERY_BYTES:
+    if PIPE_QT[0] * d * QUERY_BYTES[qtype] <= PIPE_QUERY_BYTES:
         return "mma_pipe"
     return "mma"
 
 
-def pipe_qt(b: int, k: int, d: int, partial_smem) -> int | None:
+def pipe_qt(b: int, k: int, d: int, partial_smem,
+            qtype: str = "bfloat16") -> int | None:
     """Queries per CTA of the pipelined body: the smallest of
     ``PIPE_QT`` that holds the batch among those whose resident queries
-    fit ``PIPE_QUERY_BYTES`` and whose 128 candidate buffers fit beside
-    them for this k (``partial_smem(qt, cap)``), else the largest that
-    fits; None when none does (k beyond ~90 at d=384: the launch takes
-    ``"mma"``)."""
+    (``QUERY_BYTES[qtype]`` a dim) fit ``PIPE_QUERY_BYTES`` and whose
+    128 candidate buffers fit beside them for this k
+    (``partial_smem(qt, cap)``), else the largest that fits; None when
+    none does (k beyond ~90 at d=384: the launch takes ``"mma"``)."""
     cap = _cap(k)
-    fits = [qt for qt in PIPE_QT if qt * d * 2 <= PIPE_QUERY_BYTES
+    fits = [qt for qt in PIPE_QT
+            if qt * d * QUERY_BYTES[qtype] <= PIPE_QUERY_BYTES
             and partial_smem(qt, cap) <= SMEM_MAX]
     if not fits:
         return None
@@ -165,16 +172,17 @@ def cta_slots(sm_count: int, smem: int, per_sm: int = 2) -> int:
 
 
 def plan(n: int, b: int, k: int, sm_count: int, partial_smem,
-         body: str = "mma", d: int = 0) -> tuple[int, int, int]:
+         body: str = "mma", d: int = 0,
+         qtype: str = "bfloat16") -> tuple[int, int, int]:
     """Stage-1 tiling ``(qt, chunks, rows_per_chunk)``.
 
     The tiled float32 body (``body="fma_tiled"``, ``partial_smem`` its
     size): ``tiled_qt`` queries per CTA, and as many row chunks as make
     the grid one whole number of waves, so that every SM gets an equal
     share of long chunks (131 chunks of 63 tiles at 1M rows, B=128).
-    The pipelined body (``body="mma_pipe"``, width ``d``): the same with
-    ``pipe_qt`` queries per CTA and one CTA a SM (131 chunks of 63 tiles
-    at 1M x 384, B=128).
+    The pipelined body (``body="mma_pipe"``, width ``d``, query type
+    ``qtype``): the same with ``pipe_qt`` queries per CTA and one CTA a
+    SM (131 chunks of 63 tiles at 1M x 384, B=128).
     The other bodies: 64 queries per CTA when their candidate buffers
     fit in shared memory beside the tiles (k up to ~140), else 16;
     enough row chunks for ~4 CTAs per SM. CTAs of one chunk are
@@ -183,7 +191,7 @@ def plan(n: int, b: int, k: int, sm_count: int, partial_smem,
     cap = _cap(k)
     if body in ("fma_tiled", "mma_pipe"):
         pipe = body == "mma_pipe"
-        qt = (pipe_qt(b, k, d, partial_smem) if pipe
+        qt = (pipe_qt(b, k, d, partial_smem, qtype) if pipe
               else tiled_qt(b, k, partial_smem))
         if qt is None:
             raise ValueError(f"k={k} at d={d} does not fit the pipelined body")
@@ -229,7 +237,7 @@ def pick_body(key: str, qtype: str, b: int, k: int, d: int, db_ptr: int,
     ``smem_of(code)`` gives the shared-memory function of a body code."""
     body = scan_body(key, qtype, d, db_ptr, q_ptr)
     if body == "mma_pipe" and pipe_qt(
-            b, k, d, smem_of(BODY_CODES[body])) is None:
+            b, k, d, smem_of(BODY_CODES[body]), qtype) is None:
         return "mma"
     return body
 
