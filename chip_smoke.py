@@ -83,7 +83,13 @@ Phases (each prints JSON lines; any failure exits non-zero):
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
              128}, B in {1, 128} at 8 probes, an all-invalid bucket and one
-             with fewer valid rows than k
+             with fewer valid rows than k; 128 queries all probing the
+             same 8 buckets (items split at the group size), repeated
+             (query, probe) pairs and an out-of-range probe (its row all
+             -inf / -1); each case through the shape rule's stage-1 body
+             (grouped where rows are whole 16-byte chunks) and again
+             through the per-pair body, and the grouping kernel against
+             its plain version
   dense_ivf  benchmarks/ivf_crossover.py's clustered point through the
              dense IVFIndex: 1,048,576 x 384 rows of a 1024-component
              mixture (noise 0.45/sqrt(d)) as a bf16 slab, nlist 1024,
@@ -95,13 +101,18 @@ Phases (each prints JSON lines; any failure exits non-zero):
              (K5) and 1% (exact route); lax search_pipelined (NB=32,
              B=64); an int8 index (lax, int8 tables); the SOAR facade
              (INDEX_TYPE=ivf, IVF_ASSIGNMENTS=2) with a save / load round
-             trip; K5 stage 1 / stage 2 / call times beside the bound
+             trip (every K5 search must run the grouping and the
+             grouped body); K5 stage 1 (also the per-pair body as
+             old_ms), grouping, stage 2 and call times beside the bound
+             and the unique probed buckets' bytes at B 1 / 64 / 128
 Then a "paths" line (launches of each driven path, by kernel and by
 stage-1 scan body), a "kernels" line (launches on the driven paths,
 times, bounds; each stage-1 row also its body, score-only, merge time
 and parts, and where the pipelined body ran the first tensor-core
 body's time as old_ms; the merge row its CUDA-graph times and its times
-at k 10, 128 and 1024) and, last, {"ok": true, "device": {...}}.
+at k 10, 128 and 1024; the K5 rows their body, the per-pair body's time
+as old_ms, merge, grouping and call times; the grouping kernel its own
+row) and, last, {"ok": true, "device": {...}}.
 
 Launch counts: every path (main, the default facade, each pipelined
 slab, the int8 facade, each clustered path) runs with the kernels'
@@ -158,6 +169,9 @@ RERANK_BAR = 0.97
 FACADE_BAR = 0.95
 IVF_SOURCE = "wdbx_tpu_torch/csrc/ivf_scan.cu"
 IVF_REPLACES = "wdbx_tpu/kernels/ivf_scan.py:34"
+# the grouping stands in for the TPU call's walk of the pairs, their
+# probe ids scalar-prefetched into the index maps
+IVF_GROUP_REPLACES = "wdbx_tpu/kernels/ivf_scan.py:127"
 # the dense engine's bar: recall@10 >= 0.95 on the 1M x 384 clustered
 # corpus (benchmarks/RESULTS.md:692-728), on each scan path
 DENSE_BAR = 0.95
@@ -542,6 +556,9 @@ def _counts():
               for k, v in cs.clustered_block_partial.bodies.items()})
     c.update({f"ivf_bucket_partial[{k}]": v
               for k, v in ivs.ivf_bucket_partial.launches.items()})
+    c.update({f"ivf_bucket_partial.bodies.{k}": v
+              for k, v in ivs.ivf_bucket_partial.bodies.items()})
+    c["ivf_group_pairs"] = ivs.group_pairs.launches
     return c
 
 
@@ -1567,11 +1584,37 @@ def bucket_rescorer(rows, probes, qidx, qq):
     return rescore
 
 
+def check_grouping(name, probes, qidx, nlist, b, g) -> None:
+    """The grouping kernel against its plain version: the same items,
+    and within each bucket the same pair ids (the kernel's order there is
+    its atomics')."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import ivf_scan as ivs
+
+    p32, q32 = probes.to(torch.int32), qidx.to(torch.int32)
+    order, items, n_items = ivs.group_pairs(p32, q32, nlist, b, g)
+    want_o, want_i, want_n = ivs.group_pairs_plain(probes, qidx, nlist, b, g)
+    n = int(n_items[0])
+    if n != want_n or not torch.equal(items[:n], want_i):
+        fail(f"{name}: group_pairs items differ from the plain version")
+    ok = (p32 >= 0) & (p32 < nlist) & (q32 >= 0) & (q32 < b)
+    key = torch.where(ok, p32, nlist).long()
+    got = order.long()
+    got = got[torch.argsort(key[got] * len(got) + got)]
+    if not torch.equal(got, want_o.long()):
+        fail(f"{name}: group_pairs order differs from the plain version")
+
+
 def phase_ivf_kernels(seed, errs):
     """K5 against its plain version: bf16 and float32 tables, d 384 and
-    ragged 100, C 128 and 1408, k 1 / 10 / 128, B 1 and 128 at P 8.
-    Bucket 0 is all invalid and bucket 1 holds 5 valid rows; both are
-    among every batch's probes."""
+    ragged 100, C 128 and 1408, k 1 / 10 / 128, B 1 and 128 at P 8,
+    through the shape rule's body and again through the per-pair body;
+    then 128 queries all probing the same 8 buckets (items split at g),
+    repeated (query, probe) pairs and an out-of-range probe (its row all
+    -inf / -1). Bucket 0 is all invalid and bucket 1 holds 5 valid rows;
+    both are among every batch's probes. The grouping kernel is held
+    against its plain version on every case."""
     import torch
 
     from wdbx_tpu_torch.kernels import fused_topk as tf
@@ -1580,6 +1623,8 @@ def phase_ivf_kernels(seed, errs):
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     nlist, p = 64, 8
     n_cases = 0
+    bodies = {}
+    errs["ivf_group_pairs"] = 0.0
     for d in (384, 100):
         for c in (128, 1408):
             x = torch.randn((nlist, c, d), generator=g, device="cuda")
@@ -1591,41 +1636,81 @@ def phase_ivf_kernels(seed, errs):
             q = torch.randn((128, d), generator=g, device="cuda")
             for dtype in ("bfloat16", "float32"):
                 table = x.to(getattr(torch, dtype))
-                for b in (1, 128):
-                    probes = torch.randint(0, nlist, (b * p,), generator=g,
-                                           device="cuda")
-                    probes[:2] = torch.tensor([0, 1], device="cuda")
+                want = ivs.pick_body(dtype, d, table.data_ptr())
+                for case in ("b1", "b128", "skewed", "duplicates",
+                             "out_of_range"):
+                    b = 1 if case == "b1" else 128
+                    if case == "skewed":  # every query probes buckets 0-7
+                        probes = torch.arange(8, device="cuda").repeat(b)
+                    else:
+                        probes = torch.randint(0, nlist, (b * p,),
+                                               generator=g, device="cuda")
+                        probes[:2] = torch.tensor([0, 1], device="cuda")
                     qidx = torch.arange(b, device="cuda").repeat_interleave(p)
+                    if case == "duplicates":
+                        probes[8:24] = probes[:16].clone()
+                        qidx[8:24] = qidx[:16].clone()
+                    live = torch.ones_like(probes, dtype=torch.bool)
+                    ref_probes = probes.clone()
+                    if case == "out_of_range":
+                        probes[5], live[5] = nlist + 3, False
                     qq = q[:b].to(table.dtype)
-                    rescore = bucket_rescorer(table, probes, qidx, qq)
+                    rescore = bucket_rescorer(table, ref_probes[live],
+                                              qidx[live], qq)
                     for k in (1, 10, 128):
-                        ref = ivs.ivf_bucket_scan_plain(table, valid, probes,
-                                                        qidx, q[:b], k)
-                        pv, pi = ivs.ivf_bucket_partial(table, valid, probes,
-                                                        qidx, qq, k)
-                        got = tf.topk_merge_partials(pv, pi, k)
+                        name = (f"ivf_bucket_partial[{dtype}]/"
+                                f"d{d}_c{c}_{case}_k{k}")
+                        ref = ivs.ivf_bucket_scan_plain(table, valid,
+                                                        ref_probes, qidx,
+                                                        q[:b], k)
+                        check_grouping(name, probes, qidx, nlist, b,
+                                       ivs.group_size(d, k))
                         call = ivs.ivf_bucket_scan(table, valid, probes, qidx,
                                                    q[:b], k)
-                        torch.cuda.synchronize()
-                        name = (f"ivf_bucket_partial[{dtype}]/"
-                                f"d{d}_c{c}_b{b}_k{k}")
-                        err = check_topk(name, ref, got, rescore)
-                        for part, want in zip(call, got):
-                            if not torch.equal(part, want):
-                                fail(f"{name}: ivf_bucket_scan differs from "
-                                     "its two stages")
-                        if not torch.isneginf(got[0][0]).all():
-                            fail(f"{name}: the all-invalid bucket gave rows")
-                        if int(torch.isfinite(got[0][1]).sum()) != min(k, 5):
-                            fail(f"{name}: k past the valid count")
-                        key = f"ivf_bucket_partial[{dtype}]"
-                        errs[key] = max(errs.get(key, 0.0), err)
-                        n_cases += 1
+                        for body in (None, "pair"):
+                            before = dict(ivs.ivf_bucket_partial.bodies)
+                            pv, pi = ivs.ivf_bucket_partial(
+                                table, valid, probes, qidx, qq, k, body=body)
+                            ran = [n for n, v in
+                                   ivs.ivf_bucket_partial.bodies.items()
+                                   if v != before[n]]
+                            if ran != [body or want]:
+                                fail(f"{name}: ran {ran}, not "
+                                     f"{body or want}")
+                            got = tf.topk_merge_partials(pv, pi, k)
+                            torch.cuda.synchronize()
+                            label = f"{name}/{ran[0]}"
+                            if body is None:
+                                for part, w in zip(call, got):
+                                    if not torch.equal(part, w):
+                                        fail(f"{label}: ivf_bucket_scan "
+                                             "differs from its two stages")
+                            if not live.all():
+                                dead = ~live
+                                if not torch.isneginf(got[0][dead]).all() or \
+                                        not (got[1][dead] == -1).all():
+                                    fail(f"{label}: the out-of-range pair "
+                                         "gave rows")
+                            err = check_topk(
+                                label, (ref[0][live], ref[1][live]),
+                                (got[0][live], got[1][live]), rescore)
+                            if case != "skewed":
+                                if not torch.isneginf(got[0][0]).all():
+                                    fail(f"{label}: the all-invalid bucket "
+                                         "gave rows")
+                                if int(torch.isfinite(got[0][1]).sum()) != \
+                                        min(k, 5):
+                                    fail(f"{label}: k past the valid count")
+                            key = f"ivf_bucket_partial[{dtype}]"
+                            errs[key] = max(errs.get(key, 0.0), err)
+                            bodies.setdefault(f"d{d}_{dtype}", set()).add(
+                                ran[0])
+                            n_cases += 1
             del x, valid, table
     emit({"phase": "ivf_kernels", "cases": n_cases, "nlist": nlist,
-          "tol": ATOL,
+          "tol": ATOL, "bodies": {k: sorted(v) for k, v in bodies.items()},
           "max_abs_err": {k: v for k, v in errs.items()
-                          if k.startswith("ivf_bucket")}})
+                          if k.startswith("ivf_")}})
     torch.cuda.empty_cache()
 
 
@@ -1691,10 +1776,15 @@ def _bound_k5(index, probes, b, k, dtype="bfloat16"):
 
 
 def time_k5(index, queries, nprobe, k=10, table=None, dtype="bfloat16"):
-    """K5 at the index's own pairs for ``queries``: stage 1, stage 2, the
-    whole call, the plain version and the library yardstick (gather the
-    pairs' buckets, torch.bmm, torch.topk) with CUDA events, beside the
-    bound. ``table`` replaces the index's bucket rows (same layout)."""
+    """K5 at the index's own pairs for ``queries``: stage 1 (the shape
+    rule's body, and the per-pair body as ``old_ms``; both also in a CUDA
+    graph), the grouping (eagerly and in a CUDA graph), stage 2, the
+    whole call, stage 1 with every row masked (set-up only, in a graph),
+    a contiguous torch read of the unique buckets' bytes, the plain
+    version and the library yardstick (gather the pairs' buckets,
+    torch.bmm, torch.topk) with CUDA events, beside the bound and the
+    bytes of the unique probed buckets' valid rows. ``table`` replaces
+    the index's bucket rows (same layout)."""
     import torch
 
     from wdbx_tpu_torch.index.ivf import _probes
@@ -1710,9 +1800,23 @@ def time_k5(index, queries, nprobe, k=10, table=None, dtype="bfloat16"):
     probes = probe.reshape(-1)
     qidx = torch.arange(b, device="cuda").repeat_interleave(probe.shape[1])
     qq = qn.to(table.dtype)
+    body = ivs.pick_body(dtype, index.dim, table.data_ptr())
     part = lambda: ivs.ivf_bucket_partial(  # noqa: E731
         table, valid, probes, qidx, qq, k)
-    ms = cuda_ms(part)
+    old = lambda: ivs.ivf_bucket_partial(  # noqa: E731
+        table, valid, probes, qidx, qq, k, body="pair")
+    ms, old_ms = cuda_ms(part), cuda_ms(old)
+    # device times without the host's launch cost (small B is host-bound)
+    part_graph_ms, old_graph_ms = graph_ms(part), graph_ms(old)
+    g = ivs.group_size(index.dim, k)
+    p32, q32 = probes.to(torch.int32), qidx.to(torch.int32)
+    group = lambda: ivs.group_pairs(  # noqa: E731
+        p32, q32, valid.shape[0], b, g)
+    group_ms = cuda_ms(group)
+    group_graph_ms = graph_ms(group)
+    group_plain_ms = cuda_ms(lambda: ivs.group_pairs_plain(
+        probes, qidx, valid.shape[0], b, g), reps=3, warm=1)
+    n_items = int(group()[2][0])
     pv, pi = part()
     merge_ms = cuda_ms(lambda: tf.topk_merge_partials(pv, pi, k))
     call_ms = cuda_ms(lambda: ivs.ivf_bucket_scan(table, valid, probes, qidx,
@@ -1727,12 +1831,34 @@ def time_k5(index, queries, nprobe, k=10, table=None, dtype="bfloat16"):
 
     library_ms = cuda_ms(library, reps=3, warm=1)
     bound, by, uniq, pair_bytes = _bound_k5(index, probes, b, k, dtype)
-    return {"ms": ms, "merge_ms": merge_ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": by, "pairs": int(probes.numel()),
-            "unique_buckets": uniq,
+    es = 2 if dtype == "bfloat16" else 4
+    uniq_bytes = int(valid.sum(dim=1)[torch.unique(probes)].sum()) * \
+        index.dim * es
+    # what holds stage 1 back: with every row masked it reads no row and
+    # keeps only the units' set-up, claims and writes; a contiguous read
+    # of as many bytes as the unique buckets' valid rows is the rate the
+    # card streams at
+    none = torch.zeros_like(valid)
+    setup_only_ms = graph_ms(lambda: ivs.ivf_bucket_partial(
+        table, none, probes, qidx, qq, k))
+    flat = table.reshape(-1)[: uniq_bytes // es]
+    stream_ms = cuda_ms(lambda: flat.sum(dtype=torch.float32))
+    # the grouping reads the pair ids and writes the order and the items
+    group_bytes = probes.numel() * 12 + n_items * 12 + 8
+    return {"ms": ms, "body": body, "old_ms": old_ms,
+            "graph_ms": part_graph_ms, "old_graph_ms": old_graph_ms,
+            "merge_ms": merge_ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "b": b, "pairs": int(probes.numel()), "unique_buckets": uniq,
+            "items": n_items, "group_size": g,
+            "unique_bucket_bytes": uniq_bytes,
+            "setup_only_ms": setup_only_ms, "stream_ms": stream_ms,
             "pair_bytes_bound_ms": pair_bytes / HBM_BYTES_S * 1e3,
-            "parts_per_pair": int(pv.shape[1])}
+            "parts": int(pv.shape[1]),
+            "group": {"ms": group_ms, "graph_ms": group_graph_ms,
+                      "plain_ms": group_plain_ms,
+                      "bound_ms": group_bytes / HBM_BYTES_S * 1e3}}
 
 
 def _slot_sets_recall(slots, truth) -> float:
@@ -1807,6 +1933,9 @@ def phase_dense_ivf(seed, paths, timings, errs, tmp):
         if paths[label]["ivf_bucket_partial[bfloat16]"] < 1 or \
                 paths[label]["topk_merge_partials"] < 1:
             fail(f"{label} did not run K5: {paths[label]}")
+        if paths[label]["ivf_bucket_partial.bodies.grouped"] < 1 or \
+                paths[label]["ivf_group_pairs"] < 1:
+            fail(f"{label} did not run the grouped body: {paths[label]}")
         with plain_k5():
             ref = index.search(queries, k, slot_mask=mask)
         index.ivf_kernel = "lax"
@@ -1838,11 +1967,12 @@ def phase_dense_ivf(seed, paths, timings, errs, tmp):
         if r < DENSE_BAR:
             fail(f"dense_ivf {kernel} recall@10 {r} < {DENSE_BAR}")
 
-    for nprobe in sorted({tuned, 8}):
-        tm = time_k5(index, held_np[:64], nprobe)
-        emit({"phase": "dense_ivf", "timing": f"k5[b64,nprobe{nprobe}]",
+    for nprobe, b in sorted({(tuned, 1), (tuned, 64), (tuned, 128),
+                             (8, 64)}):
+        tm = time_k5(index, held_np[:b], nprobe)
+        emit({"phase": "dense_ivf", "timing": f"k5[b{b},nprobe{nprobe}]",
               **tm})
-        if nprobe == tuned:
+        if (nprobe, b) == (tuned, 64):
             timings["ivf_bucket_partial[bfloat16]"] = dict(tm, nprobe=nprobe)
     f32 = index._bucket_rows.to(torch.float32)
     timings["ivf_bucket_partial[float32]"] = dict(
@@ -1972,8 +2102,9 @@ def phase_dense_ivf(seed, paths, timings, errs, tmp):
     hits = db.vector_search_batch(held_np, limit=k)
     one = db.vector_search(held_np[0].tolist(), limit=k)
     paths[label] = _counts()
-    if paths[label]["ivf_bucket_partial[bfloat16]"] < 2:
-        fail(f"{label} did not run K5: {paths[label]}")
+    if paths[label]["ivf_bucket_partial[bfloat16]"] < 2 or \
+            paths[label]["ivf_bucket_partial.bodies.grouped"] < 2:
+        fail(f"{label} did not run K5's grouped body: {paths[label]}")
     for row in hits + [one]:
         ids = [h[0] for h in row]
         if len(ids) != k or len(set(ids)) != k:
@@ -2093,6 +2224,14 @@ def main() -> None:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **_extras(t),
         })
+    gt = timings["ivf_bucket_partial[bfloat16]"]["group"]
+    kernels.append({
+        "name": "ivf_group_pairs", "route": "cuda", "source": IVF_SOURCE,
+        "replaces": IVF_GROUP_REPLACES, "launches": total["ivf_group_pairs"],
+        "max_abs_err": errs["ivf_group_pairs"], "ms": gt["ms"],
+        "plain_ms": gt["plain_ms"], "bound_ms": gt["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "graph_ms": gt["graph_ms"],
+    })
     for dtype in ("bfloat16", "float32"):
         name = f"ivf_bucket_partial[{dtype}]"
         t = timings[name]
@@ -2102,6 +2241,10 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{key: t[key] for key in ("body", "old_ms", "graph_ms",
+                                       "old_graph_ms", "merge_ms",
+                                       "call_ms", "parts")},
+            "group_ms": t["group"]["ms"],
         })
     # the dense index always builds bf16 tables: only the function
     # itself (ivf_kernels, and its timing on a float32 copy) reaches the

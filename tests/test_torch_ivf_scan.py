@@ -103,11 +103,156 @@ def test_rejects_deep_k_and_int8_tables(rng):
 
 
 @pytest.mark.parametrize("s,c", [(1, 1408), (8, 1408), (512, 1408),
-                                 (4096, 128), (3, 100)])
+                                 (4096, 128), (3, 100), (9, 1408),
+                                 (576, 1408), (1152, 1408), (200000, 4096)])
 def test_plan_covers_each_bucket_in_whole_warp_groups(s, c):
-    """The stage-1 grid covers every row once, in 32-row groups, and
-    holds about four CTAs per SM of a 132-SM card when the pairs are
-    few."""
+    """Both stage-1 plans cover every row once, in 32-row groups. The
+    per-pair grid holds about four CTAs per SM of a 132-SM card when the
+    pairs are few; the grouped body's parts hold at most 64 groups and
+    give about UNITS_PER_WARP units per resident warp (1,584 here) while
+    the bucket has groups to spare."""
     splits, rows = tk.plan(s, c, 132)
     assert rows % 32 == 0 and splits * rows >= c > (splits - 1) * rows
     assert s * splits >= min(4 * 132, s * -(-c // 32))
+    warps = 1584
+    parts, rows = tk.plan_grouped(s, c, warps)
+    groups = -(-c // 32)
+    assert rows % 32 == 0 and rows <= 64 * 32
+    assert parts * rows >= c > (parts - 1) * rows
+    assert s * parts >= min(tk.UNITS_PER_WARP * warps, s * groups) // 2
+
+
+def _ids(rng, s, nlist, b):
+    probes = rng.integers(0, nlist, s).astype(np.int32)
+    qidx = rng.integers(0, b, s).astype(np.int32)
+    return torch.from_numpy(probes), torch.from_numpy(qidx)
+
+
+def _check_grouping(probes, qidx, nlist, b, g):
+    """The plain grouping's contract: every pair once, each item one
+    bucket (-1 for out-of-range ids) and 1..g pairs, a bucket's pairs in
+    ceil(n / g) items, items in bucket order, stable within a bucket."""
+    order, items, n = tk.group_pairs_plain(probes, qidx, nlist, b, g)
+    assert order.dtype == items.dtype == torch.int32
+    assert items.shape == (n, 3)
+    assert sorted(order.tolist()) == list(range(probes.shape[0]))
+    p, q = probes.long(), qidx.long()
+    ok = (p >= 0) & (p < nlist) & (q >= 0) & (q < b)
+    want = torch.where(ok, p, -1)
+    pos = 0
+    for bucket, start, count in items.tolist():
+        assert start == pos and 1 <= count <= g
+        pairs = order[start:start + count].long()
+        assert (want[pairs] == bucket).all()
+        assert (torch.diff(pairs) > 0).all()
+        pos += count
+    assert pos == probes.shape[0]
+    buckets = items[:, 0].tolist()
+    key = [nlist if x < 0 else x for x in buckets]
+    assert key == sorted(key)
+    for bucket in set(buckets):
+        n_pairs = int((want == bucket).sum())
+        assert buckets.count(bucket) == -(-n_pairs // g)
+    return order, items
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 8])
+@pytest.mark.parametrize("s,nlist", [(1, 16), (24, 16), (576, 1024),
+                                     (5000, 64)])
+def test_group_pairs_plain(rng, g, s, nlist):
+    probes, qidx = _ids(rng, s, nlist, 6)
+    _check_grouping(probes, qidx, nlist, 6, g)
+
+
+def test_group_pairs_splits_crowded_buckets_and_duplicates(rng):
+    """128 queries probing the same 8 buckets, and repeated (query,
+    probe) pairs: each bucket's 128 pairs split into items of g, each
+    duplicate kept as a pair of its own."""
+    probes = torch.arange(8, dtype=torch.int32).repeat(128)
+    qidx = torch.arange(128, dtype=torch.int32).repeat_interleave(8)
+    probes = torch.cat([probes, probes[:16]])
+    qidx = torch.cat([qidx, qidx[:16]])
+    _, items = _check_grouping(probes, qidx, 64, 128, 3)
+    assert items.shape[0] == 8 * -(-130 // 3)
+    assert items[:, 2].max() == 3
+
+
+def test_group_pairs_marks_out_of_range_ids(rng):
+    probes, qidx = _ids(rng, 40, 16, 6)
+    probes[3], probes[7], qidx[11] = 16, -2, 6
+    order, items = _check_grouping(probes, qidx, 16, 6, 2)
+    dead = [set(order[st:st + n].tolist())
+            for bk, st, n in items.tolist() if bk < 0]
+    assert set().union(*dead) == {3, 7, 11}
+    assert items[-1, 0] == -1  # the out-of-range bin comes last
+
+
+@pytest.mark.parametrize("key,d,offset,want", [
+    ("bfloat16", 384, 0, "grouped"), ("float32", 384, 0, "grouped"),
+    ("bfloat16", 768, 0, "grouped"), ("float32", 100, 0, "grouped"),
+    ("bfloat16", 100, 0, "pair"), ("float32", 98, 0, "pair"),
+    ("bfloat16", 384, 2, "pair"), ("float32", 384, 8, "pair"),
+    ("bfloat16", 16384, 0, "pair"),
+])
+def test_pick_body_by_shape(key, d, offset, want):
+    """Whole 16-byte rows of an aligned table whose query and buffer fit
+    take the grouped body; ragged widths, unaligned views and very wide
+    rows take the per-pair body."""
+    assert tk.pick_body(key, d, 4096 + offset) == want
+
+
+@pytest.mark.parametrize("d", [8, 100, 384, 768, 1536, 4096])
+@pytest.mark.parametrize("k", [1, 10, 50, 128])
+def test_group_size_fits_the_warp_budget(d, k):
+    g = tk.group_size(d, k)
+    assert 1 <= g <= 8
+    assert g == 1 or tk._warp_bytes(d, k, g) <= tk._WARP_BUDGET
+    assert g == 8 or tk._warp_bytes(d, k, g + 1) > tk._WARP_BUDGET
+    assert 4 * tk._warp_bytes(d, k, 1) <= tk._SMEM_MAX or \
+        tk.pick_body("float32", d, 0) == "pair"
+
+
+def _grouped_layout(rows, valid, probes, qidx, q, k, g, parts, prow):
+    """The grouped body's partials on the CPU: per item and part, each of
+    its pairs' k best rows of the part, at the pair's own index of the
+    (S, parts, k) layout; out-of-range items write -inf / -1."""
+    nlist, c, _ = rows.shape
+    order, items, _ = tk.group_pairs_plain(probes, qidx, nlist, q.shape[0], g)
+    pv = torch.full((probes.shape[0], parts, k), float("-inf"))
+    pi = torch.full((probes.shape[0], parts, k), -1, dtype=torch.int32)
+    qf = q.to(rows.dtype).float()
+    for bucket, start, count in items.tolist():
+        if bucket < 0:
+            continue
+        pairs = order[start:start + count].long()
+        sc = qf[qidx[pairs].long()] @ rows[bucket].float().T
+        sc = torch.where(valid[bucket], sc, float("-inf"))
+        for part in range(parts):
+            lo, hi = part * prow, min(c, (part + 1) * prow)
+            v, i = torch.topk(sc[:, lo:hi], min(k, hi - lo), dim=1)
+            pv[pairs, part, :v.shape[1]] = v
+            pi[pairs, part, :v.shape[1]] = torch.where(
+                torch.isneginf(v), -1, i + lo).to(torch.int32)
+    return pv, pi
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,g", [(1, 1), (10, 2), (128, 3)])
+def test_grouped_layout_merges_to_the_plain_scan(rng, dtype, k, g):
+    """The grouping, the grouped plan and the partial layout, merged by
+    the merge's plain version, give the plain scan's result: the same
+    scores, and the same positions up to ties."""
+    from wdbx_tpu_torch.kernels.fused_topk import merge_partials_plain
+
+    _, tt, valid, q, probes, qidx = _case(rng, dtype)
+    valid_t = torch.from_numpy(valid)
+    args = (torch.from_numpy(probes), torch.from_numpy(qidx),
+            torch.from_numpy(q))
+    parts, prow = tk.plan_grouped(len(probes), C, 64)
+    pv, pi = _grouped_layout(tt, valid_t, *args, k, g, parts, prow)
+    got_v, got_i = merge_partials_plain(pv, pi, k)
+    want_v, want_i = tk.ivf_bucket_scan(tt, valid_t, *args, k=k)
+    torch.testing.assert_close(got_v, want_v, rtol=0, atol=TOL[dtype])
+    assert torch.equal(got_i == -1, want_i == -1)
+
+

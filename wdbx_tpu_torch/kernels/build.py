@@ -56,6 +56,13 @@ SIGNATURES = {
                  _P, _P, _P],
         ),
         "wdbx_ivf_bucket_partial_warps": (_I, []),
+        "wdbx_ivf_group_pairs": (
+            _I, [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+        "wdbx_ivf_grouped_warps": (_I, [_I, _I, _I, _I]),
+        "wdbx_ivf_grouped_scan": (
+            _I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _P, _P, _P, _P],
+        ),
     },
 }
 
