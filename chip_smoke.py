@@ -105,6 +105,33 @@ Phases (each prints JSON lines; any failure exits non-zero):
              grouped body); K5 stage 1 (also the per-pair body as
              old_ms), grouping, stage 2 and call times beside the bound
              and the unique probed buckets' bytes at B 1 / 64 / 128
+  server     benchmarks/RESULTS.md:730-743's point over HTTP: WDBX with
+             INDEX_DTYPE=bfloat16 and its other arguments at their
+             defaults (the card, plugins, batching at 128 / 3 ms)
+             bulk-loads the flat phases' 1,048,576 x 384 rows;
+             WDBXAPIServer in a thread on 127.0.0.1 answers 320
+             concurrent searches (k=10) from 16 client threads, a batch
+             search of 32, posted vectors and the searches that find
+             them, an embedding from the demo local embedder stored and
+             found, /stats, /metrics (coalescing), /plugins and
+             /visualize?format=json (the PCA on the card), then /save;
+             every answer against the facade's direct vector_search
+             (scores within 1e-5, ids equal off ties), recall@10 gated at
+             0.9938, K1 bf16 (pipelined body) and the merge must serve
+             it; requests/s, latency percentiles, flushes and the device
+             ms against the wall ms of a flush (CUDA events)
+  cli        python -m wdbx_tpu_torch.cli (by runpy) in a subprocess on
+             the card, --data-dir at the saved server store: stats,
+             plugins and search --vector through its interactive mode,
+             the hits against the server's answer; save and load seconds
+  batcher_clustered
+             benchmarks/store_serving.py's point: 256 client coroutines
+             through QueryBatcher(max_batch=128) for 10 s into a 262,144
+             x 384 ivf_clustered int8 store (nlist 256, nprobe 1, a
+             1024-component mixture, no raw copies); every flush's
+             answers against the store's direct search_batch of the same
+             queries, K3 must serve it; QPS, latency percentiles, flushes
+             by route (kernel / ranges)
 Then a "paths" line (launches of each driven path, by kernel and by
 stage-1 scan body), a "kernels" line (launches on the driven paths,
 times, bounds; each stage-1 row also its body, score-only, merge time
@@ -115,9 +142,10 @@ as old_ms, merge, grouping and call times; the grouping kernel its own
 row) and, last, {"ok": true, "device": {...}}.
 
 Launch counts: every path (main, the default facade, each pipelined
-slab, the int8 facade, each clustered path) runs with the kernels'
-counters set to 0 just before it and read just after; comparison and
-timing launches are never counted.
+slab, the int8 facade, each clustered path, the server, the cli's
+process, the batcher) runs with the kernels' counters set to 0 just
+before it and read just after; comparison and timing launches are never
+counted.
 """
 
 from __future__ import annotations
@@ -176,6 +204,12 @@ IVF_GROUP_REPLACES = "wdbx_tpu/kernels/ivf_scan.py:127"
 # corpus (benchmarks/RESULTS.md:692-728), on each scan path
 DENSE_BAR = 0.95
 DENSE_TUNE = 0.97  # the tuner's target for the dense index's nprobe
+# an HTTP or batched answer against the facade's / store's direct call:
+# the two may take other stage-1 bodies, whose float sums run in other
+# orders
+MATCH_TOL = 1e-5
+BATCHER_SECONDS = 10.0  # benchmarks/store_serving.py's DURATION
+BATCHER_ROWS = 262_144  # benchmarks/store_serving.py's STORE_N
 
 
 def emit(obj) -> None:
@@ -2136,6 +2170,581 @@ def phase_dense_ivf(seed, paths, timings, errs, tmp):
     torch.cuda.empty_cache()
 
 
+# -- the serving surfaces: REST server, QueryBatcher, CLI --------------------
+
+
+def _same_hits(name, ref, got, tol=MATCH_TOL) -> float:
+    """Two hit lists of (id, score) agree: the same length, scores within
+    ``tol``, the same ids except where two candidates' scores lie within
+    ``tol`` of the k-th place (two stage-1 bodies sum in other orders).
+    Returns the largest score difference."""
+    if len(ref) != len(got):
+        fail(f"{name}: {len(got)} hits against {len(ref)}")
+    if not ref:
+        return 0.0
+    err = max(abs(float(r[1]) - float(g[1])) for r, g in zip(ref, got))
+    if err > tol:
+        fail(f"{name}: scores differ by {err} > {tol}")
+    rs = {r[0]: float(r[1]) for r in ref}
+    gs = {g[0]: float(g[1]) for g in got}
+    kth = min(rs.values())
+    for vid in set(rs) ^ set(gs):
+        score = rs.get(vid, gs.get(vid))
+        if abs(score - kth) > tol:
+            fail(f"{name}: id {vid} differs off a tie")
+    return err
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _session():
+    import aiohttp
+
+    return aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=300))
+
+
+async def _request(session, method, url, body=None):
+    """One request on ``session``: (status, body bytes, seconds)."""
+    t0 = time.perf_counter()
+    async with session.request(method, url, json=body) as resp:
+        raw = await resp.read()
+    return resp.status, raw, time.perf_counter() - t0
+
+
+def _http(method, url, body=None):
+    """One request from this thread: (status, body bytes)."""
+    import asyncio
+
+    async def run():
+        async with _session() as session:
+            return await _request(session, method, url, body)
+
+    status, raw, _ = asyncio.run(run())
+    return status, raw
+
+
+def _http_json(method, url, body=None):
+    status, raw = _http(method, url, body)
+    if status != 200:
+        fail(f"{method} {url}: status {status}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _http_load(url, bodies, threads):
+    """POST every body to ``url`` at once: ``threads`` client threads,
+    each with one session sending its share concurrently. Returns
+    ``[(status, json, seconds)]`` in body order and the wall seconds of
+    the whole load."""
+    import asyncio
+    import threading
+
+    out = [None] * len(bodies)
+
+    def worker(share):
+        async def run():
+            async with _session() as session:
+                return await asyncio.gather(
+                    *(_request(session, "POST", url, bodies[i])
+                      for i in share))
+
+        for i, (status, raw, sec) in zip(share, asyncio.run(run())):
+            out[i] = (status, json.loads(raw), sec)
+
+    workers = [threading.Thread(target=worker,
+                                args=(range(t, len(bodies), threads),))
+               for t in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(w.is_alive() for w in workers) or any(o is None for o in out):
+        fail(f"POST {url}: the client threads did not finish")
+    return out, wall
+
+
+def _ms_stats(seconds) -> dict:
+    import numpy as np
+
+    ms = np.sort(np.asarray(seconds, np.float64)) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p95_ms": float(np.percentile(ms, 95)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _timed_flushes(store):
+    """Wrap the store's submit / resolve, as the QueryBatcher calls them
+    from its worker threads: each flush records its queries, its answers
+    and the wall ms from submit to the end of resolve. Returns the record
+    list and a function that removes the wrappers."""
+    sub, res = store.search_batch_submit, store.search_batch_resolve
+    flushes = []
+
+    def submit(queries, *args, **kw):
+        t0 = time.perf_counter()
+        return sub(queries, *args, **kw), t0, queries.copy()
+
+    def resolve(handle):
+        inner, t0, queries = handle
+        out = res(inner)
+        flushes.append({"b": len(queries), "queries": queries, "hits": out,
+                        "wall_ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    store.search_batch_submit, store.search_batch_resolve = submit, resolve
+
+    def remove():
+        del store.search_batch_submit, store.search_batch_resolve
+
+    return flushes, remove
+
+
+class DeviceBusy:
+    """Kernel time on the card over a window, from a torch.profiler
+    trace of CUDA activity only (CUPTI, process-wide: the kernels the
+    batcher's worker threads launch count too). ``busy_ms`` is the sum
+    of the kernels' device time (None where the trace shows none)."""
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.wall_ms = (time.perf_counter() - self._t0) * 1e3
+        self._prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        us = 0.0
+        for event in self._prof.key_averages():
+            us += getattr(event, "self_device_time_total",
+                          getattr(event, "self_cuda_time_total", 0.0))
+        self.busy_ms = us / 1e3 if us > 0 else None
+        return False
+
+    def stats(self, flushes: int) -> dict:
+        if self.busy_ms is None:
+            return {"device_busy_ms": "not measured (no CUDA activity "
+                    "in the trace)", "window_ms": self.wall_ms}
+        return {"device_busy_ms": self.busy_ms, "window_ms": self.wall_ms,
+                "device_busy_share": self.busy_ms / self.wall_ms,
+                "device_busy_ms_per_flush": self.busy_ms / max(1, flushes)}
+
+
+def _flush_stats(flushes) -> dict:
+    import numpy as np
+
+    return {"flushes": len(flushes),
+            "avg_batch": float(np.mean([f["b"] for f in flushes])),
+            "wall_ms_per_flush": float(np.mean([f["wall_ms"]
+                                                for f in flushes]))}
+
+
+def _add_counts(a, b):
+    return {name: a.get(name, 0) + b.get(name, 0) for name in {*a, *b}}
+
+
+def phase_server(x, qs, truth, paths, tmp, errs):
+    """The REST path at benchmarks/RESULTS.md:730-743's point: a
+    WDBX(INDEX_DTYPE=bfloat16) with its other arguments at their
+    defaults (the card, plugins, batching) bulk-loads the 1,048,576 x 384
+    rows, WDBXAPIServer serves it from a thread on 127.0.0.1, and every
+    request goes over HTTP. Each flush of the load and the batch route
+    are held against the kernels' plain version (K1 bf16's error).
+    Returns what the cli phase checks against."""
+    import asyncio
+
+    import aiohttp
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch import WDBX
+    from wdbx_tpu_torch.api.server import WDBXAPIServer
+    from wdbx_tpu_torch.index.flat import FlatIndex
+
+    n_rows, d = x.shape
+    data_dir = os.path.join(tmp, "server")
+    # room for the posted rows past the bulk load (no copy-grow); the
+    # demo embedder is the provider (no model files, no network)
+    cfg = {"INDEX_DTYPE": "bfloat16", "INDEX_CAPACITY": n_rows + 1024,
+           "SENTENCETRANSFORMERS_DEMO": True}
+    db = WDBX(data_dir=data_dir, config=cfg)
+    index = db.store.indices[0]
+    if not isinstance(index, FlatIndex) or index.device.type != "cuda" or \
+            index.dtype_name != "bfloat16":
+        fail(f"server: WDBX gave {type(index).__name__} on {index.device}")
+    if "sentencetransformers" not in db.plugins or \
+            not db.plugins["sentencetransformers"]._demo():
+        fail(f"server: the demo embedder did not load: {sorted(db.plugins)}")
+    t0 = time.perf_counter()
+    db.store.bulk_load([str(i) for i in range(n_rows)], x)
+    load_s = time.perf_counter() - t0
+
+    port = _free_port()
+    server = WDBXAPIServer(db, host="127.0.0.1", port=port)
+    if server.batcher is None or server.batcher.max_batch != 128 or \
+            server.batcher.max_wait_ms != 3.0:
+        fail("server: batching is not on at its defaults")
+    server.start_in_thread()
+    base = f"http://127.0.0.1:{port}/api/v1"
+    for _ in range(600):
+        try:
+            if _http("GET", base + "/health")[0] == 200:
+                break
+        except aiohttp.ClientConnectionError:
+            pass  # not listening yet
+        time.sleep(0.05)
+    else:
+        fail("server: /health did not answer")
+    loop = server._thread_loop
+    asyncio.run_coroutine_threadsafe(db.initialize(), loop).result(120)
+    widths = asyncio.run_coroutine_threadsafe(
+        server.warmup(), loop).result(300)
+
+    q_all = qs.reshape(-1, d)
+    n_req, n_batch = 320, 32
+    single = list(range(n_req))
+    batch = list(range(3 * qs.shape[1], 3 * qs.shape[1] + n_batch))
+    flushes, unwrap = _timed_flushes(db.store)
+    _reset()
+    bodies = [{"query_vector": q_all[i].tolist(), "limit": 10}
+              for i in single]
+    with DeviceBusy() as busy:
+        answers, wall = _http_load(base + "/vectors/search", bodies, 16)
+    t0 = time.perf_counter()
+    batch_body = _http_json("POST", base + "/vectors/search/batch", {
+        "query_vectors": q_all[batch].tolist(), "limit": 10})
+    batch_s = time.perf_counter() - t0
+    counts = _counts()
+    load_flushes = list(flushes)
+    if any(status != 200 for status, _, _ in answers):
+        fail(f"server: statuses {sorted({a[0] for a in answers})}")
+
+    # each HTTP answer against the facade's direct call for its query
+    hits = [[(h["vector_id"], h["similarity"]) for h in a[1]["results"]]
+            for a in answers]
+    hits += [[(h["vector_id"], h["similarity"]) for h in row]
+             for row in batch_body["results"]]
+    err = 0.0
+    for i, got in zip(single + batch, hits):
+        ref = db.vector_search(q_all[i].tolist(), limit=10)
+        err = max(err, _same_hits(f"server/query {i}", ref, got))
+    rec = _recall(hits, truth[single + batch])
+    # each flush and the batch route against the plain version
+    plain_err = check_facade("server/batch route", db, q_all[batch], [
+        [(h["vector_id"], h["similarity"], None) for h in row]
+        for row in batch_body["results"]])
+    for j, f in enumerate(load_flushes):
+        plain_err = max(plain_err, check_facade(
+            f"server/flush {j}", db, f["queries"], f["hits"]))
+    key = "fused_topk_partial[bfloat16]"
+    errs[key] = max(errs[key], plain_err)
+
+    # writes, embeddings, ops routes (their launches count too)
+    _reset()
+    rng = np.random.default_rng(4242)
+    posted = rng.standard_normal((4, d)).astype(np.float32)
+    posted /= np.linalg.norm(posted, axis=1, keepdims=True)
+    for j, v in enumerate(posted):
+        _http_json("POST", base + "/vectors", {
+            "vector": v.tolist(), "id": f"posted-{j}",
+            "metadata": {"source": "chip_smoke", "j": j}})
+    for j, v in enumerate(posted):
+        top = _http_json("POST", base + "/vectors/search", {
+            "query_vector": v.tolist(), "limit": 3})["results"][0]
+        if top["vector_id"] != f"posted-{j}" or top["similarity"] < 0.99 \
+                or top["metadata"] != {"source": "chip_smoke", "j": j}:
+            fail(f"server: posted-{j} was not found: {top}")
+    text = "a vector database on the card"
+    emb = _http_json("POST", base + "/embeddings", {"text": text})
+    emb = emb["embedding"]
+    if len(emb) != d or abs(np.linalg.norm(emb) - 1.0) > 1e-5:
+        fail("server: /embeddings gave no unit vector of the store's width")
+    _http_json("POST", base + "/vectors",
+               {"vector": emb, "id": "embedded-0", "metadata": {"text": text}})
+    top = _http_json("POST", base + "/vectors/search",
+                     {"query_vector": emb, "limit": 1})["results"]
+    if [h["vector_id"] for h in top] != ["embedded-0"]:
+        fail(f"server: the embedded text was not found: {top}")
+    stats = _http_json("GET", base + "/stats")
+    if stats["vector_count"] != n_rows + 5:
+        fail(f"server: /stats counts {stats['vector_count']}")
+    status, raw = _http("GET", base + "/metrics")
+    metrics = dict(line.rsplit(" ", 1) for line in raw.decode().splitlines()
+                   if line.startswith("wdbx_batcher_"))
+    coalesced = float(metrics["wdbx_batcher_batched_queries"]) / \
+        float(metrics["wdbx_batcher_batches"])
+    if status != 200 or coalesced <= 1:
+        fail(f"server: /metrics shows no coalescing ({metrics})")
+    plugins = {p["name"] for p in
+               _http_json("GET", base + "/plugins")["plugins"]}
+    if "sentencetransformers" not in plugins:
+        fail(f"server: /plugins lists {sorted(plugins)}")
+    t0 = time.perf_counter()
+    spec = _http_json("GET", base + "/visualize?format=json")
+    viz_s = time.perf_counter() - t0
+    pts = np.asarray(spec["points"])
+    if pts.shape != (500, 2) or not np.isfinite(pts).all():
+        fail(f"server: /visualize gave points of shape {pts.shape}")
+    # the query the cli phase asks, answered over HTTP on the saved store
+    cli_ref = _http_json("POST", base + "/vectors/search", {
+        "query_vector": q_all[0].tolist(), "limit": 10})["results"]
+    t0 = time.perf_counter()
+    if not _http_json("POST", base + "/save")["saved"]:
+        fail("server: /save did not save")
+    save_s = time.perf_counter() - t0
+    paths["server"] = _add_counts(counts, _counts())
+    unwrap()
+    server.stop_thread()
+    server._thread.join(timeout=30)
+    if paths["server"]["fused_topk_partial[bfloat16]"] < 1 or \
+            paths["server"]["fused_topk_partial.bodies.mma_pipe"] < 1 or \
+            paths["server"]["topk_merge_partials"] < 1:
+        fail(f"server: K1 bf16 (mma_pipe) and the merge did not run: "
+             f"{_nonzero(paths['server'])}")
+    emit({"phase": "server", "n": n_rows, "dtype": "bfloat16",
+          "bulk_load_s": load_s, "warmed_widths": widths,
+          "requests": n_req, "client_threads": 16,
+          "requests_per_s": n_req / wall, "load_wall_s": wall,
+          **_ms_stats([a[2] for a in answers]),
+          "batch_route_s": batch_s, "batch_route_queries": n_batch,
+          **_flush_stats(load_flushes), **busy.stats(len(load_flushes)),
+          "flush_sizes": sorted(f["b"] for f in load_flushes),
+          "phase_flushes": len(flushes),
+          "batcher_batched_per_batch": coalesced,
+          "max_abs_err_vs_direct": err, "tol": MATCH_TOL,
+          "max_abs_err_vs_plain": plain_err, "plain_tol": ATOL,
+          "recall_at_10": rec, "recall_bar": RECALL_BAR,
+          "visualize_s": viz_s, "save_s": save_s, "card_stats": {
+              key: stats[key] for key in ("vector_count", "plugins")},
+          "launches": _nonzero(paths["server"])})
+    if rec < RECALL_BAR:
+        fail(f"server: recall@10 {rec} < {RECALL_BAR}")
+    del db, index, server
+    torch.cuda.empty_cache()
+    return {"data_dir": data_dir, "config": cfg, "query": q_all[0],
+            "answer": [(h["vector_id"], h["similarity"]) for h in cli_ref],
+            "count": n_rows + 5, "save_s": save_s}
+
+
+# the cli phase's process: ``python -m wdbx_tpu_torch.cli`` by runpy (what
+# -m does), with the facade's construction timed and the kernels' launch
+# counters printed to stderr at exit
+_CLI_RUNNER = r"""
+import json, runpy, sys, time
+sys.path.insert(0, sys.argv.pop(1))
+from wdbx_tpu_torch.core import wdbx as facade
+init = facade.WDBX.__init__
+timed = {}
+def timed_init(self, *args, **kw):
+    t0 = time.perf_counter()
+    init(self, *args, **kw)
+    timed["load_s"] = time.perf_counter() - t0
+facade.WDBX.__init__ = timed_init
+code = 0
+try:
+    runpy.run_module("wdbx_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+import chip_smoke
+print("CLI_RUN " + json.dumps({**timed, "launches": chip_smoke._counts()}),
+      file=sys.stderr, flush=True)
+sys.exit(code)
+"""
+
+
+def phase_cli(served, paths):
+    """``python -m wdbx_tpu_torch.cli`` in a subprocess on the card,
+    ``--data-dir`` at the server phase's saved store: ``stats``,
+    ``plugins`` and ``search --vector`` through its interactive mode, the
+    hits held against the server's answer for that query."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    for key, value in served["config"].items():
+        env[f"WDBX_{key}"] = json.dumps(value)
+    vec = json.dumps(served["query"].tolist(), separators=(",", ":"))
+    commands = f"stats\nplugins\nsearch --vector '{vec}' --limit 10\nexit\n"
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", _CLI_RUNNER, here, "--data-dir",
+         served["data_dir"]],
+        input=commands, capture_output=True, text=True, timeout=600,
+        cwd=here, env=env,
+    )
+    wall = time.perf_counter() - t0
+    tail = [line for line in run.stderr.splitlines()
+            if line.startswith("CLI_RUN ")]
+    if run.returncode != 0 or not tail:
+        fail(f"cli: exit {run.returncode}: {run.stderr[-2000:]}")
+    info = json.loads(tail[-1][len("CLI_RUN "):])
+    parts = run.stdout.split("wdbx> ")
+    if len(parts) != 5:
+        fail(f"cli: unexpected output: {run.stdout[-2000:]}")
+    stats, plugins, search = parts[1], parts[2], parts[3]
+    stats = json.loads(stats)
+    if stats["vector_count"] != served["count"] or \
+            stats["indices"][0]["device"] != "cuda":
+        fail(f"cli: stats {stats['vector_count']} on "
+             f"{stats['indices'][0]['device']}")
+    if "sentencetransformers" not in plugins:
+        fail(f"cli: plugins printed {plugins!r}")
+    hits = []
+    for line in search.strip().splitlines():
+        vid, score, _ = line.split("  ", 2)
+        hits.append((vid, float(score.split("=")[1])))
+    # the cli prints 4 decimals
+    err = _same_hits("cli/search", served["answer"], hits,
+                     tol=5e-5 + MATCH_TOL)
+    paths["cli"] = info["launches"]
+    if paths["cli"]["fused_topk_partial[bfloat16]"] < 1 or \
+            paths["cli"]["topk_merge_partials"] < 1:
+        fail(f"cli: K1 bf16 and the merge did not run: "
+             f"{_nonzero(paths['cli'])}")
+    emit({"phase": "cli", "commands": ["stats", "plugins", "search"],
+          "save_s": served["save_s"], "load_s": info.get("load_s"),
+          "process_wall_s": wall, "count": stats["vector_count"],
+          "max_abs_err_vs_server": err, "tol": 5e-5 + MATCH_TOL,
+          "launches": _nonzero(paths["cli"])})
+
+
+def phase_batcher_clustered(seed, paths, errs):
+    """benchmarks/store_serving.py's point: 256 client coroutines send
+    single queries through QueryBatcher(max_batch=128) into a 262,144 x
+    384 ivf_clustered int8 store (nlist 256, nprobe 1, no raw copies) for
+    BATCHER_SECONDS; every flush's answers against the store's direct
+    search_batch of the same queries and, where the flush took the kernel
+    route, against K3's plain version on the same block list (K3 int8 /
+    bf16's error)."""
+    import asyncio
+
+    import torch
+
+    from wdbx_tpu_torch.api.batching import QueryBatcher
+    from wdbx_tpu_torch.core.config import WDBXConfig
+    from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex, _next_pow2
+    from wdbx_tpu_torch.store.vector_store import VectorStore
+
+    n, d, clients = BATCHER_ROWS, 384, 256
+    cfg = WDBXConfig({
+        "VECTOR_DIMENSION": d, "NUM_SHARDS": 1,
+        "INDEX_TYPE": "ivf_clustered", "INDEX_DTYPE": "int8",
+        "IVF_NLIST": min(4096, max(64, n // 1024)), "IVF_NPROBE": 1,
+        "IVF_TRAIN_THRESHOLD": 4096, "VECTOR_STORE_KEEP_RAW": False,
+        "VECTOR_STORE_AUTOSAVE_INTERVAL": 1 << 62,
+    })
+    with tempfile.TemporaryDirectory(prefix="wdbx_batcher_") as tmp:
+        store = VectorStore(cfg, data_dir=tmp)
+        index = store.indices[0]
+        if not isinstance(index, ClusteredIVFIndex):
+            fail(f"batcher_clustered: got {type(index).__name__}")
+        mix = _mixture(1024, d, seed + 23)
+        t0 = time.perf_counter()
+        store.bulk_load([f"v{i}" for i in range(n)],
+                        mix(3000, n).cpu().numpy())
+        index.build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        queries = mix(9999, 4096).cpu().numpy()
+        widths = store.warm(max_batch=128)
+        flushes, unwrap = _timed_flushes(store)
+        lat = []
+
+        async def run():
+            batcher = QueryBatcher(store, max_batch=128, max_wait_ms=2.0)
+            stop = time.perf_counter() + BATCHER_SECONDS
+
+            async def client(cid):
+                r = cid
+                while time.perf_counter() < stop:
+                    t1 = time.perf_counter()
+                    hits = await batcher.search(queries[r % len(queries)],
+                                                limit=10)
+                    lat.append(time.perf_counter() - t1)
+                    if len(hits) != 10:
+                        fail(f"batcher_clustered: {len(hits)} hits")
+                    r += clients
+
+            t1 = time.perf_counter()
+            await asyncio.gather(*(client(c) for c in range(clients)))
+            return time.perf_counter() - t1, batcher.get_stats()
+
+        _reset()
+        with DeviceBusy() as busy:
+            wall, bstats = asyncio.run(run())
+        paths["batcher_clustered"] = _counts()
+        unwrap()
+        key = clu_name(cs_key("v2", "int8", "bf16"))
+        # each kernel-route flush against the plain version on the same
+        # block list, hit ids mapped to slab positions
+        reg = store.registries[0]
+        pos_of = torch.as_tensor(index._pos_of, device="cuda").long()
+        routes = {"kernel": 0, "ranges": 0}
+        plain_err = 0.0
+        for j, f in enumerate(flushes):
+            pad_b = _next_pow2(f["b"])
+            if index._use_ranges(pad_b, 1):
+                routes["ranges"] += 1
+                continue
+            routes["kernel"] += 1
+            ref, rescore, _ = _block_plain(
+                index, torch.as_tensor(f["queries"], device="cuda"), 10,
+                pad_b, index._valid, 1)
+            got_v = torch.tensor([[h[1] for h in row] for row in f["hits"]],
+                                 device="cuda")
+            slots = torch.tensor([[reg.lookup(h[0]) for h in row]
+                                  for row in f["hits"]], device="cuda")
+            plain_err = max(plain_err, check_topk(
+                f"batcher_clustered/flush {j}", ref, (got_v, pos_of[slots]),
+                rescore))
+        errs[key] = max(errs[key], plain_err)
+        if paths["batcher_clustered"][key] < 1 or paths["batcher_clustered"][
+                "clustered_block_partial.bodies.mma_pipe"] < 1:
+            fail(f"batcher_clustered: K3 did not run: "
+                 f"{_nonzero(paths['batcher_clustered'])}")
+        # a direct search of a batch whose blocks cover the corpus would
+        # take the exact flat scan; the pipelined path never does: hold
+        # the flushes against the same route
+        index.batch_flat_fallback = False
+        err = 0.0
+        for j, f in enumerate(flushes):
+            direct = store.search_batch(f["queries"], limit=10)
+            for r, (ref, got) in enumerate(zip(direct, f["hits"])):
+                err = max(err, _same_hits(
+                    f"batcher_clustered/flush {j} row {r}",
+                    [(h[0], h[1]) for h in ref],
+                    [(h[0], h[1]) for h in got]))
+        emit({"phase": "batcher_clustered", "n": n, "d": d, "dtype": "int8",
+              "nlist": int(index._centroids.shape[0]), "nprobe": 1,
+              "block_rows": index._c, "build_s": build_s,
+              "warmed_widths": widths, "clients": clients,
+              "seconds": wall, "requests": len(lat),
+              "qps": len(lat) / wall, **_ms_stats(lat),
+              "batcher": bstats, **_flush_stats(flushes),
+              **busy.stats(len(flushes)),
+              "routes": routes,
+              "max_abs_err_vs_direct": err, "tol": MATCH_TOL,
+              "max_abs_err_vs_plain": plain_err, "plain_tol": ATOL,
+              "launches": _nonzero(paths["batcher_clustered"])})
+        del store, index
+    torch.cuda.empty_cache()
+
+
 def _extras(t) -> dict:
     """A stage-1 row's scan body, its time with every row masked (no
     selection), stage-2 time on its partials, the part count and, where
@@ -2175,11 +2784,15 @@ def main() -> None:
             errs["fused_topk_partial[float32]"],
             phase_default_facade(x, qs, truth, paths, tmp))
         phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs)
-        del x, x_dev
+        del x_dev
         torch.cuda.empty_cache()
+        served = phase_server(x, qs, truth, paths, tmp, errs)
+        del x
+        phase_cli(served, paths)
         phase_clustered(args.seed, paths, timings, errs)
         phase_clustered_facade(args.seed, paths, timings, errs, tmp)
         phase_dense_ivf(args.seed, paths, timings, errs, tmp)
+        phase_batcher_clustered(args.seed, paths, errs)
     kernels = []
     total = {}
     for counts in paths.values():

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of wdbx_tpu_torch
-loads neither JAX nor the JAX package, and an index with no device
-refuses to start without CUDA."""
+(the serving surfaces too: plugins, API, CLI, utilities) loads neither
+JAX nor the JAX package, and an index with no device refuses to start
+without CUDA."""
 
 import json
 import subprocess
@@ -55,6 +56,15 @@ def test_port_imports_no_jax_and_no_reference_package():
         "wdbx_tpu_torch.ops.kmeans", "wdbx_tpu_torch.kernels.clustered_scan",
         "wdbx_tpu_torch.index.ivf", "wdbx_tpu_torch.index.clustered",
         "wdbx_tpu_torch.kernels.ivf_scan",
+        "wdbx_tpu_torch.plugins", "wdbx_tpu_torch.plugins.base",
+        "wdbx_tpu_torch.plugins.local_embeddings",
+        "wdbx_tpu_torch.plugins.ollama", "wdbx_tpu_torch.plugins.lmstudio",
+        "wdbx_tpu_torch.plugins.webscraper",
+        "wdbx_tpu_torch.plugins.social_media", "wdbx_tpu_torch.api",
+        "wdbx_tpu_torch.api.batching", "wdbx_tpu_torch.api.server",
+        "wdbx_tpu_torch.utils.logging", "wdbx_tpu_torch.utils.security",
+        "wdbx_tpu_torch.utils.data_utils",
+        "wdbx_tpu_torch.utils.visualization", "wdbx_tpu_torch.cli",
     ):
         assert mod in got["modules"], mod
     if not got["cuda"]:

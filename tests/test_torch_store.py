@@ -113,9 +113,10 @@ def test_saved_store_reloads_across_packages(tmp_path, rng, dtype, direction):
 
 
 def test_unported_surfaces_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "a"),
-              device="cpu")
+    # plugins are ported (slice 3): the default arguments load them
+    db = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "a"),
+               device="cpu")
+    assert "sentencetransformers" in db.plugins
     with pytest.raises(NotImplementedError, match="slice 5"):
         TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "b"),
               enable_plugins=False, enable_distributed=True, device="cpu")

@@ -4,12 +4,16 @@ The same vector database as ``wdbx_tpu`` (same config keys, slot
 contract and on-disk format), with the device slabs held as torch
 tensors and the kernels written by hand in CUDA C++ for Hopper
 (``csrc/``: the fused score + top-k, the clustered block scan and the
-IVF bucket scan). Entry points run on the CUDA
-device unless the caller passes ``device="cpu"``:
+IVF bucket scan), and the same serving surfaces (plugins, the
+REST API with its query batcher, the CLI, the host utilities). Entry
+points run on the CUDA device unless the caller passes ``device="cpu"``:
 
     from wdbx_tpu_torch import WDBX
-    db = WDBX(vector_dimension=384, enable_plugins=False)      # cuda
-    db = WDBX(vector_dimension=384, enable_plugins=False, device="cpu")
+    db = WDBX(vector_dimension=384)                 # cuda, plugins loaded
+    db = WDBX(vector_dimension=384, device="cpu")
+
+    python -m wdbx_tpu_torch.cli serve --port 8000  # the REST API
+    python -m wdbx_tpu_torch.cli --device cpu stats
 """
 
 __version__ = "0.1.0"

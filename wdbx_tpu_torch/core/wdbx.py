@@ -15,9 +15,10 @@ own documented sync API (reference wdbx/core/wdbx.py:120 vs :241-270).
 live on — the CUDA device by default (raising when there is none),
 ``"cpu"`` on request.
 
-Torch port of ``wdbx_tpu/core/wdbx.py``. Not ported yet, and raising
-``NotImplementedError``: plugins (slice 3), ``enable_distributed`` and
-``heal()`` (the mesh layer, slice 5).
+Torch port of ``wdbx_tpu/core/wdbx.py``; plugins come from
+``wdbx_tpu_torch.plugins``. Not ported yet, and raising
+``NotImplementedError``: ``enable_distributed`` and ``heal()`` (the mesh
+layer, slice 5).
 """
 
 from __future__ import annotations
@@ -70,11 +71,6 @@ class WDBX:
         data_dir = self.data_dir
         self.device = device
         self.enable_distributed = enable_distributed
-        if enable_plugins and self.config.get("PLUGINS_ENABLED", True):
-            raise NotImplementedError(
-                "plugins are not ported to wdbx_tpu_torch yet (slice 3); "
-                "pass enable_plugins=False"
-            )
         if enable_distributed:
             raise NotImplementedError(
                 "enable_distributed (the mesh layer) is not ported to "
@@ -83,7 +79,13 @@ class WDBX:
 
         os.makedirs(data_dir, exist_ok=True)
         self.store = VectorStore(self.config, data_dir=data_dir, device=device)
+
         self.plugin_manager = None
+        if enable_plugins and self.config.get("PLUGINS_ENABLED", True):
+            from wdbx_tpu_torch.plugins import load_plugins
+
+            self.plugin_manager = load_plugins(self)
+
         self.shard_engine = None
 
         self._initialized = False
@@ -299,9 +301,11 @@ class WDBX:
         return self.plugin_manager.get(name)
 
     def register_plugin(self, plugin) -> None:
-        raise NotImplementedError(
-            "plugins are not ported to wdbx_tpu_torch yet (slice 3)"
-        )
+        if self.plugin_manager is None:
+            from wdbx_tpu_torch.plugins import PluginManager
+
+            self.plugin_manager = PluginManager(self)
+        self.plugin_manager.register(plugin)
 
     # -- stats ---------------------------------------------------------------
     def get_stats(self) -> dict[str, Any]:

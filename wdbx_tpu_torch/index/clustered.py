@@ -1360,7 +1360,13 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
         ``(NB, B, k)``. ``materialize=False`` returns the device tensors
         (scores, positions) without a synchronisation; resolve them with
         ``resolve_pipelined`` before mutating the index (positions map
-        to slots at resolve time)."""
+        to slots at resolve time).
+
+        The route and the dedup length are those of a batch of width
+        ``_next_pow2(B)``, as in ``search``: the JAX store pads a
+        pipelined batch to that width, so a batch gets the blocks it
+        gets from ``search_batch`` whether it comes through the store's
+        submit (the QueryBatcher) or not."""
         if self._needs_build():
             with self._mu.write():
                 self._maybe_build()
@@ -1379,7 +1385,9 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
             nlist = int(self._centroids.shape[0])
             nprobe = min(self.nprobe, nlist)
             residual = self._residual_tensor()
-            outs = [self._scan(q[i], k, nprobe, b, self._valid, residual)
+            pad_b = _next_pow2(max(b, 1))  # JAX's batch width: routing only
+            outs = [self._scan(q[i], k, nprobe, pad_b, self._valid,
+                               residual)
                     for i in range(nb)]
             scores = torch.stack([o[0] for o in outs])
             pos = torch.stack([o[1] for o in outs])
