@@ -45,6 +45,27 @@ Phases (each prints JSON lines; any failure exits non-zero):
              and 1024), the plain version and the library call; then an
              int8 facade search with the raw-store rerank (RAW_STORE=ram),
              whose recall@10 must reach 0.9938 too (pipelined body)
+  sharded    the mesh layer on the one card, on the flat phases' rows:
+             ShardedFlatIndex over make_mesh(8) (8 logical shards of
+             131,072 rows) with bf16, int8 and int4 slabs: search at
+             B=128 and B=1 and search_pipelined (NB=64, B=128, k=10),
+             every batch held against K1 / K2's plain version on the
+             slot-order view, each call's counters showing one stage-1
+             launch a shard on the pipelined body and one merge, bf16 raw
+             recall@10 gated at 0.9938; a make_mesh2(2, 4) replicated
+             index the same way; a live remesh to 7 shards, adopt_mesh +
+             an npz reload, a per-position (PERSIST_BACKEND=orbax) round
+             trip, each searched again against the plain version; the
+             facade with enable_distributed and INDEX_TYPE=sharded_flat
+             (WDBX_TORCH_MESH_SIZE=8): vector_search_batch against the
+             plain version, a real health check, heal(allow_remesh=True)
+             under a report with one position down (re-stripes to 7, the
+             same hits); ShardedIVFIndex (bf16, nlist 1024) at the
+             dense_ivf phase's corpus through the facade: build, tune to
+             0.97, recall@10 over 256 held-out queries gated at 0.95,
+             every returned score rescored from the slab, the pipelined
+             path, a checkpoint heal(); ms a batch beside the
+             single-device FlatIndex's and the bound
   clustered_kernels
              the clustered block scan (K3 v2, K4 v1) against its plain
              version: every slab type and query type, d=768, c in {256,
@@ -142,8 +163,9 @@ as old_ms, merge, grouping and call times; the grouping kernel its own
 row) and, last, {"ok": true, "device": {...}}.
 
 Launch counts: every path (main, the default facade, each pipelined
-slab, the int8 facade, each clustered path, the server, the cli's
-process, the batcher) runs with the kernels' counters set to 0 just
+slab, the int8 facade, the sharded flat, replicated, facade and IVF
+paths, each clustered path, the server, the cli's process, the batcher)
+runs with the kernels' counters set to 0 just
 before it and read just after; comparison and timing launches are never
 counted.
 """
@@ -885,6 +907,7 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
                 merge_at_k[kk] = time_merge(pvk, pik, kk)
                 del pvk, pik
         timings[name] = {
+            "call_ms": call_ms,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": library_ms, "body": body,
             "old_ms": old_ms,
@@ -929,6 +952,433 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
     if rec < RECALL_BAR:
         fail(f"int8 + rerank recall@10 {rec} < {RECALL_BAR}")
     del db
+
+
+# -- the mesh layer (ShardedFlatIndex, ShardEngine, ShardedIVFIndex) ------
+SHARDS = 8  # logical mesh positions on the one card
+SHARDED_SOURCE_ROWS = "wdbx_tpu_torch/parallel/sharded_flat.py"
+
+
+def _slot_view(index):
+    """A sharded index's slab, validity and scales in slot order (slot
+    ``s`` at row ``s``: the layout of its npz checkpoint), assembled on
+    the card from the first replica group's shards."""
+    import torch
+
+    n_dev = index.n_devices
+
+    def inter(parts):
+        out = torch.empty((index.capacity,) + tuple(parts[0].shape[1:]),
+                          dtype=parts[0].dtype, device="cuda")
+        for s in range(n_dev):
+            out[s::n_dev] = parts[s]
+        return out
+
+    scales = inter(index._row_scales) if index._is_quantized else None
+    return inter(index._slabs), inter(index._valids), scales
+
+
+def _plain_sharded(index, view, queries, k):
+    """K1 / K2's plain version on the slot-order view for ``queries``
+    (B, d) as the index prepares them: the sorted (B, k) result (row =
+    slot) on the host, and the rescorer of those inputs."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    slab, valid, scales = view
+    q = torch.as_tensor(queries, dtype=torch.float32, device="cuda")
+    qk = tf._prep_queries(slab, q, scales, index.metric == "cosine")
+    v, i = tf.fused_topk_plain(slab, qk, valid, k, scales=scales,
+                               int4=index._is_int4)
+    return (v.cpu(), i.cpu()), rescorer(slab, qk, scales, index._is_int4)
+
+
+def _tally(paths, label, counts):
+    paths[label] = _add_counts(paths.get(label, {}), counts)
+
+
+def _sharded_call(label, index, dtype, b, run, paths):
+    """``run()`` with the counters at 0 just before and read just after:
+    every replica group that got queries of a batch of ``b`` must launch
+    one stage 1 a shard, all on the pipelined body (the shape rule's),
+    and one merge."""
+    _reset()
+    out = run()
+    counts = _counts()
+    _tally(paths, label, counts)
+    r, n_dev = index.replicas, index.n_devices
+    groups = sum(1 for g in range(r) if b * (g + 1) // r > b * g // r)
+    per = -(-b // r)
+    want = want_body(dtype, "bfloat16", index.dim, per, 10)
+    if want != "mma_pipe":
+        fail(f"{label}: the shape rule gives {want}, not mma_pipe, at "
+             f"B={per}")
+    if counts[f"fused_topk_partial[{dtype}]"] != n_dev * groups or \
+            counts["fused_topk_partial.bodies.mma_pipe"] != n_dev * groups \
+            or counts["topk_merge_partials"] != groups:
+        fail(f"{label}: expected {n_dev * groups} stage-1 launches on "
+             f"mma_pipe and {groups} merges: {_nonzero(counts)}")
+    return out
+
+
+def _check_sharded(name, index, view, queries, got, k=10) -> float:
+    import torch
+
+    ref, rescore = _plain_sharded(index, view, queries, k)
+    return check_topk(name, ref, (torch.as_tensor(got[0]),
+                                  torch.as_tensor(got[1])), rescore)
+
+
+def _drive_sharded(label, index, dtype, qs, qstack, paths, errs,
+                   pipelined=True):
+    """search at B=128 and B=1, then search_pipelined over the stack,
+    every batch held against the plain version on the slot-order view.
+    Returns the pipelined slots (NB, B, k) or None."""
+    name = f"fused_topk_partial[{dtype}]"
+    view = _slot_view(index)
+    err = 0.0
+    for q in (qs[0], qs[1][:1]):
+        got = _sharded_call(label, index, dtype, len(q),
+                            lambda q=q: index.search(q, 10), paths)
+        err = max(err, _check_sharded(f"{label}/{dtype}/search b{len(q)}",
+                                      index, view, q, got))
+    slots = None
+    if pipelined:
+        nb, b = qs.shape[0], qs.shape[1]
+        scores, slots = _sharded_call(
+            label, index, dtype, b,
+            lambda: index.search_pipelined(qstack, k=10), paths)
+        if scores.shape != (nb, b, 10):
+            fail(f"{label}: pipelined shape {scores.shape}")
+        for i in range(nb):
+            err = max(err, _check_sharded(
+                f"{label}/{dtype}/pipelined batch{i}", index, view, qs[i],
+                (scores[i], slots[i])))
+    errs[name] = max(errs.get(name, 0.0), err)
+    return slots
+
+
+def _sharded_breakdown(index, qstack, k) -> dict:
+    """Where a pipelined call's time goes (bf16, all NB*B queries at
+    once): the 8 stage-1 launches with and without selection (every row
+    masked), the merge of their partials, and the same for one launch
+    over the slot-order view of the same rows. Comparison launches:
+    never counted."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    slabs, valids = index._slabs, index._valids
+    qk = tf._prep_queries(slabs[0], qstack.reshape(-1, qstack.shape[-1]),
+                          None, True)
+    none = [torch.zeros_like(v) for v in valids]
+
+    def stage1(vs):
+        return [tf.fused_topk_partial(slabs[p], qk, vs[p], k)
+                for p in range(index.n_devices)]
+
+    out = {"stage1_ms": cuda_ms(lambda: stage1(valids), reps=3, warm=1),
+           "score_only_ms": cuda_ms(lambda: stage1(none), reps=3, warm=1)}
+    parts = stage1(valids)
+    pv = torch.cat([p[0] for p in parts], 1)
+    pi = torch.cat([p[1] for p in parts], 1)
+    out["merge_ms"] = cuda_ms(lambda: tf.topk_merge_partials(pv, pi, k),
+                              reps=3, warm=1)
+    out["parts"] = int(pv.shape[1])
+    del parts, pv, pi
+    slab, valid, _ = _slot_view(index)
+    nothing = torch.zeros_like(valid)
+    out["single_stage1_ms"] = cuda_ms(
+        lambda: tf.fused_topk_partial(slab, qk, valid, k), reps=3, warm=1)
+    out["single_score_only_ms"] = cuda_ms(
+        lambda: tf.fused_topk_partial(slab, qk, nothing, k), reps=3, warm=1)
+    pv, pi = tf.fused_topk_partial(slab, qk, valid, k)
+    out["single_merge_ms"] = cuda_ms(
+        lambda: tf.topk_merge_partials(pv, pi, k), reps=3, warm=1)
+    out["single_parts"] = int(pv.shape[1])
+    out["call_queries"] = int(qk.shape[0])
+    return out
+
+
+def phase_sharded(x, qs, x_dev, truth, paths, timings, errs, tmp, seed):
+    """The mesh layer on one card: ShardedFlatIndex over 8 logical
+    positions (bf16, int8, int4) and 2 x 4 replicas, a remesh to 7, an
+    npz reload after adopt_mesh, a per-position checkpoint, the facade
+    with enable_distributed and heal(), and ShardedIVFIndex at the dense
+    IVF phase's point."""
+    import asyncio
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch import WDBX
+    from wdbx_tpu_torch.ops.normalize import l2_normalize
+    from wdbx_tpu_torch.parallel import (
+        ShardedFlatIndex,
+        ShardedIVFIndex,
+        make_mesh,
+        make_mesh2,
+    )
+    from wdbx_tpu_torch.parallel.mesh import MESH_SIZE_ENV
+
+    t_phase = time.perf_counter()
+    n_rows, d = x.shape
+    nb, b, k = qs.shape[0], qs.shape[1], 10
+    qstack = torch.as_tensor(qs, device="cuda")
+    rec_of = {}
+    bf16_index = None
+    for dtype in ("bfloat16", "int8", "int4"):
+        index = ShardedFlatIndex(d, dtype=dtype, capacity=n_rows,
+                                 mesh=make_mesh(SHARDS))
+        if index.rows_per_device != n_rows // SHARDS:
+            fail(f"sharded {dtype}: {index.rows_per_device} rows a shard")
+        index.add_batch(x_dev)
+        slots = _drive_sharded("sharded_flat", index, dtype, qs, qstack,
+                               paths, errs)
+        flat = slots.reshape(nb * b, k)
+        rec_of[dtype] = float(sum(len(set(a.tolist()) & set(t.tolist()))
+                                  for a, t in zip(flat, truth)) / truth.size)
+        call_ms = cuda_ms(lambda: index.search_pipelined(
+            qstack, k=k, materialize=False), reps=3, warm=1)
+        search_ms = cuda_ms(lambda: index.search(qs[0], k), reps=5, warm=1)
+        single = timings[f"fused_topk_partial[{dtype}]"]
+        bound, by = _bound_ms(dtype, n_rows, d, b, k)
+        emit({"phase": "sharded", "path": "sharded_flat", "dtype": dtype,
+              "n": n_rows, "shards": SHARDS,
+              "rows_per_shard": index.rows_per_device, "nb": nb, "b": b,
+              "k": k, "ms_per_batch": call_ms / nb,
+              "single_device_ms_per_batch": single["call_ms"] / nb,
+              "search_b128_ms": search_ms, "bound_ms": bound,
+              "bound_by": by, "recall_at_10_raw": rec_of[dtype],
+              "max_abs_err_vs_plain": errs[f"fused_topk_partial[{dtype}]"],
+              "tol": ATOL})
+        timings.setdefault("sharded", {})[dtype] = {
+            "ms_per_batch": call_ms / nb, "search_b128_ms": search_ms}
+        if dtype == "bfloat16":
+            bf16_index = index
+            emit({"phase": "sharded", "path": "breakdown",
+                  **_sharded_breakdown(index, qstack, k)})
+        else:
+            del index
+    if rec_of["bfloat16"] < RECALL_BAR:
+        fail(f"sharded bf16 raw recall@10 {rec_of['bfloat16']} < "
+             f"{RECALL_BAR}")
+
+    # replicas: 2 groups x 4 shards, every write on both copies
+    rep = ShardedFlatIndex(d, dtype="bfloat16", capacity=n_rows,
+                           mesh=make_mesh2(2, 4))
+    rep.add_batch(x_dev)
+    for p in range(4, 8):
+        if not torch.equal(rep._slabs[p], rep._slabs[p - 4]):
+            fail(f"replica position {p} differs from its shard")
+    slots = _drive_sharded("sharded_replicated", rep, "bfloat16", qs,
+                           qstack, paths, errs)
+    rep_rec = float(sum(len(set(a.tolist()) & set(t.tolist())) for a, t in
+                        zip(slots.reshape(nb * b, k), truth)) / truth.size)
+    rep_ms = cuda_ms(lambda: rep.search_pipelined(
+        qstack, k=k, materialize=False), reps=3, warm=1) / nb
+    emit({"phase": "sharded", "path": "sharded_replicated",
+          "mesh": rep.mesh.shape, "ms_per_batch": rep_ms,
+          "recall_at_10_raw": rep_rec})
+    del rep
+
+    # topology: a live remesh to 7, a cold re-host from npz, and the
+    # per-position checkpoint
+    index = bf16_index
+    t0 = time.perf_counter()
+    index.remesh(make_mesh(7))
+    remesh_s = time.perf_counter() - t0
+    if index.n_devices != 7 or index.count() != n_rows:
+        fail(f"remesh: {index.n_devices} shards, {index.count()} rows")
+    _drive_sharded("sharded_flat", index, "bfloat16", qs[:4], qstack[:4],
+                   paths, errs)
+    path = os.path.join(tmp, "sharded_npz")
+    t0 = time.perf_counter()
+    index.save(path)
+    save_s = time.perf_counter() - t0
+    index.adopt_mesh(make_mesh(SHARDS))
+    if index.count() != 0 or index.n_devices != SHARDS:
+        fail("adopt_mesh left rows behind")
+    t0 = time.perf_counter()
+    if not index.load(path) or index.count() != n_rows:
+        fail("npz reload after adopt_mesh")
+    load_s = time.perf_counter() - t0
+    before = _drive_sharded("sharded_flat", index, "bfloat16", qs[:4],
+                            qstack[:4], paths, errs)
+    index.persist_backend = "orbax"
+    t0 = time.perf_counter()
+    index.save(os.path.join(tmp, "sharded_pos"))
+    pos_save_s = time.perf_counter() - t0
+    again = ShardedFlatIndex(d, dtype="bfloat16", mesh=make_mesh(SHARDS))
+    t0 = time.perf_counter()
+    if not again.load(os.path.join(tmp, "sharded_pos")):
+        fail("per-position checkpoint did not load")
+    pos_load_s = time.perf_counter() - t0
+    after = _drive_sharded("sharded_flat", again, "bfloat16", qs[:4],
+                           qstack[:4], paths, errs)
+    if not np.array_equal(np.sort(before, -1), np.sort(after, -1)):
+        fail("per-position round trip changed the answers")
+    emit({"phase": "sharded", "path": "topology", "remesh_to": 7,
+          "remesh_s": remesh_s, "npz_save_s": save_s, "npz_load_s": load_s,
+          "positions_save_s": pos_save_s, "positions_load_s": pos_load_s})
+    del index, again, bf16_index
+    torch.cuda.empty_cache()
+
+    # the facade: enable_distributed, a real health check, heal()
+    old_env = os.environ.get(MESH_SIZE_ENV)
+    os.environ[MESH_SIZE_ENV] = str(SHARDS)
+    try:
+        db = WDBX(vector_dimension=d, enable_plugins=False,
+                  enable_distributed=True,
+                  data_dir=os.path.join(tmp, "sharded_facade"),
+                  config={"INDEX_TYPE": "sharded_flat",
+                          "INDEX_DTYPE": "bfloat16",
+                          "INDEX_CAPACITY": n_rows, "RAW_STORE": "none",
+                          "VECTOR_STORE_AUTOSAVE_INTERVAL": 0})
+        asyncio.run(db.initialize())
+        db.store.bulk_load([str(i) for i in range(n_rows)], x)
+        index = db.store.indices[0]
+        reg = db.store.registries[0]
+
+        def facade_search(tag):
+            hits = _sharded_call("sharded_facade", index, "bfloat16", b,
+                                 lambda: db.vector_search_batch(qs[0],
+                                                                limit=k),
+                                 paths)
+            got_v = torch.tensor([[s for _, s, _ in row] for row in hits])
+            got_i = torch.tensor([[reg.lookup(h[0]) for h in row]
+                                  for row in hits])
+            errs["fused_topk_partial[bfloat16]"] = max(
+                errs["fused_topk_partial[bfloat16]"],
+                _check_sharded(f"sharded_facade/{tag}", index,
+                               _slot_view(index), qs[0], (got_v, got_i)))
+            return hits
+
+        hits = facade_search("before heal")
+        health = db.shard_engine.health_check()
+        names = list(db.shard_engine.mesh.names)
+        if not health["healthy"] or sorted(health["devices"]) != \
+                sorted(names) or len(names) != SHARDS:
+            fail(f"health_check: {health}")
+        down = {"healthy": False, "devices": {
+            n: ("error: down" if n == names[3] else "ok") for n in names}}
+        t0 = time.perf_counter()
+        with mock.patch.object(db.shard_engine, "health_check",
+                               return_value=down):
+            report = db.heal(allow_remesh=True)
+        heal_s = time.perf_counter() - t0
+        if report["remeshed_to"] != names[:3] + names[4:] or \
+                index.n_devices != SHARDS - 1:
+            fail(f"heal did not re-stripe onto 7: {report['remeshed_to']}")
+        healed = facade_search("after heal")
+        for row, (h0, h1) in enumerate(zip(hits, healed)):
+            if [h[0] for h in h0] != [h[0] for h in h1] or max(
+                    abs(a[1] - c[1]) for a, c in zip(h0, h1)) > MATCH_TOL:
+                fail(f"heal changed the hits of row {row}")
+        emit({"phase": "sharded", "path": "sharded_facade",
+              "positions": names, "health": health["healthy"],
+              "heal_s": heal_s, "remeshed_to": len(report["remeshed_to"]),
+              "engine": db.get_stats()["shard_engine"]["devices"][:2]})
+        asyncio.run(db.shutdown())
+        del db, index
+    finally:
+        if old_env is None:
+            os.environ.pop(MESH_SIZE_ENV, None)
+        else:
+            os.environ[MESH_SIZE_ENV] = old_env
+    torch.cuda.empty_cache()
+
+    # ShardedIVFIndex at the dense IVF phase's point, through the facade
+    # (production_serving.py's flow: build, search, pipelined, heal)
+    mix = _mixture(1024, d, seed + 13, noise=0.45)
+    xi = torch.cat([mix(3000 + i, 1 << 18) for i in range(4)])
+    held = mix(4444, 256)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ivf_truth = torch.topk(held @ xi.T, k, dim=1).indices.cpu().numpy()
+    os.environ[MESH_SIZE_ENV] = str(SHARDS)
+    try:
+        db = WDBX(vector_dimension=d, enable_plugins=False,
+                  enable_distributed=True,
+                  data_dir=os.path.join(tmp, "sharded_ivf"),
+                  config={"INDEX_TYPE": "sharded_ivf",
+                          "INDEX_DTYPE": "bfloat16", "IVF_NLIST": 1024,
+                          "IVF_TRAIN_THRESHOLD": 1 << 62,
+                          "INDEX_CAPACITY": 1 << 20, "RAW_STORE": "none",
+                          "VECTOR_STORE_AUTOSAVE_INTERVAL": 0})
+        asyncio.run(db.initialize())
+        db.store.bulk_load([str(i) for i in range(len(xi))],
+                           xi.cpu().numpy())
+        index = db.store.indices[0]
+        if not isinstance(index, ShardedIVFIndex):
+            fail(f"sharded_ivf gave {type(index).__name__}")
+        t0 = time.perf_counter()
+        index.build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        index.batch_flat_fallback = False
+        held_np = held.cpu().numpy()
+        tuned_rec = index.tune(held_np[:64], k=k, target_recall=DENSE_TUNE)
+        _reset()
+        t0 = time.perf_counter()
+        got = [index.search(held_np[i:i + 128], k) for i in (0, 128)]
+        torch.cuda.synchronize()
+        search_s = (time.perf_counter() - t0) / 2
+        _tally(paths, "sharded_ivf", _counts())
+        scores = np.concatenate([g[0] for g in got])
+        slots = np.concatenate([g[1] for g in got])
+        rec = _slot_sets_recall(slots, ivf_truth)
+        # every returned score is q . row of the slab (bf16 queries
+        # against the bf16 rows the tables copy)
+        qn = l2_normalize(held).to(torch.bfloat16)
+        rows = torch.as_tensor(index.get_vectors(slots.reshape(-1)),
+                               device="cuda").reshape(256, k, d)
+        true = (qn.float()[:, None, :] * rows).sum(-1).cpu().numpy()
+        off = float(np.abs(true - scores).max())
+        if (slots < 0).any() or off > ATOL:
+            fail(f"sharded_ivf: a returned score is {off} off q . row")
+        pipe = index.search_pipelined(held_np.reshape(2, 128, d), k)
+        if not np.array_equal(np.sort(pipe[1].reshape(256, k), 1),
+                              np.sort(slots, 1)):
+            fail("sharded_ivf: pipelined slots differ from search")
+        index.batch_flat_fallback = True  # production_serving's default
+        db.store.save()
+        index.clear()  # simulated loss
+        t0 = time.perf_counter()
+        report = db.heal()
+        heal_s = time.perf_counter() - t0
+        index.batch_flat_fallback = False
+        _reset()
+        after = index.search(held_np[:128], k)
+        _tally(paths, "sharded_ivf", _counts())
+        if report["recovered_shards"] != [0] or not index.is_trained or \
+                not np.array_equal(np.sort(after[1], 1),
+                                   np.sort(slots[:128], 1)):
+            fail(f"sharded_ivf heal: {report['recovered_shards']}")
+        _reset()
+        index.batch_flat_fallback = True  # B=128 x nprobe covers the corpus
+        flat_route = index.search(held_np[:128], k)
+        _tally(paths, "sharded_ivf", _counts())
+        emit({"phase": "sharded", "path": "sharded_ivf", "n": len(xi),
+              "shards": index.n_devices, "nlist": 1024,
+              "cap_b": int(index._bucket_slot[0].shape[1]),
+              "build_s": build_s, "nprobe": index.nprobe,
+              "tuned_recall_vs_index_exact": tuned_rec,
+              "search_b128_s": search_s, "recall_at_10": rec,
+              "bar": DENSE_BAR, "rescore_max_off": off,
+              "heal_s": heal_s,
+              "flat_fallback_recall": _slot_sets_recall(
+                  flat_route[1], ivf_truth[:128])})
+        if rec < DENSE_BAR:
+            fail(f"sharded_ivf recall@10 {rec} < {DENSE_BAR}")
+        asyncio.run(db.shutdown())
+        del db, index
+    finally:
+        os.environ.pop(MESH_SIZE_ENV, None)
+    del xi, held
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t_phase})
 
 
 # -- the clustered engine (K3 / K4) -----------------------------------------
@@ -2784,6 +3234,8 @@ def main() -> None:
             errs["fused_topk_partial[float32]"],
             phase_default_facade(x, qs, truth, paths, tmp))
         phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs)
+        phase_sharded(x, qs, x_dev, truth, paths, timings, errs, tmp,
+                      args.seed)
         del x_dev
         torch.cuda.empty_cache()
         served = phase_server(x, qs, truth, paths, tmp, errs)

@@ -3,8 +3,8 @@
 The cases of ``tests/test_cli.py`` run on the port — registry, built-in
 commands, plugin commands, one-shot mode — with every facade built with
 ``device="cpu"`` (``--device cpu`` in one-shot mode). No case is left
-out. Then what the port adds: ``--device``, ``heal`` refusing with the
-facade's ``NotImplementedError``, ``python -m wdbx_tpu_torch.cli`` in a
+out. Then what the port adds: ``--device``, ``heal`` printing the
+facade's report, ``python -m wdbx_tpu_torch.cli`` in a
 subprocess, and the same commands through the JAX package's WDBXCLI and
 the port's printing the same JSON."""
 
@@ -163,13 +163,21 @@ class TestImport:
 
 class TestPortSurface:
     async def test_heal_refuses_and_returns_nonzero(self, temp_dir, capsys):
+        # heal is ported (the mesh layer): it runs WDBX.heal, prints its
+        # report and returns 0; a bad flag still returns nonzero
         rc = await amain(
             ["--data-dir", temp_dir, "--dimension", "4", "--no-plugins",
              "--device", "cpu", "heal"]
         )
-        assert rc == 1
+        assert rc == 0
         out = capsys.readouterr().out
-        assert "heal: NotImplementedError" in out and "slice 5" in out
+        report = json.loads(out[out.index("{"):])
+        assert report["consistent"] and report["recovered_shards"] == []
+        rc = await amain(
+            ["--data-dir", temp_dir, "--dimension", "4", "--no-plugins",
+             "--device", "cpu", "heal", "--bogus"]
+        )
+        assert rc != 0
 
     async def test_no_device_means_the_card(self, temp_dir):
         import torch

@@ -3,9 +3,10 @@
 The JAX package's ``tests/test_conformance.py`` checklist, run on the
 port's serving engines built on the CPU: every engine goes through the
 same capability checks, and capabilities an engine rejects are asserted
-to reject (int4 on the dense-table layout raises). The sharded engines
-are not ported yet, so the matrix holds the single-device ones; the
-support table is held against the reference's for those engines.
+to reject (int4 on the dense-table layout raises). The sharded flat and
+sharded IVF engines run on 8 logical CPU shards; the sharded clustered
+engine is not ported yet (slice 5c). The support table is held against
+the reference's for the engines the matrix holds.
 Checks that apply to some engines only (the tuners, the serve-through
 rebuild) are parametrised over those engines.
 """
@@ -18,6 +19,7 @@ import torch
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 from wdbx_tpu_torch.index.flat import FlatIndex
 from wdbx_tpu_torch.index.ivf import IVFIndex
+from wdbx_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, make_mesh
 
 torch.set_num_threads(2)
 
@@ -33,17 +35,22 @@ def _ann_kwargs():
     return dict(nlist=16, nprobe=16, train_threshold=256)
 
 
+#: the reference's 8 faked CPU devices, as 8 logical CPU shards
+MESH = make_mesh(8, device="cpu")
+
 ENGINES = {
     "flat": (FlatIndex, {}),
     "ivf_dense": (IVFIndex, _ann_kwargs()),
     "ivf_clustered": (ClusteredIVFIndex, _ann_kwargs()),
+    "sharded_flat": (ShardedFlatIndex, {"mesh": MESH}),
+    "sharded_ivf": (ShardedIVFIndex, {**_ann_kwargs(), "mesh": MESH}),
 }
 #: engines where the int4 capacity tier is supported; the rest reject it
-INT4_OK = {"flat", "ivf_clustered"}
+INT4_OK = {"flat", "ivf_clustered", "sharded_flat"}
 #: engines with a serve-through background rebuild
 BG_REBUILD = {"ivf_clustered"}
 #: ANN engines (carry tune / tune_filtered; flat is always exact)
-ANN = {"ivf_dense", "ivf_clustered"}
+ANN = {"ivf_dense", "ivf_clustered", "sharded_ivf"}
 
 
 def _make(name, dtype="float32"):

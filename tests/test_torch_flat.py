@@ -118,10 +118,19 @@ def test_checkpoint_crosses_packages(rng, tmp_path, dtype, direction):
 
 
 def test_unported_backends_raise(tmp_path):
+    # the per-position backend stands in for orbax (store/persist.py):
+    # it round-trips, and JAX's orbax directories are refused
     t = TFlat(DIM, capacity=64, device="cpu")
     t.persist_backend = "orbax"
-    with pytest.raises(NotImplementedError):
-        t.save(str(tmp_path / "x"))
+    t.add_batch(_rows(np.random.default_rng(2), 5))
+    t.save(str(tmp_path / "x"))
+    back = TFlat(DIM, capacity=64, device="cpu")
+    assert back.load(str(tmp_path / "x")) and back.count() == 5
+    (tmp_path / "y.orbax").mkdir()
+    (tmp_path / "y.meta.json").write_text(
+        (tmp_path / "x.meta.json").read_text())
+    with pytest.raises(ValueError, match="npz"):
+        back.load(str(tmp_path / "y"))
     with pytest.raises(ValueError):
         TFlat(15, dtype="int4", device="cpu")
 

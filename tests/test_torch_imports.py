@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of wdbx_tpu_torch
-(the serving surfaces too: plugins, API, CLI, utilities) loads neither
+(the serving surfaces, the mesh layer and the examples too) loads neither
 JAX nor the JAX package, and an index with no device refuses to start
 without CUDA."""
 
@@ -65,10 +65,36 @@ def test_port_imports_no_jax_and_no_reference_package():
         "wdbx_tpu_torch.utils.logging", "wdbx_tpu_torch.utils.security",
         "wdbx_tpu_torch.utils.data_utils",
         "wdbx_tpu_torch.utils.visualization", "wdbx_tpu_torch.cli",
+        "wdbx_tpu_torch.parallel", "wdbx_tpu_torch.parallel.mesh",
+        "wdbx_tpu_torch.parallel.shard_engine",
+        "wdbx_tpu_torch.parallel.sharded_flat",
+        "wdbx_tpu_torch.parallel.sharded_ivf",
+        "wdbx_tpu_torch.store.persist", "wdbx_tpu_torch.examples",
+        "wdbx_tpu_torch.examples.basic_usage",
+        "wdbx_tpu_torch.examples.rag_implementation",
+        "wdbx_tpu_torch.examples.clustered_at_scale",
+        "wdbx_tpu_torch.examples.sharded_serving",
+        "wdbx_tpu_torch.examples.production_serving",
     ):
         assert mod in got["modules"], mod
     if not got["cuda"]:
         assert got["raised"] and "device='cpu'" in got["raised"]
+
+
+def test_sharded_engines_are_exported():
+    import wdbx_tpu_torch
+    import wdbx_tpu_torch.index as index
+    import wdbx_tpu_torch.parallel as parallel
+    from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+    from wdbx_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    for name, cls in (("ShardedFlatIndex", ShardedFlatIndex),
+                      ("ShardedIVFIndex", ShardedIVFIndex)):
+        assert getattr(wdbx_tpu_torch, name) is cls
+        assert getattr(index, name) is cls
+        assert getattr(parallel, name) is cls
+        assert name in wdbx_tpu_torch.__all__ and name in parallel.__all__
+    assert {"make_mesh", "make_mesh2", "ShardEngine"} <= set(parallel.__all__)
 
 
 def test_root_exports_the_dense_ivf_index():

@@ -529,8 +529,7 @@ class TestFacadePlugins:
         """WDBX() with default arguments: plugins on (the port's own
         builtins, the demo embedder among them) on the CPU when asked;
         with no device it wants the card and raises without one.
-        enable_distributed still raises (the mesh layer is not
-        ported)."""
+        enable_distributed builds the shard engine (the mesh layer)."""
         import torch
 
         db = WDBX(data_dir=temp_dir)
@@ -545,8 +544,8 @@ class TestFacadePlugins:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 _WDBX(data_dir=temp_dir + "/card")
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            WDBX(data_dir=temp_dir + "/mesh", enable_distributed=True)
+        mesh = WDBX(data_dir=temp_dir + "/mesh", enable_distributed=True)
+        assert mesh.shard_engine is not None
 
     def test_entry_point_group_is_the_ports_own(self, db, monkeypatch):
         """External plugins come from the ``wdbx_tpu_torch.plugins``

@@ -117,36 +117,47 @@ def test_unported_surfaces_raise(tmp_path):
     db = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "a"),
                device="cpu")
     assert "sentencetransformers" in db.plugins
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "b"),
-              enable_plugins=False, enable_distributed=True, device="cpu")
+    # the mesh layer is ported (slices 5a / 5b / 5d): a shard engine,
+    # and heal() reports; only the sharded clustered engine (5c) raises
+    dist = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "b"),
+                 enable_plugins=False, enable_distributed=True, device="cpu")
+    assert dist.shard_engine is not None
+    assert dist.heal()["healthy"]
     db = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "c"),
                enable_plugins=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        db.heal()
+    assert db.heal()["recovered_shards"] == []
     assert db.store.verify()["consistent"]
+    with pytest.raises(NotImplementedError, match="slice 5c"):
+        TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "d"),
+              enable_plugins=False, device="cpu",
+              config={"INDEX_TYPE": "sharded_clustered"})
 
 
 @pytest.mark.parametrize("kind,slice_", [
     ("ivf", None), ("hnsw", None), ("ivf_clustered", None),
     ("ivf_dense", None), ("sharded_flat", "slice 5"),
+    ("sharded_ivf", "slice 5"), ("sharded_clustered", "slice 5c"),
 ])
 def test_index_types_through_the_facade(tmp_path, kind, slice_):
     """The clustered aliases serve through the port's ClusteredIVFIndex
-    and ``ivf_dense`` through its dense IVFIndex; the sharded engines
-    raise, naming their slice."""
+    and ``ivf_dense`` through its dense IVFIndex; ``slice_`` names the
+    mesh slice of a sharded kind: ``sharded_flat`` and ``sharded_ivf``
+    serve through the port's sharded engines, ``sharded_clustered``
+    raises, naming its slice."""
     from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
     from wdbx_tpu_torch.index.ivf import IVFIndex
+    from wdbx_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
 
     kw = dict(vector_dimension=DIM, data_dir=str(tmp_path / kind),
               enable_plugins=False, device="cpu",
               config={"INDEX_TYPE": kind})
-    if slice_ is not None:
+    if kind == "sharded_clustered":
         with pytest.raises(NotImplementedError, match=slice_):
             TWDBX(**kw)
         return
     db = TWDBX(**kw)
-    want = IVFIndex if kind == "ivf_dense" else ClusteredIVFIndex
+    want = {"ivf_dense": IVFIndex, "sharded_flat": ShardedFlatIndex,
+            "sharded_ivf": ShardedIVFIndex}.get(kind, ClusteredIVFIndex)
     assert all(type(ix) is want for ix in db.store.indices)
     assert db.store.verify()["consistent"]
 

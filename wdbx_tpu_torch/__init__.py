@@ -19,7 +19,7 @@ points run on the CUDA device unless the caller passes ``device="cpu"``:
 __version__ = "0.1.0"
 
 __all__ = ["WDBX", "WDBXConfig", "VectorStore", "FlatIndex", "IVFIndex",
-           "__version__"]
+           "ShardedFlatIndex", "ShardedIVFIndex", "__version__"]
 
 _LAZY = {
     "WDBX": ("wdbx_tpu_torch.core.wdbx", "WDBX"),
@@ -27,6 +27,10 @@ _LAZY = {
     "VectorStore": ("wdbx_tpu_torch.store.vector_store", "VectorStore"),
     "FlatIndex": ("wdbx_tpu_torch.index.flat", "FlatIndex"),
     "IVFIndex": ("wdbx_tpu_torch.index.ivf", "IVFIndex"),
+    "ShardedFlatIndex": ("wdbx_tpu_torch.parallel.sharded_flat",
+                         "ShardedFlatIndex"),
+    "ShardedIVFIndex": ("wdbx_tpu_torch.parallel.sharded_ivf",
+                        "ShardedIVFIndex"),
 }
 
 

@@ -12,8 +12,7 @@ embedding plugin by the same priority chain as the API server
 Torch port of ``wdbx_tpu/cli.py``, run as ``python -m wdbx_tpu_torch.cli``
 or ``wdbx-tpu-torch``. One flag more than the JAX CLI: ``--device``, the
 facade's ``device=`` (default: the CUDA device, raising without one;
-``cpu`` on request). ``heal`` needs the mesh layer, which is not ported:
-it prints the facade's ``NotImplementedError`` and returns 1.
+``cpu`` on request). ``heal`` runs ``WDBX.heal`` and prints its report.
 """
 
 from __future__ import annotations

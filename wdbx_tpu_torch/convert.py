@@ -38,6 +38,17 @@ uint16 bits):
                 residual_base=..., quarantine=[...])
     index = ivf_index_from_arrays(arrays, meta, device="cuda")
 
+A sharded index (``wdbx_tpu.parallel``) comes over through its
+slot-order host view, onto a port mesh (``wdbx_tpu_torch.parallel``);
+the dense overlay of a sharded IVF index as its global tables:
+
+    slab, valid = jax_index._host_slot_view()
+    arrays = {"slab": slab, "valid": valid,
+              "scales": np.asarray(jax_index._scales).T.reshape(-1)}
+    index = sharded_flat_index_from_arrays(arrays, meta, make_mesh(8))
+    index = sharded_ivf_index_from_arrays(arrays | overlay, meta | ivf_meta,
+                                          make_mesh(8))
+
 A bf16 slab may come as an ml_dtypes bfloat16 array or as its uint16
 bits; both become a torch bfloat16 slab bit for bit.
 """
@@ -51,6 +62,9 @@ import numpy as np
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 from wdbx_tpu_torch.index.flat import FlatIndex
 from wdbx_tpu_torch.index.ivf import IVFIndex
+from wdbx_tpu_torch.parallel.mesh import Mesh
+from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+from wdbx_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
 
 
 def flat_index_from_arrays(
@@ -82,6 +96,32 @@ def ivf_index_from_arrays(
         nprobe=int(meta["nprobe"]),
         assignments=int(meta.get("assignments", 1)),
     )
+    index._built_size = int(meta.get("built_size", 0))
+    index._residual_base = int(meta.get("residual_base", 0))
+    index._quarantine = [int(s) for s in meta.get("quarantine", [])]
+    if "centroids" in arrays:
+        index._install_tables(arrays)
+    return index
+
+
+def sharded_flat_index_from_arrays(
+    arrays: dict[str, np.ndarray], meta: dict[str, Any],
+    mesh: Mesh | None = None, device: Any = None,
+) -> ShardedFlatIndex:
+    """A JAX ``ShardedFlatIndex``'s slot-order state striped over
+    ``mesh`` (default: ``make_mesh(device=device)``); its capacity must
+    be one this mesh rounds to."""
+    return _place_flat(ShardedFlatIndex, arrays, meta, device, mesh=mesh)
+
+
+def sharded_ivf_index_from_arrays(
+    arrays: dict[str, np.ndarray], meta: dict[str, Any],
+    mesh: Mesh | None = None, device: Any = None,
+) -> ShardedIVFIndex:
+    """As ``sharded_flat_index_from_arrays``, plus the dense overlay's
+    global tables (split by shard as ``load`` splits a checkpoint's)."""
+    index = _place_flat(ShardedIVFIndex, arrays, meta, device, mesh=mesh,
+                        nlist=int(meta["nlist"]), nprobe=int(meta["nprobe"]))
     index._built_size = int(meta.get("built_size", 0))
     index._residual_base = int(meta.get("residual_base", 0))
     index._quarantine = [int(s) for s in meta.get("quarantine", [])]

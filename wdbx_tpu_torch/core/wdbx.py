@@ -16,9 +16,9 @@ live on — the CUDA device by default (raising when there is none),
 ``"cpu"`` on request.
 
 Torch port of ``wdbx_tpu/core/wdbx.py``; plugins come from
-``wdbx_tpu_torch.plugins``. Not ported yet, and raising
-``NotImplementedError``: ``enable_distributed`` and ``heal()`` (the mesh
-layer, slice 5).
+``wdbx_tpu_torch.plugins``. ``enable_distributed`` builds a
+``ShardEngine`` over the facade's device (``parallel/shard_engine.py``),
+which ``heal()`` uses for liveness, recovery plans and re-meshing.
 """
 
 from __future__ import annotations
@@ -71,11 +71,6 @@ class WDBX:
         data_dir = self.data_dir
         self.device = device
         self.enable_distributed = enable_distributed
-        if enable_distributed:
-            raise NotImplementedError(
-                "enable_distributed (the mesh layer) is not ported to "
-                "wdbx_tpu_torch yet (slice 5)"
-            )
 
         os.makedirs(data_dir, exist_ok=True)
         self.store = VectorStore(self.config, data_dir=data_dir, device=device)
@@ -87,6 +82,10 @@ class WDBX:
             self.plugin_manager = load_plugins(self)
 
         self.shard_engine = None
+        if enable_distributed:
+            from wdbx_tpu_torch.parallel.shard_engine import ShardEngine
+
+            self.shard_engine = ShardEngine(self.config, device=device)
 
         self._initialized = False
 
@@ -203,13 +202,90 @@ class WDBX:
         return self.store.optimize(background)
 
     def heal(self, allow_remesh: bool | None = None) -> dict[str, Any]:
-        """Failure detection + checkpoint recovery over the device mesh
-        (``wdbx_tpu``'s ShardEngine): not ported yet (slice 5)."""
-        raise NotImplementedError(
-            "heal() needs the ShardEngine, which is not ported to "
-            "wdbx_tpu_torch yet (slice 5); store.verify() and "
-            "store.recover() work"
-        )
+        """Failure detection + checkpoint recovery: probe every mesh
+        position, and re-host any shard whose primary is unhealthy from
+        its last checkpoint (consuming the ShardEngine's replica plan).
+
+        ``allow_remesh`` (default: config ``MESH_AUTO_REMESH``) escalates
+        to LIVE RE-MESHING when positions stay unhealthy: sharded indexes
+        re-stripe onto a mesh of only the surviving positions (slot ids
+        are mesh-independent, so the store's registries are untouched)
+        and serving continues degraded."""
+        # Layer 1: bookkeeping integrity — registry / index divergence
+        # (state corruption with healthy devices) recovers per shard.
+        integrity = self.store.verify()
+        recovered = []
+        unrecovered = []
+        for entry in integrity["shards"]:
+            if not entry["ok"]:
+                # state is already inconsistent: clearing on a failed
+                # restore is acceptable (consistent-but-empty beats torn)
+                if self.store.recover(entry["shard"], clear_on_failure=True):
+                    recovered.append(entry["shard"])
+                else:
+                    unrecovered.append(entry["shard"])
+        if self.shard_engine is None:
+            integrity["recovered_shards"] = recovered
+            integrity["unrecovered_shards"] = unrecovered
+            return integrity
+        # Layer 2: position liveness — a dead position can hold rows of
+        # EVERY store shard (slabs stripe over the whole mesh), so a
+        # non-empty plan re-hosts all shards from their checkpoints. The
+        # plan keys are mesh positions, NOT store shards.
+        health = self.shard_engine.health_check()
+        plan = self.shard_engine.plan_recovery(health)
+        if allow_remesh is None:
+            allow_remesh = bool(self.config.get("MESH_AUTO_REMESH", False))
+        remeshed_to: list[str] = []
+        # Layer 3 runs FIRST when positions are unreachable: re-hosting
+        # onto the old mesh would write to the dead device. The re-mesh
+        # moves live data when the "dead" position still answers, and
+        # falls back to a cold re-host (empty tensors on the survivors +
+        # checkpoint reload) when it does not.
+        if plan and allow_remesh:
+            degraded = self.shard_engine.degraded_mesh(health)
+            if degraded is not self.shard_engine.mesh:
+                for shard, index in enumerate(self.store.indices):
+                    if not hasattr(index, "remesh"):
+                        continue
+                    try:
+                        index.remesh(degraded)
+                    except Exception:
+                        # old mesh unreachable: cold re-host from disk
+                        try:
+                            index.adopt_mesh(degraded)
+                            if not self.store.recover(
+                                shard, clear_on_failure=False
+                            ):
+                                unrecovered.append(shard)
+                        except Exception:
+                            unrecovered.append(shard)
+                self.shard_engine.adopt_mesh(degraded)
+                remeshed_to = list(degraded.names)
+        if plan and not remeshed_to:
+            for shard in range(len(self.store.indices)):
+                if shard in recovered:
+                    continue
+                # a flapping position must never wipe live unsaved rows:
+                # restore only when a checkpoint actually loads, and a
+                # dead device must not abort the whole heal
+                try:
+                    ok = self.store.recover(shard, clear_on_failure=False)
+                except Exception:
+                    ok = False
+                if ok:
+                    recovered.append(shard)
+                else:
+                    unrecovered.append(shard)
+        return {
+            "healthy": health["healthy"] and integrity["consistent"],
+            "devices": health["devices"],
+            "integrity": integrity["shards"],
+            "device_plan": {str(s): t for s, t in plan.items()},
+            "recovered_shards": recovered,
+            "unrecovered_shards": unrecovered,
+            "remeshed_to": remeshed_to,
+        }
 
     # -- data surface (async) ------------------------------------------------
     async def vector_store_async(

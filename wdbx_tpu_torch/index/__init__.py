@@ -1,7 +1,9 @@
 """Device-resident vector indexes (torch tensors on the CUDA device).
 
-The flat, clustered and dense IVF engines are ported; ``create_index``
-raises ``NotImplementedError`` for the sharded engines."""
+The flat, clustered and dense IVF engines, and (from
+``wdbx_tpu_torch.parallel``) the sharded flat and sharded IVF engines;
+``create_index`` raises ``NotImplementedError`` for
+``sharded_clustered``."""
 
 from wdbx_tpu_torch.index.base import VectorIndex, create_index
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
@@ -9,4 +11,13 @@ from wdbx_tpu_torch.index.flat import FlatIndex
 from wdbx_tpu_torch.index.ivf import IVFIndex
 
 __all__ = ["VectorIndex", "FlatIndex", "IVFIndex", "ClusteredIVFIndex",
-           "create_index"]
+           "ShardedFlatIndex", "ShardedIVFIndex", "create_index"]
+
+
+def __getattr__(name):  # lazy: the parallel package imports this one
+    if name in ("ShardedFlatIndex", "ShardedIVFIndex"):
+        import wdbx_tpu_torch.parallel as parallel
+
+        return getattr(parallel, name)
+    raise AttributeError(
+        f"module 'wdbx_tpu_torch.index' has no attribute {name!r}")

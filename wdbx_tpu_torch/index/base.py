@@ -1,9 +1,9 @@
 """Index ABC — the contract the store layer programs against.
 
 Torch port of ``wdbx_tpu/index/base.py``: the same ABC and the same
-``INDEX_TYPE`` alias routing. The flat, clustered and dense IVF engines
-are ported; aliases that route to the sharded engines raise
-``NotImplementedError`` naming the ROADMAP slice that ports them.
+``INDEX_TYPE`` alias routing. The flat, clustered, dense IVF, sharded
+flat and sharded IVF engines are ported; ``sharded_clustered`` raises
+``NotImplementedError`` naming the ROADMAP slice that ports it.
 
 The reference's ``VectorIndex`` ABC (reference wdbx/core/indexing.py:18)
 speaks string ids and per-vector calls because its backends are
@@ -52,7 +52,7 @@ def _not_ported(kind: str, slice_: str) -> NotImplementedError:
     )
 
 
-_SHARDED = "sharded engines (slice 5)"
+_SHARDED_CLUSTERED = "sharded clustered engine (slice 5c)"
 
 
 class VectorIndex(abc.ABC):
@@ -290,6 +290,24 @@ def create_index(
             )
             _apply_kernel_knobs(idx, config)
         return idx
-    if kind in ("sharded_flat", "sharded_clustered", "sharded_ivf"):
-        raise _not_ported(kind, _SHARDED)
+    if kind == "sharded_flat":
+        from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+
+        if config is not None:
+            kwargs["axis"] = config.get("MESH_AXIS", "shard")
+            kwargs["replicas"] = int(config.get("MESH_REPLICAS", 1))
+        return ShardedFlatIndex(dim, device=device, **kwargs)
+    if kind == "sharded_ivf":
+        from wdbx_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+        if config is not None:
+            kwargs["axis"] = config.get("MESH_AXIS", "shard")
+            kwargs["nlist"] = int(config.get("IVF_NLIST", 128))
+            kwargs["nprobe"] = int(config.get("IVF_NPROBE", 8))
+            kwargs["train_threshold"] = int(
+                config.get("IVF_TRAIN_THRESHOLD", 4096)
+            )
+        return ShardedIVFIndex(dim, device=device, **kwargs)
+    if kind == "sharded_clustered":
+        raise _not_ported(kind, _SHARDED_CLUSTERED)
     raise ValueError(f"unknown index type: {kind}")

@@ -121,7 +121,8 @@ class FlatIndex(VectorIndex):
         #: "auto" resolves per search: the fused CUDA kernels on the card,
         #: ``exact_search`` elsewhere. "approx" selects exactly here.
         self.topk_method = topk_method
-        #: "npz" only; "orbax" (sharded device I/O) waits for slice 5
+        #: "npz" (slot-order host arrays, read by both packages) or
+        #: "orbax" (one file a mesh position, ``store/persist.py``)
         self.persist_backend = "npz"
         self.dtype_name = dtype
         self._dtype = _DTYPES[dtype]
@@ -464,8 +465,7 @@ class FlatIndex(VectorIndex):
         """Repack live rows into the lowest slots. Returns
         ``(old_slots, new_slots)`` so the caller can remap its id table."""
         with self._mu.write():
-            valid = self._valid.cpu().numpy()
-            live = np.nonzero(valid)[0]
+            live = np.nonzero(self._host_valid_np())[0]
             n = len(live)
             old_slots = live.astype(np.int64)
             new_slots = np.arange(n, dtype=np.int64)
@@ -495,6 +495,14 @@ class FlatIndex(VectorIndex):
     def count(self) -> int:
         return self._size
 
+    def valid_count(self) -> int:
+        """Rows the device validity mask marks live (``store.verify``)."""
+        return int(self._valid.sum())
+
+    def _host_valid_np(self) -> np.ndarray:
+        """The validity mask on the host, in slot order."""
+        return self._valid.cpu().numpy()
+
     @property
     def capacity(self) -> int:
         return self._cap
@@ -512,29 +520,35 @@ class FlatIndex(VectorIndex):
             self._save_locked(path, skip_slab=skip_slab)
 
     def _save_locked(self, path: str, skip_slab: bool = False) -> None:
-        if self.persist_backend == "orbax":
-            raise NotImplementedError(
-                "persist_backend='orbax' is not ported (slice 5); use npz"
-            )
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         hwm = self._next_slot
-        if skip_slab:
-            # valid derives on the host (allocated minus freed); scales
-            # regenerate through the requantize at restore
-            arrays = {"valid": self._host_valid(hwm)}
+        if self.persist_backend == "orbax":
+            # one file a mesh position, written from its device
+            from wdbx_tpu_torch.store import persist
+
+            persist.save_arrays(path, self._position_arrays())
+            skip_slab = False
         else:
-            arrays = {
-                "valid": self._valid[:hwm].cpu().numpy(),
-                "slab": slab_to_numpy(self._slab[:hwm]),
-            }
-            if self._is_quantized:
-                arrays["scales"] = self._scales[:hwm].cpu().numpy()
-        np.savez(path + ".npz", **arrays)
+            # skip_slab: valid derives on the host (allocated minus
+            # freed); scales regenerate through the requantize at restore
+            arrays = ({"valid": self._host_valid(hwm)} if skip_slab
+                      else self._npz_arrays(hwm))
+            np.savez(path + ".npz", **arrays)
         meta = self._persist_meta()
         if skip_slab:
             meta["slab_external"] = True
         with open(path + ".meta.json", "w") as f:
             json.dump(meta, f)
+
+    def _npz_arrays(self, hwm: int) -> dict[str, np.ndarray]:
+        """The npz checkpoint's slot-order host arrays below ``hwm``."""
+        arrays = {
+            "valid": self._valid[:hwm].cpu().numpy(),
+            "slab": slab_to_numpy(self._slab[:hwm]),
+        }
+        if self._is_quantized:
+            arrays["scales"] = self._scales[:hwm].cpu().numpy()
+        return arrays
 
     def _host_valid(self, hwm: int) -> np.ndarray:
         """Validity bitmap from host bookkeeping: allocated positions are
@@ -574,15 +588,14 @@ class FlatIndex(VectorIndex):
             raise ValueError(
                 f"persisted index dim {meta['dim']} != configured {self.dim}"
             )
-        if meta.get("backend") == "orbax":
-            raise NotImplementedError(
-                "orbax checkpoints are not ported (slice 5)"
-            )
-        if not os.path.exists(path + ".npz"):
+        if meta.get("backend") != "orbax" and \
+                not os.path.exists(path + ".npz"):
             return False
         self.dtype_name = meta["dtype"]
         self._dtype = _DTYPES[self.dtype_name]
         self._precision = "highest" if self.dtype_name == "float32" else "default"
+        if meta.get("backend") == "orbax":
+            return self._load_positions(path, meta)
         data = np.load(path + ".npz")
         hwm = int(meta["next_slot"])
         self._cap = self._round_cap(
@@ -606,17 +619,8 @@ class FlatIndex(VectorIndex):
             if self._is_quantized:
                 self._scales = torch.from_numpy(scales_np).to(self.device)
         else:
-            self._slab = torch.zeros(
-                (self._cap, self._row_width), dtype=self._dtype,
-                device=self.device,
-            )
-            if hwm:
-                self._slab[:hwm] = slab_from_numpy(
-                    data["slab"], self._dtype
-                ).to(self.device)
-            self._valid = torch.from_numpy(valid_np).to(self.device)
-            if scales_np is not None:
-                self._scales = torch.from_numpy(scales_np).to(self.device)
+            self._install_loaded(data["slab"] if hwm else None, valid_np,
+                                 scales_np)
         self._gen += 1
         self._size = int(meta["size"])
         self._next_slot = hwm
@@ -625,6 +629,59 @@ class FlatIndex(VectorIndex):
         self._loaded_valid_np = valid_np[:hwm].copy()
         self._slab_restore_pending = bool(meta.get("slab_external"))
         return True
+
+    def _install_loaded(self, slab_hwm, valid_np: np.ndarray,
+                        scales_np: np.ndarray | None) -> None:
+        """Place a loaded checkpoint: ``slab_hwm`` holds the rows below
+        the high-water mark (checkpoint encoding), ``valid_np`` /
+        ``scales_np`` the whole capacity."""
+        self._slab = torch.zeros(
+            (self._cap, self._row_width), dtype=self._dtype,
+            device=self.device,
+        )
+        if slab_hwm is not None:
+            self._slab[: len(slab_hwm)] = slab_from_numpy(
+                slab_hwm, self._dtype
+            ).to(self.device)
+        self._valid = torch.from_numpy(valid_np).to(self.device)
+        if scales_np is not None:
+            self._scales = torch.from_numpy(scales_np).to(self.device)
+
+    def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
+        """The per-position checkpoint's arrays: one position here."""
+        arrays = {"slab": [self._slab], "valid": [self._valid]}
+        if self._is_quantized:
+            arrays["scales"] = [self._scales]
+        return arrays
+
+    def _install_positions(self, arrays: dict[str, list]) -> None:
+        self._slab, self._valid = arrays["slab"][0], arrays["valid"][0]
+        if self._is_quantized:
+            self._scales = arrays["scales"][0]
+
+    def _load_positions(self, path: str, meta: dict) -> bool:
+        """Load a per-position (``PERSIST_BACKEND=orbax``) checkpoint
+        onto this index's positions, at its saved capacity."""
+        from wdbx_tpu_torch.store import persist
+
+        arrays = persist.load_arrays(path, self._position_devices())
+        if arrays is None:
+            return False
+        self._cap = int(meta["capacity"])
+        self._slab = self._valid = self._scales = None
+        self._install_positions(arrays)
+        self._gen += 1
+        self._size = int(meta["size"])
+        self._next_slot = int(meta["next_slot"])
+        self._free = [int(s) for s in meta["free"]]
+        self._loaded_valid_np = self._host_valid_np()[: self._next_slot]
+        self._slab_restore_pending = False
+        self.persist_backend = "orbax"
+        return True
+
+    def _position_devices(self) -> list[torch.device]:
+        """Where a per-position checkpoint's positions load: one here."""
+        return [self.device]
 
     def _slots_for_positions(self, positions: np.ndarray) -> np.ndarray:
         """Slab position -> external slot (the identity here; clustered

@@ -915,16 +915,7 @@ class IVFIndex(FlatIndex):
         with self._mu.read():
             FlatIndex._save_locked(self, path, skip_slab=skip_slab)
             if self.is_trained:
-                arrays = dict(
-                    centroids=self._centroids.cpu().numpy(),
-                    bucket_slot=self._bucket_slot.cpu().numpy(),
-                    bucket_valid=self._bucket_valid.cpu().numpy(),
-                    bucket_rows=slab_to_numpy(self._bucket_rows),
-                    residual=np.asarray(self._residual, np.int32),
-                )
-                if self._bucket_scale is not None:
-                    arrays["bucket_scale"] = self._bucket_scale.cpu().numpy()
-                np.savez(path + ".ivf.npz", **arrays)
+                np.savez(path + ".ivf.npz", **self._overlay_host_arrays())
             with open(path + ".ivf.json", "w") as f:
                 json.dump({
                     "nlist": self.nlist,
@@ -934,6 +925,19 @@ class IVFIndex(FlatIndex):
                     "residual_base": self._residual_base,
                     "quarantine": self._quarantine,
                 }, f)
+
+    def _overlay_host_arrays(self) -> dict[str, np.ndarray]:
+        """The trained overlay as the ``.ivf.npz`` sidecar holds it."""
+        arrays = dict(
+            centroids=self._centroids.cpu().numpy(),
+            bucket_slot=self._bucket_slot.cpu().numpy(),
+            bucket_valid=self._bucket_valid.cpu().numpy(),
+            bucket_rows=slab_to_numpy(self._bucket_rows),
+            residual=np.asarray(self._residual, np.int32),
+        )
+        if self._bucket_scale is not None:
+            arrays["bucket_scale"] = self._bucket_scale.cpu().numpy()
+        return arrays
 
     def load(self, path: str) -> bool:
         with self._mu.write():

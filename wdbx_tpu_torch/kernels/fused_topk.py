@@ -424,6 +424,27 @@ def _search(db, queries, valid, k, scales, int4):
     return fused_topk_plain(db, queries, valid, k, scales=scales, int4=int4)
 
 
+def fused_topk_local(db, queries, valid, k, scales=None, int4=False):
+    """Stage 1 of one shard of a mesh: ``(B, parts, k)`` float32 scores
+    and int32 row indices (each part's k best, -inf / -1 pads), for
+    ``queries`` already of the kernel's type (``_prep_queries``). On a
+    CUDA slab it launches ``fused_topk_partial``; on a CPU slab it runs
+    the plain version as one part."""
+    if db.is_cuda:
+        return fused_topk_partial(db, queries, valid, k, scales=scales,
+                                  int4=int4)
+    v, i = fused_topk_plain(db, queries, valid, k, scales=scales, int4=int4)
+    return v[:, None, :], i.to(torch.int32)[:, None, :]
+
+
+def merge_partials(part_v, part_i, k):
+    """Stage 2 over ``(B, parts, k')`` partials of any part count: the
+    merge kernel on CUDA tensors, its plain version on CPU tensors."""
+    if part_v.is_cuda:
+        return topk_merge_partials(part_v, part_i, k)
+    return merge_partials_plain(part_v, part_i, k)
+
+
 def fused_topk_search(
     db: torch.Tensor,
     queries: torch.Tensor,

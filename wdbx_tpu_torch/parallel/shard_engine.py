@@ -1,0 +1,214 @@
+"""Shard control plane.
+
+Torch port of ``wdbx_tpu/parallel/shard_engine.py``: the topology, the
+shard -> position placement, the replication factor and liveness, as
+small host-side JSON state. The data plane is not here: a sharded search
+is one process launching each shard's scan on its own device and merging
+the partials (``parallel/sharded_flat.py``).
+
+Hosts join through ``torch.distributed`` when ``WDBX_COORDINATOR_ADDRESS``
+is set (with ``WDBX_NUM_PROCESSES`` and ``WDBX_PROCESS_ID``), the
+counterpart of ``jax.distributed.initialize``. The group is gloo: it
+carries the control plane only. The mesh stays this process's own
+devices (a global mesh over several processes is not ported), so every
+shard is local to the process that owns the engine.
+
+Every map here is keyed on the mesh's position names (``"cuda:0#3"``),
+never on ``str(device)``: positions of one card share their device.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import logging
+import os
+import socket
+import time
+from typing import Any
+
+import torch
+
+from wdbx_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+logger = logging.getLogger("wdbx_tpu_torch.parallel")
+
+#: seconds init_process_group waits for the other processes
+JOIN_TIMEOUT_S = 120
+
+
+def _init_method(address: str) -> str:
+    return address if "://" in address else f"tcp://{address}"
+
+
+class ShardEngine:
+    """Owns the device mesh and shard placement metadata."""
+
+    def __init__(self, config: Any, mesh: Mesh | None = None,
+                 device: Any = None):
+        self.config = config
+        self.axis = str(config.get("MESH_AXIS", "shard"))
+        self.replication_factor = int(
+            config.get("DISTRIBUTED_REPLICATION_FACTOR", 1)
+        )
+        self.node_id = f"{socket.gethostname()}_{int(time.time())}"
+        self.mesh = mesh
+        #: where ``make_mesh`` lays the default mesh (None: the CUDA devices)
+        self.device = device
+        self._initialized = False
+        self._joined = False  # this engine created the process group
+
+    def _mesh(self) -> Mesh:
+        if self.mesh is None:
+            self.mesh = make_mesh(axis=self.axis, device=self.device)
+        return self.mesh
+
+    async def initialize(self) -> None:
+        if self._initialized:
+            return
+        import torch.distributed as dist
+
+        coord = os.environ.get("WDBX_COORDINATOR_ADDRESS")
+        if coord and dist.is_available() and not dist.is_initialized():
+            try:
+                dist.init_process_group(
+                    backend="gloo", init_method=_init_method(coord),
+                    world_size=int(os.environ.get("WDBX_NUM_PROCESSES", "1")),
+                    rank=int(os.environ.get("WDBX_PROCESS_ID", "0")),
+                    timeout=datetime.timedelta(seconds=JOIN_TIMEOUT_S),
+                )
+                self._joined = True
+            except Exception as e:
+                logger.warning("torch.distributed join failed: %s", e)
+        self._mesh()
+        self._persist_allocation()
+        self._initialized = True
+
+    async def shutdown(self) -> None:
+        if self._joined:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            self._joined = False
+        self._initialized = False
+
+    @staticmethod
+    def _process() -> tuple[int, int]:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank(), dist.get_world_size()
+        return 0, 1
+
+    # -- placement metadata ------------------------------------------------
+    def allocation(self) -> dict[str, Any]:
+        """Shard -> position map. Positions replace the reference's
+        'nodes'; replication means the same logical shard present on r
+        positions (recomputed from checkpoint on failure)."""
+        names = self._mesh().names
+        rank, world = self._process()
+        return {
+            "axis": self.axis,
+            "node_id": self.node_id,
+            "process_index": rank,
+            "process_count": world,
+            "replication_factor": self.replication_factor,
+            "shards": {
+                str(i): {
+                    "primary": name,
+                    "replicas": [
+                        names[(i + r) % len(names)]
+                        for r in range(1, self.replication_factor)
+                    ],
+                }
+                for i, name in enumerate(names)
+            },
+        }
+
+    def _persist_allocation(self) -> None:
+        data_dir = self.config.get("DATA_DIR", "./wdbx_data")
+        try:
+            os.makedirs(data_dir, exist_ok=True)
+            with open(os.path.join(data_dir, "shard_allocation.json"), "w") as f:
+                json.dump(self.allocation(), f, indent=2)
+        except OSError as e:
+            logger.warning("failed to persist shard allocation: %s", e)
+
+    def is_local_shard(self, shard: int) -> bool:
+        """Whether this process owns the shard's position: always, since
+        the mesh is this process's own devices."""
+        del shard
+        return True
+
+    def health_check(self) -> dict[str, Any]:
+        """Per-position liveness: an 8x8 product on each position's
+        device, then a synchronization of that device, so an
+        asynchronous CUDA fault counts against the position that ran."""
+        mesh = self._mesh()
+        statuses = {}
+        for name, device in zip(mesh.names, mesh.devices):
+            try:
+                out = torch.ones((8, 8), device=device) @ torch.ones(
+                    (8, 8), device=device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                ok = float(out[0, 0]) == 8.0
+            except Exception as e:
+                statuses[name] = f"error: {e}"
+                continue
+            statuses[name] = "ok" if ok else "bad-result"
+        healthy = all(v == "ok" for v in statuses.values())
+        return {"healthy": healthy, "devices": statuses}
+
+    def plan_recovery(
+        self, health: dict[str, Any] | None = None
+    ) -> dict[int, str]:
+        """For every shard whose primary position is unhealthy, the
+        first healthy replica (else any healthy position): ``{shard:
+        target position}``. The caller re-hosts from the checkpoint."""
+        health = health or self.health_check()
+        healthy = {n for n, s in health["devices"].items() if s == "ok"}
+        plan: dict[int, str] = {}
+        for shard_s, placement in self.allocation()["shards"].items():
+            if placement["primary"] in healthy:
+                continue
+            target = next(
+                (r for r in placement["replicas"] if r in healthy), None
+            )
+            if target is None:
+                target = next(iter(sorted(healthy)), None)
+            if target is not None:
+                plan[int(shard_s)] = target
+        return plan
+
+    def degraded_mesh(self, health: dict[str, Any] | None = None) -> Mesh:
+        """Mesh of only the healthy positions, which keep their names:
+        the live re-meshing target when a device is gone. Returns the
+        current mesh unchanged when everything is healthy. Replica axes
+        collapse: survival beats data-parallel fan-out."""
+        health = health or self.health_check()
+        mesh = self._mesh()
+        keep = [i for i, n in enumerate(mesh.names)
+                if health["devices"].get(n) == "ok"]
+        if not keep:
+            raise RuntimeError("no healthy devices to remesh onto")
+        if len(keep) == mesh.size:
+            return mesh
+        return Mesh([mesh.devices[i] for i in keep], (self.axis,),
+                    names=[mesh.names[i] for i in keep])
+
+    def adopt_mesh(self, mesh: Mesh) -> None:
+        """Install a new mesh (post-remesh) and persist the allocation."""
+        self.mesh = mesh
+        self._persist_allocation()
+
+    def get_stats(self) -> dict[str, Any]:
+        return {
+            "node_id": self.node_id,
+            "axis": self.axis,
+            "devices": list(self.mesh.names) if self.mesh else [],
+            "replication_factor": self.replication_factor,
+            "process_count": self._process()[1],
+            "initialized": self._initialized,
+        }

@@ -1,0 +1,521 @@
+"""Device-sharded flat index: the corpus striped over the positions of a
+mesh.
+
+Torch port of ``wdbx_tpu/parallel/sharded_flat.py``. The JAX index runs
+a search as one ``shard_map``: every device scores its local slab with
+the fused kernel, takes a local top-k, all-gathers the ``(B, k)``
+candidates and merges. Here one process drives the mesh: each shard runs
+its own stage 1 (``fused_topk_partial``, K1 / K2, on its position's
+device; the plain version on the CPU), its local row indices become
+global slots on the device, and the partials of all shards go through
+ONE stage-2 merge (``topk_merge_partials``), which takes any part count.
+
+Layout: slot ``s`` lives at row ``s // n_dev`` of shard ``s % n_dev``,
+held as one ``(rows_per_device, width)`` tensor per mesh position with
+its validity and (int8 / int4) scales. Sequential slots round-robin over
+the shards, and a slot's shard never changes when capacity grows. With
+a replica axis (``make_mesh2``) each replica group holds a copy of every
+shard: a query batch splits over the groups and every write reaches
+every copy.
+
+Differences from the JAX index, all deliberate: one merge over the
+concatenated partials instead of ``all_gather`` + ``top_k``; selection
+is exact where JAX's sharded path may take ``approx_max_k``; no
+power-of-two padding of batches; slots past the slab are dropped before
+a write (JAX's scatter drops them); checkpoints: the npz slot-order
+layout of the JAX index (so checkpoints move between device counts and
+between the packages), or one file a position with
+``persist_backend="orbax"`` (``store/persist.py``).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any
+
+import numpy as np
+import torch
+
+from wdbx_tpu_torch.index.base import VectorIndex
+from wdbx_tpu_torch.index.flat import (
+    FlatIndex,
+    _next_pow2,
+    slab_from_numpy,
+    slab_to_numpy,
+    to_tensor,
+)
+from wdbx_tpu_torch.kernels.fused_topk import (
+    _prep_queries,
+    fused_topk_local,
+    fused_topk_plain,
+    merge_partials,
+    merge_partials_plain,
+)
+from wdbx_tpu_torch.kernels.quant import (
+    quantize_rows,
+    quantize_rows_int4,
+    unpack_int4,
+)
+from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh2
+
+logger = logging.getLogger("wdbx_tpu_torch.parallel")
+
+
+class ShardedFlatIndex(FlatIndex):
+    kind = "sharded_flat"
+    #: sharded slabs keep their own save path (no slab-external
+    #: reconstruction for mesh-striped layouts)
+    supports_slab_external = False
+    #: packed int4 stays packed on every shard: K2 unpacks per tile
+    _INT4_OK = True
+
+    def __init__(
+        self,
+        dim: int,
+        metric: str = "cosine",
+        dtype: str = "float32",
+        capacity: int = 1024,
+        mesh: Mesh | None = None,
+        axis: str = "shard",
+        replicas: int = 1,
+        device: Any = None,
+    ):
+        if dtype == "int4" and not self._INT4_OK:
+            raise ValueError(
+                "int4 is supported by 'flat', 'sharded_flat', "
+                "'ivf_clustered' and 'sharded_clustered' — the "
+                "dense-table IVF's bucket tables have no nibble unpack"
+            )
+        if mesh is None:
+            mesh = (make_mesh2(replicas, axes=("replica", axis), device=device)
+                    if replicas > 1 else make_mesh(axis=axis, device=device))
+        self.axis = axis
+        self._set_mesh(mesh)
+        super().__init__(dim, metric=metric, dtype=dtype, capacity=capacity,
+                         device=mesh.devices[0])
+
+    # -- topology -----------------------------------------------------------
+    def _set_mesh(self, mesh: Mesh) -> None:
+        if self.axis not in mesh.axis_names:
+            raise ValueError(
+                f"new mesh lacks axis {self.axis!r}: {mesh.axis_names}"
+            )
+        if mesh.axis_names[-1] != self.axis:
+            raise ValueError(f"the shard axis {self.axis!r} must be the "
+                             f"mesh's last: {mesh.axis_names}")
+        self.mesh = mesh
+        self.replica_axis = (
+            "replica" if "replica" in mesh.axis_names else None
+        )
+        #: number of corpus shards (slot striping runs over these)
+        self.n_devices = int(mesh.shape[self.axis])
+        self.replicas = mesh.size // self.n_devices
+        #: queries, results and merges live on the first position's device
+        self.device = mesh.devices[0]
+
+    # -- sharded storage ------------------------------------------------------
+    def _round_cap(self, need: int) -> int:
+        per_need = max(128, -(-need // self.n_devices))
+        if per_need <= self._CAP_CHUNK:
+            per_dev = _next_pow2(per_need)
+        else:  # 1M-row-per-device granularity past the pow2 regime
+            per_dev = -(-per_need // self._CAP_CHUNK) * self._CAP_CHUNK
+        cap = per_dev * self.n_devices
+        if cap >= 2**31:  # slots stay int32 through the merge
+            raise ValueError(f"capacity {cap} needs slots past int32")
+        return cap
+
+    @property
+    def rows_per_device(self) -> int:
+        return self._cap // self.n_devices
+
+    def _alloc(self, cap: int) -> None:
+        self._gen += 1
+        rpd = cap // self.n_devices
+        devs = self.mesh.devices
+        self._slabs = [torch.zeros((rpd, self._row_width), dtype=self._dtype,
+                                   device=d) for d in devs]
+        self._valids = [torch.zeros((rpd,), dtype=torch.bool, device=d)
+                        for d in devs]
+        self._row_scales = [
+            torch.zeros((rpd,), dtype=torch.float32, device=d)
+            if self._is_quantized else None for d in devs
+        ]
+
+    def _grow(self, need: int) -> None:
+        new_cap = self._round_cap(max(need, int(self._cap * 1.5)))
+        rpd = new_cap // self.n_devices
+        self._slabs = [self._grown(t, rpd) for t in self._slabs]
+        self._valids = [self._grown(t, rpd) for t in self._valids]
+        self._row_scales = [None if t is None else self._grown(t, rpd)
+                            for t in self._row_scales]
+        self._cap = new_cap
+        self._gen += 1
+
+    def _slot_tensor(self, slots) -> torch.Tensor:
+        # slots route to their shards on the host
+        return torch.as_tensor(np.asarray(slots, np.int64))
+
+    def _route(self, slots: torch.Tensor):
+        """``(shard, at, rows)`` for each shard that host ``slots`` touch:
+        ``at`` indexes ``slots``, ``rows`` are the shard's local rows.
+        Slots outside the slab are dropped, as JAX's scatter drops them."""
+        n_dev = self.n_devices
+        inside = (slots >= 0) & (slots < self._cap)
+        shard = torch.where(inside, slots % n_dev, -1)
+        for s in range(n_dev):
+            at = (shard == s).nonzero().flatten()
+            if at.numel():
+                yield s, at, slots[at] // n_dev
+
+    def _copies(self, s: int):
+        """Mesh positions holding shard ``s`` (one per replica group)."""
+        return range(s, self.mesh.size, self.n_devices)
+
+    def _write_rows(self, slots: torch.Tensor, vecs: torch.Tensor,
+                    flag: bool) -> None:
+        """Write rows (quantizing once for int8 / int4) into every copy
+        of their shards, in place or on clones while ``_cow_writes``."""
+        cow = self._cow_writes
+        if self._is_quantized:
+            quant = quantize_rows_int4 if self._is_int4 else quantize_rows
+            q, sc = quant(vecs)
+        else:
+            q, sc = vecs.to(self._dtype), None
+        for s, at, rows in self._route(slots):
+            at = at.to(q.device)
+            q_s = q[at]
+            sc_s = sc[at] if sc is not None else None
+            for p in self._copies(s):
+                dev = self.mesh.devices[p]
+                r = rows.to(dev)
+                slab = self._slabs[p].clone() if cow else self._slabs[p]
+                valid = self._valids[p].clone() if cow else self._valids[p]
+                slab[r] = q_s.to(dev)
+                valid[r] = flag
+                self._slabs[p], self._valids[p] = slab, valid
+                if sc_s is not None:
+                    scales = (self._row_scales[p].clone() if cow
+                              else self._row_scales[p])
+                    scales[r] = sc_s.to(dev)
+                    self._row_scales[p] = scales
+        self._gen += 1
+
+    def _tombstone(self, slots: torch.Tensor) -> None:
+        cow = self._cow_writes
+        for s, _, rows in self._route(slots):
+            for p in self._copies(s):
+                valid = self._valids[p].clone() if cow else self._valids[p]
+                valid[rows.to(valid.device)] = False
+                self._valids[p] = valid
+        self._gen += 1
+
+    def _place(
+        self,
+        slab_np: np.ndarray,
+        valid_np: np.ndarray,
+        scales_np: np.ndarray | None = None,
+    ) -> None:
+        """Slot-order ``(cap, width)`` host arrays -> striped positions."""
+        n_dev = self.n_devices
+        devs = self.mesh.devices
+        self._slabs = [slab_from_numpy(slab_np[p % n_dev::n_dev],
+                                       self._dtype).to(d)
+                       for p, d in enumerate(devs)]
+        self._valids = [torch.from_numpy(np.require(
+            valid_np[p % n_dev::n_dev], bool, ["C", "W", "O"])).to(d)
+            for p, d in enumerate(devs)]
+        if self._is_quantized and scales_np is None:
+            scales_np = np.zeros(self._cap, np.float32)
+        self._row_scales = [
+            torch.from_numpy(np.require(scales_np[p % n_dev::n_dev],
+                                        np.float32, ["C", "W", "O"])).to(d)
+            if self._is_quantized else None for p, d in enumerate(devs)
+        ]
+        self._gen += 1
+
+    def _install_loaded(self, slab_hwm, valid_np, scales_np) -> None:
+        n_dev, rpd = self.n_devices, self.rows_per_device
+        slabs = []
+        for p, dev in enumerate(self.mesh.devices):
+            slab = torch.zeros((rpd, self._row_width), dtype=self._dtype,
+                               device=dev)
+            part = slab_hwm[p % n_dev::n_dev] if slab_hwm is not None else []
+            if len(part):
+                slab[: len(part)] = slab_from_numpy(part, self._dtype).to(dev)
+            slabs.append(slab)
+        self._slabs = slabs
+        # owned copies: replica positions must not share host storage
+        self._valids = [torch.from_numpy(np.require(
+            valid_np[p % n_dev::n_dev], bool, ["C", "W", "O"])).to(d)
+            for p, d in enumerate(self.mesh.devices)]
+        self._row_scales = [
+            torch.from_numpy(np.require(
+                scales_np[p % n_dev::n_dev], np.float32, ["C", "W", "O"])).to(d)
+            if scales_np is not None else None
+            for p, d in enumerate(self.mesh.devices)
+        ]
+
+    def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
+        """One position per shard (the first replica group's copies)."""
+        n_dev = self.n_devices
+        arrays = {"slab": self._slabs[:n_dev], "valid": self._valids[:n_dev]}
+        if self._is_quantized:
+            arrays["scales"] = self._row_scales[:n_dev]
+        return arrays
+
+    def _position_devices(self) -> list[torch.device]:
+        return list(self.mesh.devices[: self.n_devices])
+
+    def _install_positions(self, arrays: dict[str, list]) -> None:
+        n_dev, devs = self.n_devices, self.mesh.devices
+
+        def spread(parts):
+            return [parts[p] if p < n_dev else
+                    parts[p % n_dev].to(devs[p], copy=True)
+                    for p in range(len(devs))]
+
+        self._slabs = spread(arrays["slab"])
+        self._valids = spread(arrays["valid"])
+        self._row_scales = (spread(arrays["scales"]) if self._is_quantized
+                            else [None] * len(devs))
+
+    def _interleave(self, parts: list[torch.Tensor]) -> np.ndarray:
+        """Slot-order host array from one tensor a shard (checkpoint
+        encoding: bf16 as uint16 bits)."""
+        n_dev = self.n_devices
+        host = [slab_to_numpy(t) for t in parts[:n_dev]]
+        out = np.empty((self._cap,) + host[0].shape[1:], host[0].dtype)
+        for s, h in enumerate(host):
+            out[s::n_dev] = h
+        return out
+
+    def _host_slot_view(self):
+        """Slot-order host copies of the slab (checkpoint encoding), the
+        validity and the scales (None for float slabs)."""
+        scales = (self._interleave(self._row_scales)
+                  if self._is_quantized else None)
+        return (self._interleave(self._slabs),
+                self._interleave(self._valids), scales)
+
+    def _host_valid_np(self) -> np.ndarray:
+        return self._interleave(self._valids)
+
+    def valid_count(self) -> int:
+        return int(sum(int(v.sum()) for v in self._valids[: self.n_devices]))
+
+    def _npz_arrays(self, hwm: int) -> dict[str, np.ndarray]:
+        slab, valid, scales = self._host_slot_view()
+        arrays = {"slab": slab[:hwm], "valid": valid[:hwm]}
+        if scales is not None:
+            arrays["scales"] = scales[:hwm]
+        return arrays
+
+    # -- sharded search -------------------------------------------------------
+    def _masked_valids(self, mask_np) -> list[torch.Tensor]:
+        """Per-position validity ANDed with a host filter mask, cached by
+        the mask object's identity and the write generation."""
+        cache = getattr(self, "_maskdev_cache", None)
+        if cache is None:
+            cache = self._maskdev_cache = {}
+        key = (id(mask_np), self._gen)
+        hit = cache.get(key)
+        if hit is not None:
+            return hit[1]
+        full = np.zeros(self._cap, bool)
+        n = min(len(mask_np), self._cap)
+        full[:n] = mask_np[:n]
+        n_dev = self.n_devices
+        out = [torch.logical_and(v, torch.from_numpy(np.ascontiguousarray(
+            full[p % n_dev::n_dev])).to(v.device))
+            for p, v in enumerate(self._valids)]
+        while len(cache) >= 4:
+            cache.pop(next(iter(cache)))
+        cache[key] = (mask_np, out)
+        return out
+
+    def _group_topk(self, group: int, q: torch.Tensor, k: int, valids,
+                    kernels: bool):
+        """Sorted ``(B, k)`` scores and int64 slots of queries ``q`` over
+        replica group ``group``: each shard's stage 1 on its position,
+        local rows -> slots (``row * n_dev + shard``, -1 stays -1) on the
+        device, then one merge over all shards' partials."""
+        n_dev = self.n_devices
+        k_local = min(k, self.rows_per_device)
+        if self.metric == "cosine":
+            q = l2_normalize(q)
+        parts_v, parts_i = [], []
+        prepped = {}  # the kernel's query type, once a device
+        for s in range(n_dev):
+            p = group * n_dev + s
+            slab, sc = self._slabs[p], self._row_scales[p]
+            qk = prepped.get(slab.device)
+            if qk is None:
+                qk = prepped[slab.device] = _prep_queries(
+                    slab, q.to(slab.device), sc, False)
+            if kernels:
+                pv, pi = fused_topk_local(slab, qk, valids[p], k_local,
+                                          scales=sc, int4=self._is_int4)
+            else:
+                v, i = fused_topk_plain(slab, qk, valids[p], k_local,
+                                        scales=sc, int4=self._is_int4)
+                pv, pi = v[:, None, :], i.to(torch.int32)[:, None, :]
+            gi = torch.where(pi >= 0, pi * n_dev + s, -1)
+            parts_v.append(pv.to(self.device))
+            parts_i.append(gi.to(self.device))
+        part_v, part_i = torch.cat(parts_v, 1), torch.cat(parts_i, 1)
+        merge = merge_partials if kernels else merge_partials_plain
+        return merge(part_v, part_i, k)
+
+    def _mesh_search(self, qstack: torch.Tensor, k: int, valids):
+        """``(NB, B, min(k, cap))`` device scores and slots of a query
+        stack: the batch axis splits over the replica groups, each group
+        serves its slice of every batch."""
+        nb, b, d = qstack.shape
+        kk = min(k, self._cap)
+        out_v = torch.full((nb, b, kk), float("-inf"), device=self.device)
+        out_i = torch.full((nb, b, kk), -1, dtype=torch.int64,
+                           device=self.device)
+        kernels = self._resolve_topk() == "fused"
+        cuts = [b * g // self.replicas for g in range(self.replicas + 1)]
+        for g in range(self.replicas):
+            lo, hi = cuts[g], cuts[g + 1]
+            if hi == lo:
+                continue
+            q = qstack[:, lo:hi].reshape(-1, d)
+            v, i = self._group_topk(g, q, kk, valids, kernels)
+            out_v[:, lo:hi] = v.reshape(nb, hi - lo, kk)
+            out_i[:, lo:hi] = i.reshape(nb, hi - lo, kk)
+        return out_v, out_i
+
+    @staticmethod
+    def _finish_sharded(scores: np.ndarray, slots: np.ndarray, k: int):
+        """Host post-processing shared by every sharded path: k-pad (k
+        can exceed the capacity) and -1 wherever the score is -inf."""
+        scores = np.asarray(scores, np.float32)
+        out = np.asarray(slots, np.int64).copy()
+        if scores.shape[-1] < k:
+            pad = [(0, 0)] * (scores.ndim - 1) + [(0, k - scores.shape[-1])]
+            scores = np.pad(scores, pad, constant_values=-np.inf)
+            out = np.pad(out, pad, constant_values=-1)
+        out[scores == -np.inf] = -1
+        return scores, out
+
+    def search(
+        self,
+        queries,
+        k: int,
+        slot_mask: np.ndarray | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        queries = self._prep(queries)
+        with self._mu.read():
+            valids = (self._valids if slot_mask is None
+                      else self._masked_valids(slot_mask))
+            q = to_tensor(queries, self.device)
+            v, i = self._mesh_search(q[None], k, valids)
+            scores, slots = v[0].cpu().numpy(), i[0].cpu().numpy()
+        return self._finish_sharded(scores, slots, k)
+
+    def search_pipelined(self, qstack, k: int, materialize: bool = True):
+        """Serve a (NB, B, d) stack: on the card one stage-1 launch a
+        shard over all NB*B queries and one merge. ``materialize=False``
+        returns an in-flight handle (device tensors, no synchronisation);
+        resolve it with ``resolve_pipelined`` before mutating the index."""
+        q = to_tensor(qstack, self.device)
+        if q.ndim != 3 or q.shape[-1] != self.dim:
+            raise ValueError(
+                f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
+            )
+        with self._mu.read():
+            v, i = self._mesh_search(q, k, self._valids)
+        handle = ("sflat", v, i, k)
+        if not materialize:
+            return handle
+        return self.resolve_pipelined(handle)
+
+    def resolve_pipelined(self, handle):
+        """Materialize an in-flight ``search_pipelined`` handle."""
+        _, v, i, k = handle
+        return ShardedFlatIndex._finish_sharded(v.cpu().numpy(),
+                                                i.cpu().numpy(), k)
+
+    # -- live re-meshing --------------------------------------------------------
+    def adopt_mesh(self, mesh: Mesh) -> None:
+        """Install a new topology with EMPTY storage (cold re-host): the
+        old mesh may be unreachable, so nothing is read from it; the
+        caller reloads from a checkpoint (``load`` / ``store.recover``)."""
+        with self._mu.write():
+            self._set_mesh(mesh)
+            self._cap = self._round_cap(max(self._next_slot, 1024))
+            self._alloc(self._cap)
+            self._size = 0
+            self._free = []
+            self._next_slot = 0
+
+    def remesh(self, mesh: Mesh) -> None:
+        """Re-host the index on another mesh IN PLACE (a lost device, or
+        more devices). Slot ids are mesh-independent, so the store's
+        registries survive; slot ``s`` moves from ``(s % n_old, s //
+        n_old)`` to ``(s % n_new, s // n_new)`` through the host
+        slot-order view. Reads every old position: a dead device makes
+        this raise (``WDBX.heal`` then cold re-hosts)."""
+        with self._mu.write():
+            if self.axis not in mesh.axis_names:
+                raise ValueError(
+                    f"new mesh lacks axis {self.axis!r}: {mesh.axis_names}"
+                )
+            hwm = self._next_slot
+            old_ndev = self.n_devices
+            slab_np, valid_np, scales_np = self._host_slot_view()
+            self._set_mesh(mesh)
+            new_cap = self._round_cap(max(hwm, 1024))
+
+            def fit(x, fill):
+                if x is None:
+                    return None
+                out = np.full((new_cap,) + x.shape[1:], fill, x.dtype)
+                n = min(new_cap, x.shape[0])
+                out[:n] = x[:n]
+                return out
+
+            self._cap = new_cap
+            self._place(fit(slab_np, 0), fit(valid_np, False),
+                        fit(scales_np, 1.0))
+            self._free = [s for s in self._free if s < new_cap]
+            logger.info(
+                "remeshed %d -> %d shards (cap %d, %d live rows)",
+                old_ndev, self.n_devices, new_cap, self._size,
+            )
+
+    def get_vectors(self, slots: np.ndarray) -> np.ndarray:
+        slots = np.asarray(slots, np.int64)
+        if len(slots) and (slots.min() < 0 or slots.max() >= self._cap):
+            raise IndexError(f"slots outside the slab of {self._cap}")
+        out = np.zeros((len(slots), self.dim), np.float32)
+        with self._mu.read():
+            for s, at, rows in self._route(torch.as_tensor(slots)):
+                r = rows.to(self._slabs[s].device)
+                got = self._slabs[s][r]
+                if self._is_int4:
+                    got = unpack_int4(got)
+                got = got.to(torch.float32)
+                if self._is_quantized:
+                    got = got * self._row_scales[s][r][:, None]
+                out[at.numpy()] = got.cpu().numpy()
+        return out
+
+    def get_stats(self) -> dict:
+        stats = VectorIndex.get_stats(self)
+        stats.update(
+            dtype=self.dtype_name,
+            tombstones=len(self._free),
+            hbm_bytes=sum(t.numel() * t.element_size() for t in self._slabs),
+            device=str(self.device),
+            devices=self.n_devices,
+            mesh_axis=self.axis,
+            replicas=self.replicas,
+            rows_per_device=self.rows_per_device,
+            positions=list(self.mesh.names),
+        )
+        return stats

@@ -1,0 +1,507 @@
+"""Mesh-sharded IVF: bucket tables split over the mesh's shards,
+centroids replicated, probe scan + merge over every shard.
+
+Torch port of ``wdbx_tpu/parallel/sharded_ivf.py``:
+
+  * the base slab is the ``ShardedFlatIndex`` striped layout: mutation,
+    tombstones, persistence, growth and the fresh (residual) buffer all
+    inherit unchanged;
+  * the IVF overlay splits ``bucket_rows (nlist, cap_b, d)`` /
+    ``bucket_slot`` / ``bucket_valid`` over the shards in nlist-major
+    blocks (shard s owns buckets ``[s*L, (s+1)*L)``), one tensor set a
+    shard on its position's device; the centroids are replicated;
+  * a query batch takes the steps of JAX's ``_build_ivf_search`` in its
+    order: probe selection over all centroids; on each shard the QUOTA
+    compaction of the ``(B*P,)`` probe list, its own buckets first in
+    rank order, keeping ``Q = ~2*B*P/n_dev`` entries (overflow drops the
+    lowest-ranked probes, as JAX does); a per-(query, probe) top-k over
+    each kept bucket; the residual scan over the shard's fresh slots; the
+    shard's local top-k; the merge across shards.
+
+The scan is plain torch, as JAX's is ``lax`` (K5 does not serve it).
+Kept buckets are gathered a chunk at a time (``_SCAN_CHUNK_BYTES`` of
+float32 rows), so one shard's quota never materializes whole. Probe
+selection and the quota keep JAX's tie order (``lax.top_k`` keeps the
+lower index): batches pad to a power of two with zero queries, whose
+probes take quota slots on the padded batch exactly as in JAX.
+
+Replica groups are not used by this engine (JAX's ``ShardedIVFIndex``
+takes no ``replicas``): the tables live on the first group's positions.
+A checkpoint whose nlist does not split over this mesh's shards loads
+untrained and rebuilds on the next search.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+
+import numpy as np
+import torch
+
+from wdbx_tpu_torch.index.flat import (
+    _next_pow2,
+    slab_from_numpy,
+    slab_to_numpy,
+    to_tensor,
+)
+from wdbx_tpu_torch.index.ivf import (
+    _SCAN_CHUNK_BYTES,
+    FILTER_EXACT_THRESHOLD,
+    IVFIndex,
+    _capped_placement,
+    _filter_boost,
+    _mask_bucket_valid_body,
+    _pack_slot_positions,
+    _scores_of,
+)
+from wdbx_tpu_torch.ops.exact_search import f32_scores, true_f32
+from wdbx_tpu_torch.ops.kmeans import kmeans
+from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+
+logger = logging.getLogger("wdbx_tpu_torch.parallel")
+
+
+class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
+    """IVF overlay on the mesh-striped slab. MRO: IVF bookkeeping
+    (residual / quarantine / rebuild triggers) runs above the
+    ShardedFlatIndex storage; build and search are the sharded ones."""
+
+    kind = "sharded_ivf"
+    #: the dense bucket tables gather raw codes with no nibble unpack
+    _INT4_OK = False
+
+    def __init__(self, dim, metric="cosine", dtype="float32",
+                 capacity=1024, mesh=None, axis="shard", nlist=128,
+                 nprobe=8, train_threshold=4096, rebuild_fraction=0.2,
+                 kmeans_iters=15, train_sample=262_144, quota_slack=2.0,
+                 device=None):
+        # ShardedFlatIndex.__init__ consumes mesh / axis and reaches
+        # FlatIndex through the MRO; the IVF knobs are set after
+        ShardedFlatIndex.__init__(
+            self, dim, metric=metric, dtype=dtype, capacity=capacity,
+            mesh=mesh, axis=axis, device=device,
+        )
+        self.nlist = nlist
+        self.nprobe = nprobe
+        self.assignments = 1
+        self.train_threshold = train_threshold
+        self.rebuild_fraction = rebuild_fraction
+        self.kmeans_iters = kmeans_iters
+        self.train_sample = train_sample
+        #: per-shard probe quota = slack * B*P/n_dev
+        self.quota_slack = quota_slack
+        self.batch_flat_fallback = True
+        self.topk_method = "auto"
+        self.ivf_kernel = "lax"
+        self._filter_boosts: dict[int, int] = {}
+        self._reset_overlay()
+
+    @property
+    def _local_nlist(self) -> int:
+        return int(self._bucket_slot[0].shape[0])
+
+    # -- topology -------------------------------------------------------------
+    def adopt_mesh(self, mesh) -> None:
+        """Cold re-host: empty storage on the new topology (the caller
+        reloads from checkpoint); the bucket overlay resets."""
+        ShardedFlatIndex.adopt_mesh(self, mesh)
+        with self._mu.write():
+            self._reset_overlay()
+
+    def remesh(self, mesh) -> None:
+        """Re-stripe the slab on the new mesh, then rebuild the bucket
+        overlay there (its tables are split by shard)."""
+        was_trained = self.is_trained
+        ShardedFlatIndex.remesh(self, mesh)
+        with self._mu.write():
+            self._reset_overlay()
+        if was_trained and self._size:
+            self.build()
+
+    # -- build ----------------------------------------------------------------
+    def build(self) -> None:
+        with self._mu.write():
+            self._sharded_build_locked()
+
+    def _gather_raw(self, slots: np.ndarray):
+        """Stored rows (raw codes) and scales of slots, on the first
+        position's device, in the order of ``slots``."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64))
+        rows = torch.empty((len(idx), self._row_width), dtype=self._dtype,
+                           device=self.device)
+        scales = (torch.empty((len(idx),), dtype=torch.float32,
+                              device=self.device)
+                  if self._is_quantized else None)
+        for s, at, r in self._route(idx):
+            at = at.to(self.device)
+            r = r.to(self._slabs[s].device)
+            rows[at] = self._slabs[s][r].to(self.device)
+            if scales is not None:
+                scales[at] = self._row_scales[s][r].to(self.device)
+        return rows, scales
+
+    def _gather_unit(self, slots: np.ndarray) -> torch.Tensor:
+        """Float32 rows of slots (dequantized; unit norm for cosine)."""
+        rows, scales = self._gather_raw(slots)
+        rows = rows.to(torch.float32)
+        if scales is not None:
+            rows = rows * scales[:, None]
+        if self.metric == "cosine":
+            rows = rows / torch.clamp_min(
+                torch.linalg.norm(rows, dim=-1, keepdim=True), 1e-12
+            )
+        return rows
+
+    def _sharded_build_locked(self) -> None:
+        hwm = self._next_slot
+        if self._size == 0 or hwm == 0:
+            self._reset_overlay()
+            return
+        live_slots = np.nonzero(self._host_valid_np()[:hwm])[0].astype(
+            np.int64)
+        n_live = len(live_slots)
+        n_dev = self.n_devices
+        # nlist must split evenly over the shards
+        nlist = min(self.nlist, max(n_dev, n_live))
+        nlist = max(n_dev, (nlist // n_dev) * n_dev)
+        sample = live_slots
+        if n_live > self.train_sample:
+            sel = np.random.default_rng(0).choice(
+                n_live, self.train_sample, replace=False
+            )
+            sample = live_slots[np.sort(sel)]
+        train = self._gather_unit(sample)
+        centroids, _ = kmeans(train, num_clusters=nlist,
+                              iters=self.kmeans_iters)
+        del train
+
+        n_choices = min(4, nlist)
+        chunk = 131_072
+        assign_multi = np.empty((n_live, n_choices), np.int32)
+        for i in range(0, n_live, chunk):
+            end = min(i + chunk, n_live)
+            rows = self._gather_unit(live_slots[i:end])
+            assign_multi[i:end] = torch.topk(
+                f32_scores(rows, centroids), n_choices, dim=-1
+            ).indices.to(torch.int32).cpu().numpy()
+            del rows
+
+        placed, cap_b = _capped_placement(assign_multi, nlist)
+        keep = placed >= 0
+        leftover_slots = live_slots[~keep]
+        assign = placed[keep]
+        kept_slots = live_slots[keep]
+        n_entries = len(assign)
+
+        bucket_slot = np.full((nlist, cap_b), self._cap, np.int32)  # pad
+        bucket_valid = np.zeros((nlist, cap_b), bool)
+        order = np.argsort(assign, kind="stable")
+        sorted_assign = assign[order]
+        starts = np.searchsorted(sorted_assign, np.arange(nlist))
+        pos_within = np.arange(n_entries) - starts[sorted_assign]
+        slot_sorted = kept_slots[order]
+        bucket_slot[sorted_assign, pos_within] = slot_sorted
+        bucket_valid[sorted_assign, pos_within] = True
+
+        # tables: int8 slabs keep raw codes + a scale table, float slabs
+        # store bf16; each shard's buckets on its position's device
+        local_n = nlist // n_dev
+        devs = self.mesh.devices[:n_dev]
+        table_dtype = torch.int8 if self._is_int8 else torch.bfloat16
+        rows_t = [torch.zeros((local_n, cap_b, self.dim), dtype=table_dtype,
+                              device=d) for d in devs]
+        scale_t = ([torch.zeros((local_n, cap_b), dtype=torch.float32,
+                                device=d) for d in devs]
+                   if self._is_int8 else None)
+        for i in range(0, n_entries, chunk):
+            end = min(i + chunk, n_entries)
+            raw, sc = self._gather_raw(slot_sorted[i:end])
+            c = torch.as_tensor(sorted_assign[i:end].astype(np.int64))
+            p = torch.as_tensor(pos_within[i:end].astype(np.int64))
+            owner = c // local_n
+            for s, dev in enumerate(devs):
+                at = (owner == s).nonzero().flatten()
+                if not at.numel():
+                    continue
+                cs, ps = (c[at] - s * local_n).to(dev), p[at].to(dev)
+                at = at.to(raw.device)
+                rows_t[s][cs, ps] = raw[at].to(table_dtype).to(dev)
+                if scale_t is not None:
+                    scale_t[s][cs, ps] = sc[at].to(dev)
+        self._bucket_rows = rows_t
+        self._bucket_scale = scale_t
+        self._centroids = centroids.to(self.device)
+        self._split_tables(bucket_slot, bucket_valid)
+        self._slot_bucket_c, self._slot_bucket_p = _pack_slot_positions(
+            slot_sorted, sorted_assign.astype(np.int32),
+            pos_within.astype(np.int32), self._cap, 1,
+        )
+        self._residual = [int(x) for x in leftover_slots]
+        self._residual_base = len(self._residual)
+        self._free.extend(self._quarantine)
+        self._quarantine = []
+        self._built_size = self._size
+
+    def _split_tables(self, bucket_slot: np.ndarray,
+                      bucket_valid: np.ndarray) -> None:
+        """Global host slot / validity tables -> one block a shard."""
+        n_dev = self.n_devices
+        local_n = bucket_slot.shape[0] // n_dev
+        devs = self.mesh.devices[:n_dev]
+        self._bucket_slot = [torch.from_numpy(np.ascontiguousarray(
+            bucket_slot[s * local_n:(s + 1) * local_n])).to(d)
+            for s, d in enumerate(devs)]
+        self._bucket_valid = [torch.from_numpy(np.ascontiguousarray(
+            bucket_valid[s * local_n:(s + 1) * local_n])).to(d)
+            for s, d in enumerate(devs)]
+
+    def _invalidate_bucket_entries(self, slots) -> None:
+        cs, ps = self._take_bucket_positions(slots)
+        if not len(cs):
+            return
+        local_n = self._local_nlist
+        cs, ps = cs.astype(np.int64), ps.astype(np.int64)
+        for s, table in enumerate(self._bucket_valid):
+            m = (cs // local_n) == s
+            if m.any():
+                table[torch.as_tensor(cs[m] - s * local_n, device=table.device),
+                      torch.as_tensor(ps[m], device=table.device)] = False
+
+    # -- query ----------------------------------------------------------------
+    def _quota(self, bp: int) -> int:
+        return min(bp, max(
+            8, int(math.ceil(bp / self.n_devices * self.quota_slack))
+        ))
+
+    def search(self, queries, k, slot_mask=None):
+        if self._needs_build():
+            with self._mu.write():
+                self._maybe_build()
+        with self._mu.read():
+            return self._sharded_ivf_search(queries, k, slot_mask)
+
+    def _sharded_ivf_search(self, queries, k, slot_mask):
+        if not self.is_trained:
+            return ShardedFlatIndex.search(self, queries, k, slot_mask)
+        queries = self._prep(queries)
+        b = len(queries)
+        pad_b = _next_pow2(max(b, 1))
+        nlist = self._local_nlist * self.n_devices
+        cap_b = int(self._bucket_slot[0].shape[1])
+        nprobe = min(self.nprobe, nlist)
+        bucket_valid, valids = self._bucket_valid, self._valids
+        if slot_mask is not None:
+            # filter pushdown: AND the mask into each shard's bucket
+            # validity (bucket-resident rows) and into the striped row
+            # validity (residual leg); boost nprobe so the thinned buckets
+            # still surface ~k matches. Very sparse filters take the exact
+            # masked flat path instead.
+            sel = self._mask_selectivity(slot_mask)
+            if sel < FILTER_EXACT_THRESHOLD:
+                return ShardedFlatIndex.search(self, queries, k, slot_mask)
+            nprobe = min(
+                nlist, nprobe * _filter_boost(sel, self._filter_boosts)
+            )
+            mask = np.zeros(self._cap, bool)
+            n = min(len(slot_mask), self._cap)
+            mask[:n] = slot_mask[:n]
+            bucket_valid = [
+                _mask_bucket_valid_body(bv, bs, torch.from_numpy(mask).to(
+                    bv.device))
+                for bv, bs in zip(self._bucket_valid, self._bucket_slot)
+            ]
+            valids = self._masked_valids(slot_mask)
+        if self.batch_flat_fallback and (
+            pad_b * nprobe * cap_b >= max(1, self._size)
+        ):
+            return ShardedFlatIndex.search(self, queries, k, slot_mask)
+        q = torch.zeros((pad_b, self.dim), dtype=torch.float32,
+                        device=self.device)
+        q[:b] = to_tensor(queries, self.device, torch.float32)
+        v, i = self._ivf_query(q, k, nprobe, self._quota(pad_b * nprobe),
+                               bucket_valid, valids)
+        return self._finish_sharded(v[:b].cpu().numpy(), i[:b].cpu().numpy(),
+                                    k)
+
+    def _ivf_query(self, q, k, nprobe, quota, bucket_valid, valids):
+        """One batch ``q`` (B, d) through every shard: sorted ``(B, k')``
+        device scores and slots."""
+        n_dev = self.n_devices
+        local_n = self._local_nlist
+        cap_b = int(self._bucket_slot[0].shape[1])
+        k_bucket = min(k, cap_b)
+        if self.metric == "cosine":
+            q = l2_normalize(q)
+        b = q.shape[0]
+        # 1. probe selection over the replicated centroids; ties keep the
+        # lower bucket, as lax.top_k does
+        cs = f32_scores(q, self._centroids)
+        probe = torch.sort(cs, dim=1, descending=True,
+                           stable=True).indices[:, :nprobe]
+        flat = probe.reshape(-1)
+        bp = flat.shape[0]
+        qidx = torch.arange(b, device=q.device).repeat_interleave(nprobe)
+        # the tables hold bf16 rows or int8 codes: bf16 queries score them
+        qb = q.to(torch.bfloat16).to(torch.float32)
+        residual = torch.as_tensor(np.asarray(self._residual, np.int64))
+        quant = self._is_quantized
+        lv, ls = [], []
+        for s in range(n_dev):
+            dev = self._bucket_rows[s].device
+            # 2. quota compaction: this shard's probes first, in rank
+            # order; past the quota the lowest-ranked probes drop
+            local = (flat >= s * local_n) & (flat < (s + 1) * local_n)
+            ranked = torch.argsort((~local).to(torch.int8), stable=True)[:quota]
+            kept = ranked[local[ranked]]
+            cand_v = torch.full((bp, k_bucket), float("-inf"), device=dev)
+            cand_s = torch.full((bp, k_bucket), -1, dtype=torch.int64,
+                                device=dev)
+            if kept.numel():
+                # 3. a top-k over each kept (query, probe) bucket
+                v, sl = self._scan_buckets(
+                    s, flat[kept] - s * local_n, qb[qidx[kept]], k_bucket,
+                    bucket_valid[s])
+                kept = kept.to(dev)
+                cand_v[kept] = v
+                cand_s[kept] = sl
+            cand_v = cand_v.reshape(b, nprobe * k_bucket)
+            cand_s = cand_s.reshape(b, nprobe * k_bucket)
+            # 4. the residual scan over this shard's fresh slots
+            mine = residual[residual % n_dev == s]
+            if mine.numel():
+                r = (mine // n_dev).to(self._slabs[s].device)
+                rows = self._slabs[s][r]
+                r_scores = _scores_of(rows, q.to(rows.device),
+                                      self._precision, quant)
+                if quant:
+                    r_scores = r_scores * self._row_scales[s][r][None, :]
+                r_scores = torch.where(valids[s][r][None, :], r_scores,
+                                       float("-inf"))
+                cand_v = torch.cat([cand_v, r_scores.to(dev)], dim=1)
+                cand_s = torch.cat(
+                    [cand_s, mine.to(dev)[None, :].expand(b, -1)], dim=1)
+            # 5. the shard's local top-k
+            v, pos = torch.topk(cand_v, min(k, cand_v.shape[1]), dim=1)
+            lv.append(v.to(self.device))
+            ls.append(torch.gather(cand_s, 1, pos).to(self.device))
+        # 6. the merge across shards
+        all_v, all_s = torch.cat(lv, dim=1), torch.cat(ls, dim=1)
+        top, pos = torch.topk(all_v, min(k, all_v.shape[1]), dim=1)
+        return top, torch.gather(all_s, 1, pos)
+
+    def _scan_buckets(self, s, buckets, qrows, k_bucket, bucket_valid):
+        """``(n, k_bucket)`` scores and slots of ``n`` (query row, local
+        bucket) pairs of shard ``s``, the buckets gathered a chunk at a
+        time."""
+        table = self._bucket_rows[s]
+        dev = table.device
+        _, cap_b, d = table.shape
+        buckets, qrows = buckets.to(dev), qrows.to(dev)
+        g = max(1, _SCAN_CHUNK_BYTES // (cap_b * d * 4))
+        outs_v, outs_s = [], []
+        with true_f32():
+            for lo in range(0, buckets.shape[0], g):
+                bk = buckets[lo:lo + g]
+                blk = table[bk].to(torch.float32)  # (g, C, d)
+                sc = torch.bmm(blk, qrows[lo:lo + g, :, None])[:, :, 0]
+                if self._bucket_scale is not None:
+                    sc = sc * self._bucket_scale[s][bk]
+                sc = torch.where(bucket_valid[bk], sc, float("-inf"))
+                v, i = torch.topk(sc, k_bucket, dim=1)
+                outs_v.append(v)
+                outs_s.append(torch.gather(
+                    self._bucket_slot[s][bk].to(torch.int64), 1, i))
+        return torch.cat(outs_v), torch.cat(outs_s)
+
+    def search_pipelined(self, qstack, k, materialize: bool = True):
+        """(NB, B, d) stack through the sharded cluster query, batch by
+        batch (the flat pipelined path when untrained).
+        ``materialize=False`` returns an in-flight handle; resolve it
+        with ``resolve_pipelined`` before mutating the index."""
+        if self._needs_build():
+            with self._mu.write():
+                self._maybe_build()
+        with self._mu.read():
+            if not self.is_trained:
+                return ShardedFlatIndex.search_pipelined(
+                    self, qstack, k, materialize=materialize
+                )
+            q = to_tensor(qstack, self.device, torch.float32)
+            if q.ndim != 3 or q.shape[-1] != self.dim:
+                raise ValueError(
+                    f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
+                )
+            nprobe = min(self.nprobe, self._local_nlist * self.n_devices)
+            quota = self._quota(q.shape[1] * nprobe)
+            outs = [self._ivf_query(qb, k, nprobe, quota, self._bucket_valid,
+                                    self._valids) for qb in q]
+            handle = ("sivf", torch.stack([o[0] for o in outs]),
+                      torch.stack([o[1] for o in outs]), k)
+        if not materialize:
+            return handle
+        return self.resolve_pipelined(handle)
+
+    # both engines' handles resolve alike (IVFIndex's would shadow it)
+    resolve_pipelined = ShardedFlatIndex.resolve_pipelined
+
+    def _oracle_search(self, queries, k):
+        return ShardedFlatIndex.search(self, queries, k)
+
+    def _oracle_search_masked(self, queries, k, slot_mask):
+        return ShardedFlatIndex.search(self, queries, k, slot_mask)
+
+    # -- persistence ------------------------------------------------------------
+    # IVFIndex.save / load: the slab through ShardedFlatIndex's npz or
+    # per-position hooks, the overlay as the JAX package's global
+    # ``.ivf.npz`` tables (split again by shard at load).
+    def _overlay_host_arrays(self) -> dict[str, np.ndarray]:
+        def cat(parts):
+            return np.concatenate([t.cpu().numpy() for t in parts])
+
+        arrays = dict(
+            centroids=self._centroids.cpu().numpy(),
+            bucket_slot=cat(self._bucket_slot),
+            bucket_valid=cat(self._bucket_valid),
+            bucket_rows=np.concatenate(
+                [slab_to_numpy(t) for t in self._bucket_rows]),
+            residual=np.asarray(self._residual, np.int32),
+        )
+        if self._bucket_scale is not None:
+            arrays["bucket_scale"] = cat(self._bucket_scale)
+        return arrays
+
+    def _install_tables(self, arrays: dict) -> None:
+        bs = np.array(arrays["bucket_slot"], np.int32)
+        nlist = bs.shape[0]
+        n_dev = self.n_devices
+        if nlist % n_dev:
+            logger.warning(
+                "sharded_ivf: nlist %d does not split over %d shards; the "
+                "overlay rebuilds", nlist, n_dev)
+            return
+        local_n = nlist // n_dev
+        devs = self.mesh.devices[:n_dev]
+        rows = arrays["bucket_rows"]
+        table_dtype = {"uint16": torch.bfloat16, "bfloat16": torch.bfloat16,
+                       "int8": torch.int8, "float32": torch.float32}
+        dt = table_dtype[rows.dtype.name]
+        self._bucket_rows = [
+            slab_from_numpy(rows[s * local_n:(s + 1) * local_n], dt).to(d)
+            for s, d in enumerate(devs)]
+        if "bucket_scale" in arrays:
+            sc = np.array(arrays["bucket_scale"], np.float32)
+            self._bucket_scale = [
+                torch.from_numpy(sc[s * local_n:(s + 1) * local_n].copy()).to(d)
+                for s, d in enumerate(devs)]
+        bv = np.array(arrays["bucket_valid"], bool)
+        self._split_tables(bs, bv)
+        self._centroids = torch.from_numpy(
+            np.array(arrays["centroids"], np.float32)).to(self.device)
+        self._residual = [int(s) for s in arrays["residual"]]
+        cs, ps = np.nonzero(bv)
+        self._slot_bucket_c, self._slot_bucket_p = _pack_slot_positions(
+            bs[cs, ps], cs.astype(np.int32), ps.astype(np.int32),
+            self._cap, 1,
+        )

@@ -127,12 +127,8 @@ class VectorStore:
         self._poisoned: set[int] = set()
 
         index_type = config.get("INDEX_TYPE", "flat")
+        # "orbax": one checkpoint file a mesh position (store/persist.py)
         persist_backend = str(config.get("PERSIST_BACKEND", "npz"))
-        if persist_backend != "npz":
-            raise NotImplementedError(
-                f"PERSIST_BACKEND={persist_backend!r} is not ported to "
-                "wdbx_tpu_torch (orbax waits for slice 5); use npz"
-            )
         for _ in range(self.num_shards):
             index = create_index(index_type, self.dim, config, device=device)
             index.persist_backend = persist_backend
@@ -1081,7 +1077,7 @@ class VectorStore:
         with self._lock:
             for shard, index in enumerate(self.indices):
                 reg = self.registries[shard]
-                valid_count = int(index._valid.sum())
+                valid_count = index.valid_count()
                 entry = {
                     "shard": shard,
                     "registry_ids": reg.size(),
