@@ -100,6 +100,27 @@ Phases (each prints JSON lines; any failure exits non-zero):
              int4 clustered indexes (int4 also with int8 queries) through
              search_pipelined, timed (float32 must run the tiled body,
              bf16 and int4 the pipelined one)
+  sharded_clustered
+             benchmarks/filtered.py's sharded point (FILTERED_SHARDED=1):
+             ShardedClusteredIndex over make_mesh(8), 2,000,000 x 768 int8
+             rows of a 4096-component mixture (noise 0.67/sqrt(d)), nlist
+             2048, nprobe 4, B=64, k=10, filled by build_from (each bucket
+             striped within one row a shard); search at B=64 (one K3
+             stage 1 a shard on the pipelined body, one merge) and B=1 (the
+             ranges scan), search_pipelined (NB=8), int8 queries and v1:
+             every per-shard K3 launch against its plain version on the
+             same block list, and each answer against the plain partials
+             merged; times beside the single-device ClusteredIVFIndex on
+             the same rows; recall@10 against a float32 oracle gated at
+             0.95 after tune(), and at 10% (pushdown) / 1% / 0.1% (exact
+             masked, K2) filters after tune_filtered; a background
+             rebuild while threads search and write (every acknowledged
+             write answers after the swap, every delete is gone); a live
+             remesh to 7; then at 524,288 rows the int4 tier, a
+             make_mesh2(2, 4) replicated index, an npz reload after
+             adopt_mesh, a per-position checkpoint, and the facade with
+             enable_distributed and heal(allow_remesh=True) at full probe
+             (the same hits on 7 positions)
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -164,7 +185,8 @@ row) and, last, {"ok": true, "device": {...}}.
 
 Launch counts: every path (main, the default facade, each pipelined
 slab, the int8 facade, the sharded flat, replicated, facade and IVF
-paths, each clustered path, the server, the cli's process, the batcher)
+paths, each clustered path, the sharded clustered paths, the server, the
+cli's process, the batcher)
 runs with the kernels' counters set to 0 just
 before it and read just after; comparison and timing launches are never
 counted.
@@ -1703,11 +1725,13 @@ def phase_clustered_determinism(g, errs):
         errs[key] = max(errs[key], err)
 
 
-def _stream_truth(chunks, q, k, cand_src=None):
+def _stream_truth(chunks, q, k, cand_src=None, src_mask=None):
     """Float32 top-k source rows of ``q`` over the regenerated corpus
     (torch.matmul with TF32 off, a top-k merge per chunk), and the exact
     scores of the candidate source rows ``cand_src`` (Q, F), gathered in
-    the same pass. A yardstick, never on the port's path."""
+    the same pass; ``src_mask`` (a bool tensor over the source rows)
+    keeps only the rows it selects. A yardstick, never on the port's
+    path."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1719,7 +1743,10 @@ def _stream_truth(chunks, q, k, cand_src=None):
     lo = 0
     for x in chunks():
         m = x.shape[0]
-        v, i = torch.topk(q @ x.T, k, dim=1)
+        s = q @ x.T
+        if src_mask is not None:
+            s = s.masked_fill(~src_mask[None, lo:lo + m], float("-inf"))
+        v, i = torch.topk(s, k, dim=1)
         v = torch.cat([best_v, v], dim=1)
         i = torch.cat([best_i, i + lo], dim=1)
         best_v, sel = torch.topk(v, k, dim=1)
@@ -2052,6 +2079,729 @@ def phase_clustered_facade(seed, paths, timings, errs, tmp):
             del index
             torch.cuda.empty_cache()
     del x_dev
+
+
+# -- the sharded clustered engine (K3 per shard) -----------------------------
+
+# benchmarks/filtered.py's sharded point: 2,000,000 x 768 int8 rows,
+# nlist 2048 (generated and loaded SC_STEP rows at a time)
+SC_N, SC_D, SC_NLIST, SC_STEP = 2_000_000, 768, 2048, 250_000
+# rows and nlist of the int4 tier (cut for time)
+SC_SMALL, SC_SMALL_NLIST = 1 << 19, 512
+SC_TUNE = 0.97  # tune()'s target against the index's own exact scan
+SC_SELECTIVITIES = (0.10, 0.01, 0.001)  # benchmarks/filtered.py's filters
+
+
+class _K3Recorder:
+    """While entered, records each stage-1 launch of the sharded
+    clustered engine (its inputs and partials). The wrapper launches
+    nothing itself: the counters still count the engine's launches."""
+
+    def __enter__(self):
+        from wdbx_tpu_torch.parallel import sharded_clustered as scm
+
+        self.mod, self.orig, self.calls = scm, scm.clustered_block_partial, []
+
+        def recording(slab, valid, scales, uniq, ok, qq, qs, k, c,
+                      int4=False, gen="v2", body=None):
+            out = self.orig(slab, valid, scales, uniq, ok, qq, qs, k, c,
+                            int4=int4, gen=gen, body=body)
+            self.calls.append(dict(slab=slab, valid=valid, scales=scales,
+                                   uniq=uniq, ok=ok, qq=qq, qs=qs, k=k, c=c,
+                                   int4=int4, gen=gen, out=out))
+            return out
+
+        scm.clustered_block_partial = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.clustered_block_partial = self.orig
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def _k3_key(call) -> str:
+    import torch
+
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+
+    slab = "int4" if call["int4"] else str(call["slab"].dtype)[6:]
+    return clu_name(cs.mode_key(call["gen"], slab, str(call["qq"].dtype)[6:]))
+
+
+def _k3_plain(call):
+    """``clustered_block_topk_plain`` on a recorded launch's slab, block
+    list and queries (float queries that prepare to the launch's own)."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+
+    qq, qs = call["qq"], call["qs"]
+    int8q = qq.dtype == torch.int8
+    qf = qq.to(torch.float32) * qs if int8q else qq.to(torch.float32)
+    return cs.clustered_block_topk_plain(
+        call["slab"], call["valid"], call["scales"], call["uniq"], call["ok"],
+        qf, call["k"], call["c"], int4=call["int4"],
+        qprec="int8" if int8q else "bf16")
+
+
+def _check_sc_calls(name, index, calls, out, errs) -> float:
+    """Every recorded per-shard stage 1, merged by a comparison launch,
+    against its plain version on the same block list; then, where the
+    index holds no fresh rows and one replica group served, each batch's
+    answer (``out``: host scores and slots, (B, k) or (NB, B, k)) against
+    the plain partials of its shards merged by the plain merge."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    err, plains = 0.0, []
+    for i, call in enumerate(calls):
+        ref = _k3_plain(call)
+        got = tf.topk_merge_partials(*call["out"], call["k"])
+        key = _k3_key(call)
+        e = check_topk(f"{name}/launch{i}", ref, got, block_rescorer(
+            call["slab"], call["qq"], call["qs"], call["scales"],
+            call["int4"]))
+        errs[key] = max(errs.get(key, 0.0), e)
+        err = max(err, e)
+        plains.append(ref)
+    n_dev = index.n_devices
+    if index._residual or index.replicas != 1 or not calls:
+        return err
+    scores, slots = (np.asarray(a) for a in out)
+    if scores.ndim == 2:
+        scores, slots = scores[None], slots[None]
+    for bi in range(len(plains) // n_dev):
+        group = plains[bi * n_dev:(bi + 1) * n_dev]
+        pv = torch.stack([v for v, _ in group], 1)
+        pi = torch.stack([torch.where(p >= 0, p * n_dev + s, -1)
+                          for s, (_, p) in enumerate(group)], 1)
+        v, p = tf.merge_partials_plain(pv, pi, scores.shape[-1])
+        v, p = v.cpu().numpy(), p.cpu().numpy()
+        ref_slots = np.where(p >= 0, index._slot_of[np.clip(p, 0, None)], -1)
+        for row in range(v.shape[0]):
+            ref = [(int(s), float(x)) for s, x in zip(ref_slots[row], v[row])
+                   if s >= 0]
+            got = [(int(s), float(x)) for s, x in
+                   zip(slots[bi][row], scores[bi][row]) if s >= 0]
+            err = max(err, _same_hits(f"{name}/batch{bi}/row{row}", ref, got,
+                                      ATOL))
+    return err
+
+
+def _sc_call(rec, label, run, paths, k3, merges, body=None, k2=0):
+    """``run()`` with the counters at 0 just before and read just after:
+    ``k3`` block-scan stage-1 launches (all on ``body``), ``k2`` fused
+    stage-1 launches and ``merges`` merges, or the phase fails.
+    ``rec.last`` then holds this run's block-scan launches."""
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    rec.take()
+    _reset()
+    out = run()
+    counts = _counts()
+    rec.last = rec.take()
+    _tally(paths, label, counts)
+    got = (sum(cs.clustered_block_partial.launches.values()),
+           sum(tf.fused_topk_partial.launches.values()),
+           tf.topk_merge_partials.launches)
+    on_body = cs.clustered_block_partial.bodies.get(body, 0) if body else k3
+    if got != (k3, k2, merges) or on_body != k3:
+        fail(f"{label}: expected {k3} block-scan launches on {body}, {k2} "
+             f"fused launches and {merges} merges: {_nonzero(counts)}")
+    return out
+
+
+def _check_sc_flat(name, index, queries, pos_mask, got, errs) -> float:
+    """An answer of the sharded clustered engine's flat routes (the exact
+    masked scan, the batch fallback: K1 / K2 on every shard, one merge)
+    against the plain version on the position-order view (``_slot_view``
+    interleaves the shards: row p is global striped position p), the
+    position mask ANDed into the validity; the answer's slots are held
+    as their positions."""
+    import numpy as np
+    import torch
+
+    slab, valid, scales = _slot_view(index)
+    if pos_mask is not None:
+        valid = valid & torch.as_tensor(pos_mask[:index.capacity],
+                                        device="cuda")
+    scores, slots = (torch.as_tensor(np.asarray(a)) for a in got)
+    pos_of = torch.as_tensor(index._pos_of).long()
+    pos = torch.where(slots >= 0, pos_of[slots.clamp(min=0)], -1)
+    err = _check_sharded(name, index, (slab, valid, scales), queries,
+                         (scores, pos), k=scores.shape[-1])
+    dtype = "int4" if index._is_int4 else str(slab.dtype)[6:]
+    key = f"fused_topk_partial[{dtype}]"
+    errs[key] = max(errs.get(key, 0.0), err)
+    return err
+
+
+def _sc_breakdown(index, calls, single, q, k, nprobe) -> dict:
+    """Where a B=64 search's stage 1 goes: the recorded per-shard launches
+    again (with and without selection: every row masked), the merge of
+    their partials, the bound from their live blocks, beside the
+    single-device index's one K3 launch on the same queries. Comparison
+    launches: never counted."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    def stage1(masked=False):
+        return [cs.clustered_block_partial(
+            c["slab"], torch.zeros_like(c["valid"]) if masked else c["valid"],
+            c["scales"], c["uniq"], c["ok"], c["qq"], c["qs"], c["k"],
+            c["c"], int4=c["int4"], gen=c["gen"]) for c in calls]
+
+    out = {"stage1_ms": cuda_ms(stage1, reps=5, warm=1),
+           "score_only_ms": cuda_ms(lambda: stage1(True), reps=5, warm=1)}
+    parts = stage1()
+    pv = torch.cat([p[0] for p in parts], 1)
+    pi = torch.cat([p[1] for p in parts], 1)
+    out["merge_ms"] = cuda_ms(lambda: tf.topk_merge_partials(pv, pi, k))
+    out["parts"] = int(pv.shape[1])
+    live = [int(c["ok"].sum()) for c in calls]
+    out["live_blocks_per_shard"] = live
+    out["blocks_per_shard"] = index.rows_per_device // index._c
+    d, b, c = index.dim, q.shape[0], index._c
+    bounds = [_block_bound_ms("int8", "bfloat16", n, c, d, b, k,
+                              len(cl["uniq"])) for n, cl in zip(live, calls)]
+    out["bound_ms"] = sum(t for t, _ in bounds)
+    out["bound_by"] = bounds[0][1]
+    tm = time_block_scan(single, q, k, nprobe, "v2", "bf16")
+    out["single"] = {key: tm[key] for key in (
+        "ms", "score_only_ms", "merge_ms", "parts", "live_blocks", "u", "c",
+        "bound_ms", "bound_by", "body")}
+    out["single"]["blocks"] = single.capacity // single._c
+    return out
+
+
+def phase_sharded_clustered(seed, paths, timings, errs, tmp):
+    """benchmarks/filtered.py's sharded point (FILTERED_SHARDED=1) on
+    make_mesh(8): 2,000,000 x 768 int8 rows of a 4096-component mixture,
+    nlist 2048, nprobe 4, B=64, k=10, filled by build_from; every K3
+    launch held against its plain version; recall gated at 0.95
+    unfiltered (after tune) and at 10% / 1% / 0.1% filters (after
+    tune_filtered), every flat-route answer (exact masked, the batch
+    fallback) against K2's plain version; search_pipelined, int8
+    queries, v1, a background rebuild under load, a remesh to 7, 2 x 4
+    replicas, an npz reload after adopt_mesh, a per-position checkpoint
+    and the facade with heal(); the int4 tier at 524,288 rows."""
+    import asyncio
+    import shutil
+    import threading
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch import WDBX
+    from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
+    from wdbx_tpu_torch.parallel import (
+        ShardedClusteredIndex,
+        make_mesh,
+        make_mesh2,
+    )
+    from wdbx_tpu_torch.parallel.mesh import MESH_SIZE_ENV
+
+    t_phase = time.perf_counter()
+    n, d, nlist, b, k, nb = SC_N, SC_D, SC_NLIST, 64, 10, 8
+    step = SC_STEP
+    mix = _mixture(4096, d, seed + 17)
+
+    def chunks():
+        for i, lo in enumerate(range(0, n, step)):
+            yield mix(5000 + i, min(step, n - lo))
+
+    def counts_spread(index):
+        lc = index._local_counts
+        return int((lc.max(axis=0) - lc.min(axis=0)).max())
+
+    index = ShardedClusteredIndex(d, dtype="int8", capacity=n,
+                                  mesh=make_mesh(SHARDS), nlist=nlist,
+                                  nprobe=4, train_threshold=1 << 62,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = index.build_from(chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    spread = counts_spread(index)
+    if index.count() != n or spread > 1 or not index.is_trained or \
+            index.rows_per_device % index._c:
+        fail(f"sharded clustered build: {index.count()} rows, spread "
+             f"{spread}, c {index._c}, {index.rows_per_device} a shard")
+    # the exact flat rule: a batch whose dedup bound covers the slab goes
+    # to K2; at 250,000 rows a shard and c = 1,024 the B=64 bound reaches
+    # every block of a shard, so it would. The block scan is the path
+    # under test: drive it (as tune() does); the default route is driven
+    # once beside it.
+    u = index._scan_u(b, 4)
+    flat_rule = u * index._c * index.n_devices >= index.count()
+    index.batch_flat_fallback = False
+    emit({"phase": "sharded_clustered", "step": "build_from", "n": n,
+          "d": d, "nlist": nlist, "dtype": "int8", "shards": SHARDS,
+          "capacity": index.capacity,
+          "rows_per_shard": index.rows_per_device, "c": index._c,
+          "max_spread_per_bucket": spread, "build_s": build_s,
+          "u_b64": u, "flat_rule_at_b64": flat_rule})
+
+    single = ClusteredIVFIndex(d, dtype="int8", nlist=nlist, nprobe=4,
+                               train_threshold=1 << 62, device="cuda")
+    t0 = time.perf_counter()
+    single_slots = single.build_from(chunks)
+    torch.cuda.synchronize()
+    single_build_s = time.perf_counter() - t0
+    single.batch_flat_fallback = False
+
+    q_all = mix(9999, nb * b)
+    qstack = q_all.reshape(nb, b, d)
+    q64 = q_all[:b]
+    src_slot = torch.as_tensor(slots, device="cuda")
+    src_single = torch.as_tensor(single_slots, device="cuda")
+    truth_src, _ = _stream_truth(chunks, q_all, k)
+    truth = src_slot[truth_src].cpu()
+    truth_single = src_single[truth_src].cpu()
+    body = want_body("int8", "bfloat16", d, b, k)
+    if body != "mma_pipe":
+        fail(f"sharded_clustered: the shape rule gives {body} at B={b}")
+    label = "sharded_clustered"
+
+    # search at B=64 (K3 on every shard, one merge) and B=1 (ranges)
+    with _K3Recorder() as rec:
+        got = _sc_call(rec, label, lambda: index.search(q64, k), paths,
+                       SHARDS, 1, body)
+        calls = rec.last
+        err = _check_sc_calls(f"{label}/search b64", index, calls, got, errs)
+        breakdown = _sc_breakdown(index, calls, single, q64, k, 4)
+        for i in range(4):
+            one = _sc_call(rec, label,
+                           lambda i=i: index.search(q64[i:i + 1], k),
+                           paths, 0, 1)
+            if (one[1] < 0).any() or not np.isfinite(one[0]).all():
+                fail(f"{label}/search b1: {one}")
+        route_b1 = index._route_of(1, 4, k)
+        if route_b1 != "ranges":
+            fail(f"{label}: B=1 took the {route_b1} route")
+        search_ms = cuda_ms(lambda: index.search(q64, k), reps=10, warm=3)
+        # the default route at B=64: the flat rule holds, so the batch
+        # fallback serves it (K2 on every shard, one merge); the single
+        # index's rule does not hold at its u and c, so K3 serves it there
+        index.batch_flat_fallback = single.batch_flat_fallback = True
+        got_fb = _sc_call(rec, "sharded_clustered_fallback",
+                          lambda: index.search(q64, k), paths, 0, 1,
+                          k2=SHARDS)
+        err = max(err, _check_sc_flat(f"{label}/fallback b64", index, q64,
+                                      None, got_fb, errs))
+        fallback_ms = cuda_ms(lambda: index.search(q64, k), reps=10, warm=3)
+        _reset()
+        single.search(q64, k)
+        single_default = _nonzero(_counts())
+        single_default_ms = cuda_ms(lambda: single.search(q64, k), reps=10,
+                                    warm=3)
+        index.batch_flat_fallback = single.batch_flat_fallback = False
+        search_b1_ms = cuda_ms(lambda: index.search(q64[:1], k), reps=10,
+                               warm=3)
+        single_ms = cuda_ms(lambda: single.search(q64, k), reps=10, warm=3)
+
+        # search_pipelined: NB=8 batches of 64, one K3 a shard a batch
+        out = _sc_call(rec, label, lambda: index.search_pipelined(
+            qstack, k, materialize=False), paths, SHARDS * nb, nb, body)
+        resolved = index.resolve_pipelined(out)
+        err = max(err, _check_sc_calls(f"{label}/pipelined", index,
+                                       rec.last, resolved, errs))
+        pipe_ms = cuda_ms(lambda: index.search_pipelined(
+            qstack, k, materialize=False), reps=3, warm=1) / nb
+        single_pipe_ms = cuda_ms(lambda: single.search_pipelined(
+            qstack, k, materialize=False), reps=3, warm=1) / nb
+        rec_n4 = _slot_recall(torch.as_tensor(resolved[1].reshape(nb * b, k)),
+                              truth)
+        single_n4 = _slot_recall(torch.as_tensor(single.resolve_pipelined(
+            single.search_pipelined(qstack, k, materialize=False))[1]
+            .reshape(nb * b, k)), truth_single)
+
+        # int8 queries (v2), then v1 once
+        for gen, qprec in (("v2", "int8"), ("v1", "bf16")):
+            index.kernel_version, index.kernel_qprec = gen, qprec
+            want = want_body("int8", "int8" if qprec == "int8"
+                             else "bfloat16", d, b, k)
+            got_v = _sc_call(rec, f"{label}[{gen},q={qprec}]",
+                             lambda: index.search(q64, k), paths, SHARDS, 1,
+                             want)
+            err = max(err, _check_sc_calls(f"{label}/{gen}/q={qprec}", index,
+                                           rec.last, got_v, errs))
+        index.kernel_version, index.kernel_qprec = "auto", "bf16"
+
+        # recall after tune(): the index's nprobe for SC_TUNE against its
+        # own exact scan, then recall against the float32 oracle
+        t0 = time.perf_counter()
+        tuned = index.tune(mix(4343, b).cpu().numpy(), k=k,
+                           target_recall=SC_TUNE)
+        tune_s = time.perf_counter() - t0
+        nprobe_t = index.nprobe
+        got_t = _sc_call(rec, label,
+                         lambda: index.search_pipelined(qstack, k),
+                         paths, SHARDS * nb, nb, body)
+        err = max(err, _check_sc_calls(f"{label}/tuned", index, rec.last,
+                                       got_t, errs))
+        rec_t = _slot_recall(torch.as_tensor(got_t[1].reshape(nb * b, k)),
+                             truth)
+        single.nprobe = nprobe_t
+        single_t = _slot_recall(torch.as_tensor(single.search_pipelined(
+            qstack, k)[1].reshape(nb * b, k)), truth_single)
+        emit({"phase": "sharded_clustered", "path": label, "b": b, "k": k,
+              "nprobe": 4, "search_b64_ms": search_ms,
+              "search_b1_ms": search_b1_ms, "route_b1": route_b1,
+              "single_device_search_b64_ms": single_ms,
+              "fallback_on_search_b64_ms": fallback_ms,
+              "single_device_fallback_on_search_b64_ms": single_default_ms,
+              "single_device_fallback_on_launches": single_default,
+              "pipelined_ms_per_batch": pipe_ms,
+              "single_device_pipelined_ms_per_batch": single_pipe_ms,
+              "single_device_build_s": single_build_s,
+              "recall_at_10_nprobe4": rec_n4,
+              "single_device_recall_at_10_nprobe4": single_n4,
+              "tuned_nprobe": nprobe_t, "tuned_recall_vs_index_exact": tuned,
+              "tune_s": tune_s, "recall_at_10_tuned": rec_t,
+              "single_device_recall_at_10_tuned": single_t, "bar": FACADE_BAR,
+              "max_abs_err_vs_plain": err, "tol": ATOL,
+              "breakdown": breakdown})
+        timings["sharded_clustered"] = {"search_b64_ms": search_ms,
+                                        "pipelined_ms_per_batch": pipe_ms}
+        if rec_t < FACADE_BAR:
+            fail(f"{label}: tuned recall@10 {rec_t} < {FACADE_BAR}")
+        del single
+        torch.cuda.empty_cache()
+
+        # filters at benchmarks/filtered.py's selectivities, nprobe 4:
+        # pushdown (K3) above FILTER_EXACT_THRESHOLD, the exact masked scan
+        # (K2 on every shard) below it
+        index.nprobe = 4
+        rng = np.random.default_rng(seed)
+        q_tune = mix(4242, 32).cpu().numpy()
+        flabel = "sharded_clustered_filtered"
+        for sel in SC_SELECTIVITIES:
+            pick = rng.choice(n, int(n * sel), replace=False)
+            mask = np.zeros(index.capacity, bool)
+            mask[slots[pick]] = True
+            pm, nprobe_f, exact = index._filter_plan(mask, 4, nlist)
+            tuned_f = None
+            if not exact:
+                tuned_f = index.tune_filtered(q_tune, mask, k=k,
+                                              target_recall=FACADE_BAR)
+                _, nprobe_f, _ = index._filter_plan(mask, 4, nlist)
+            got_f = _sc_call(
+                rec, flabel,
+                lambda mask=mask: index.search(q64, k, slot_mask=mask),
+                paths, 0 if exact else SHARDS, 1, None if exact else body,
+                k2=SHARDS if exact else 0)
+            if exact:
+                err = max(err, _check_sc_flat(f"{flabel}/{sel}", index, q64,
+                                              pm, got_f, errs))
+            else:
+                err = max(err, _check_sc_calls(f"{flabel}/{sel}", index,
+                                               rec.last, got_f, errs))
+            src_mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+            src_mask[torch.as_tensor(pick, device="cuda")] = True
+            t_src, _ = _stream_truth(chunks, q64, k, src_mask=src_mask)
+            rec_f = _slot_recall(torch.as_tensor(got_f[1]),
+                                 src_slot[t_src].cpu())
+            ms_f = cuda_ms(lambda mask=mask: index.search(
+                q64, k, slot_mask=mask), reps=3, warm=1)
+            emit({"phase": "sharded_clustered", "path": flabel,
+                  "selectivity": sel,
+                  "route": "exact masked (K2)" if exact else "pushdown (K3)",
+                  "nprobe": nprobe_f, "boosts": dict(index._filter_boosts),
+                  "tune_sample_recall": tuned_f, "search_b64_ms": ms_f,
+                  "recall_at_10": rec_f, "bar": FACADE_BAR})
+            if rec_f < FACADE_BAR:
+                fail(f"{flabel} {sel}: recall@10 {rec_f} < {FACADE_BAR}")
+            if exact != (sel < 0.02):
+                fail(f"{flabel} {sel}: took the "
+                     f"{'exact' if exact else 'pushdown'} route")
+
+        # a background rebuild while a thread searches and another writes:
+        # every acknowledged write answers afterwards, every delete is gone
+        # a deleted slot id is recycled by a later add: ``dead`` keeps the
+        # ids that stay deleted
+        added, dead, updated, window_writes, served, faults = (
+            {}, set(), {}, [0], [0], [])
+        n_adds, n_dels = [0], [0]
+        stop = threading.Event()
+
+        def writer():
+            try:
+                i = 0
+                while not stop.is_set():
+                    in_window = index._cow_writes
+                    new = index.add_batch(mix(100_000 + i, 256))
+                    for j, s in enumerate(new):
+                        added[int(s)] = (100_000 + i, 256, j)
+                        dead.discard(int(s))
+                    gone = slots[1000 + 64 * i:1000 + 64 * (i + 1)]
+                    index.remove_slots(gone)
+                    dead.update(int(s) for s in gone)
+                    n_adds[0] += len(new)
+                    n_dels[0] += len(gone)
+                    lo = n // 4 + 32 * i
+                    upd = slots[lo:lo + 32]
+                    index.update_slots(upd, mix(200_000 + i, 32))
+                    for j, s in enumerate(upd):
+                        updated[int(s)] = (200_000 + i, 32, j)
+                    window_writes[0] += int(in_window and index._cow_writes)
+                    i += 1
+            except BaseException as e:  # surfaced below
+                faults.append(e)
+
+        def searcher():
+            try:
+                while not stop.is_set():
+                    index.search(q64, k)
+                    served[0] += 1
+            except BaseException as e:
+                faults.append(e)
+
+        workers = [threading.Thread(target=writer),
+                   threading.Thread(target=searcher)]
+        for w in workers:
+            w.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        index.build_background()
+        bg_s = time.perf_counter() - t0
+        time.sleep(0.5)
+        stop.set()
+        for w in workers:
+            w.join(300)
+        if faults or any(w.is_alive() for w in workers):
+            fail(f"background rebuild under load: {faults}")
+        if index._cow_writes or not index.is_trained or \
+                index.count() != n + n_adds[0] - n_dels[0] or \
+                not window_writes[0]:
+            fail(f"background rebuild: count {index.count()}, window "
+                 f"writes {window_writes[0]}")
+        if (index._positions_of(np.asarray(sorted(dead))) >= 0).any():
+            fail("background rebuild: a deleted slot still has a row")
+
+        def rows_of(keyed):
+            by_seed = {}
+            for s, (sd, m, j) in keyed.items():
+                by_seed.setdefault((sd, m), []).append((j, s))
+            for (sd, m), pairs in by_seed.items():
+                rows = mix(sd, m)
+                js = torch.as_tensor([j for j, _ in pairs], device="cuda")
+                yield rows[js], np.asarray([s for _, s in pairs])
+
+        missing = 0
+        for keyed in (added, updated):
+            for rows, want_slots in rows_of(keyed):
+                _, got_s = index.search(rows, k)
+                missing += int(sum(int(s) not in set(r.tolist())
+                                   for s, r in zip(want_slots, got_s)))
+        # the first deletes are source rows 1000.. of the first chunk
+        dead_rows = mix(5000, step)[1000:1064]
+        _, got_d = index.search(dead_rows, k)
+        if missing or set(got_d.ravel().tolist()) & set(dead):
+            fail(f"background rebuild lost {missing} acknowledged writes or "
+                 "served a deleted slot")
+        emit({"phase": "sharded_clustered", "path": "build_background",
+              "bg_build_s": bg_s, "searches_served": served[0],
+              "adds": n_adds[0], "deletes": n_dels[0],
+              "updates": len(updated), "writes_in_window": window_writes[0],
+              "residual_after": len(index._residual)})
+
+        # a live remesh to 7 shards: rebuilt there, K3 on each of 7
+        t0 = time.perf_counter()
+        index.remesh(make_mesh(SHARDS - 1))
+        torch.cuda.synchronize()
+        remesh_s = time.perf_counter() - t0
+        if index.n_devices != SHARDS - 1 or not index.is_trained or \
+                counts_spread(index) > 1:
+            fail(f"remesh to 7: {index.n_devices} shards")
+        got7 = _sc_call(rec, label, lambda: index.search(q64, k), paths,
+                        SHARDS - 1, 1, body)
+        err = max(err, _check_sc_calls(f"{label}/remesh7", index, rec.last,
+                                       got7, errs))
+        emit({"phase": "sharded_clustered", "path": "remesh", "to": 7,
+              "remesh_s": remesh_s, "rows": index.count(),
+              "rows_per_shard": index.rows_per_device, "c": index._c})
+        del index
+        torch.cuda.empty_cache()
+
+        def built(chunk_fn, rows, nl, dtype="int8", mesh=None, **kw):
+            ix = ShardedClusteredIndex(
+                d, dtype=dtype, capacity=rows, nlist=nl, nprobe=4,
+                mesh=mesh or make_mesh(SHARDS), train_threshold=1 << 62,
+                device="cuda", **kw)
+            ix.build_from(chunk_fn)
+            ix.batch_flat_fallback = False
+            return ix
+
+        # the int4 tier at 524,288 rows (cut for time)
+        small = SC_SMALL
+
+        def small_chunks(sstep=min(1 << 17, small)):
+            for i in range(0, small, sstep):
+                yield mix(6000 + i // sstep, sstep)
+
+        i4 = built(small_chunks, small, SC_SMALL_NLIST, "int4")
+        got4 = _sc_call(rec, "sharded_clustered_int4",
+                        lambda: i4.search(q64, k), paths, SHARDS, 1,
+                        want_body("int4", "bfloat16", d, b, k))
+        err4 = _check_sc_calls("sharded_clustered_int4", i4, rec.last, got4,
+                               errs)
+        del i4
+
+        # the full point again: 2 x 4 replicas, checkpoints, the facade
+        rep = built(chunks, n, nlist, mesh=make_mesh2(2, 4), replicas=2)
+        for p in range(4, 8):
+            if not torch.equal(rep._slabs[p], rep._slabs[p - 4]):
+                fail(f"replica position {p} differs from its shard")
+        got_r = _sc_call(rec, "sharded_clustered_replicated",
+                         lambda: rep.search(q64, k), paths, SHARDS, 2,
+                         want_body("int8", "bfloat16", d, b // 2, k))
+        err_r = _check_sc_calls("sharded_clustered_replicated", rep,
+                                rec.last, got_r, errs)
+        rep_ms = cuda_ms(lambda: rep.search(q64, k), reps=5, warm=1)
+        del rep
+        torch.cuda.empty_cache()
+        ckpt = tempfile.mkdtemp(prefix="sclu_", dir=tmp)
+        cp = built(chunks, n, nlist)
+        before = cp.search(q64, k)
+        path = os.path.join(ckpt, "npz")
+        t0 = time.perf_counter()
+        cp.save(path)
+        save_s = time.perf_counter() - t0
+        cp.adopt_mesh(make_mesh(SHARDS))
+        if cp.count() != 0 or cp.is_trained:
+            fail("adopt_mesh left rows behind")
+        t0 = time.perf_counter()
+        if not cp.load(path) or cp.count() != n or not cp.is_trained:
+            fail("npz reload after adopt_mesh")
+        load_s = time.perf_counter() - t0
+        cp.batch_flat_fallback = False
+        after = _sc_call(rec, label, lambda: cp.search(q64, k), paths,
+                         SHARDS, 1, body)
+        err = max(err, _check_sc_calls(f"{label}/npz reload", cp, rec.last,
+                                       after, errs))
+        cp.persist_backend = "orbax"
+        t0 = time.perf_counter()
+        cp.save(os.path.join(ckpt, "pos"))
+        pos_save_s = time.perf_counter() - t0
+        del cp
+        torch.cuda.empty_cache()
+        again = ShardedClusteredIndex(d, dtype="int8", nlist=nlist,
+                                      mesh=make_mesh(SHARDS), device="cuda")
+        t0 = time.perf_counter()
+        if not again.load(os.path.join(ckpt, "pos")):
+            fail("per-position checkpoint did not load")
+        pos_load_s = time.perf_counter() - t0
+        again.batch_flat_fallback = False
+        pos_after = _sc_call(rec, label, lambda: again.search(q64, k), paths,
+                             SHARDS, 1, body)
+        err = max(err, _check_sc_calls(f"{label}/position reload", again,
+                                       rec.last, pos_after, errs))
+        for a, c in ((before, after), (before, pos_after)):
+            if not (np.array_equal(a[1], c[1]) and np.array_equal(a[0], c[0])):
+                fail("a checkpoint round trip changed the answers")
+        shutil.rmtree(ckpt)
+        emit({"phase": "sharded_clustered", "path": "replicas, checkpoints",
+              "n": n, "int4_n": small,
+              "int4_max_abs_err_vs_plain": err4,
+              "replicated_mesh": dict(make_mesh2(2, 4).shape),
+              "replicated_search_b64_ms": rep_ms,
+              "replicated_max_abs_err_vs_plain": err_r,
+              "npz_save_s": save_s, "npz_load_s": load_s,
+              "position_save_s": pos_save_s, "position_load_s": pos_load_s})
+        del again
+        torch.cuda.empty_cache()
+
+        # the facade: enable_distributed, a health check, heal() onto 7
+        # positions; full probe, so the answers do not depend on layout.
+        # Every search's launches and its answer (recorded at the index)
+        # are held against the plain version.
+        old_env = os.environ.get(MESH_SIZE_ENV)
+        os.environ[MESH_SIZE_ENV] = str(SHARDS)
+        try:
+            db = WDBX(vector_dimension=d, enable_plugins=False,
+                      enable_distributed=True,
+                      data_dir=os.path.join(tmp, "sclu_facade"),
+                      config={"INDEX_TYPE": "sharded_clustered",
+                              "INDEX_DTYPE": "int8",
+                              "IVF_NLIST": nlist, "IVF_NPROBE": nlist,
+                              "IVF_TRAIN_THRESHOLD": 1 << 62,
+                              "INDEX_CAPACITY": n, "RAW_STORE": "none",
+                              "VECTOR_STORE_AUTOSAVE_INTERVAL": 0})
+            asyncio.run(db.initialize())
+            lo = 0
+            for rows in chunks():
+                db.store.bulk_load([str(i) for i in range(lo, lo + len(rows))],
+                                   rows.cpu().numpy())
+                lo += len(rows)
+            fx = db.store.indices[0]
+            if not isinstance(fx, ShardedClusteredIndex):
+                fail(f"INDEX_TYPE=sharded_clustered gave {type(fx).__name__}")
+            fx.build()
+            fx.batch_flat_fallback = False
+            answers, index_search = [], fx.search
+
+            def answering(queries, k, slot_mask=None):
+                out = index_search(queries, k, slot_mask=slot_mask)
+                answers.append(out)
+                return out
+
+            fx.search = answering
+            qn = q64.cpu().numpy()
+            flabel = "sharded_clustered_facade"
+            hits = _sc_call(rec, flabel, lambda: db.vector_search_batch(
+                qn, limit=k), paths, SHARDS, 1, body)
+            err = max(err, _check_sc_calls(f"{flabel}/8", fx, rec.last,
+                                           answers[-1], errs))
+            health = db.shard_engine.health_check()
+            names = list(db.shard_engine.mesh.names)
+            if not health["healthy"] or len(names) != SHARDS:
+                fail(f"health_check: {health}")
+            down = {"healthy": False, "devices": {
+                nm: ("error: down" if nm == names[3] else "ok")
+                for nm in names}}
+            t0 = time.perf_counter()
+            with mock.patch.object(db.shard_engine, "health_check",
+                                   return_value=down):
+                report = db.heal(allow_remesh=True)
+            heal_s = time.perf_counter() - t0
+            if report["remeshed_to"] != names[:3] + names[4:] or \
+                    fx.n_devices != SHARDS - 1 or not fx.is_trained:
+                fail(f"heal did not re-stripe onto 7: {report}")
+            healed = _sc_call(rec, flabel, lambda: db.vector_search_batch(
+                qn, limit=k), paths, SHARDS - 1, 1, body)
+            err = max(err, _check_sc_calls(f"{flabel}/7", fx, rec.last,
+                                           answers[-1], errs))
+            for row, (h0, h1) in enumerate(zip(hits, healed)):
+                _same_hits(f"{flabel}/row{row}", [h[:2] for h in h0],
+                           [h[:2] for h in h1])
+            emit({"phase": "sharded_clustered", "path": flabel,
+                  "n": n, "health": health["healthy"], "heal_s": heal_s,
+                  "remeshed_to": len(report["remeshed_to"])})
+            asyncio.run(db.shutdown())
+            del db, fx, index_search
+        finally:
+            if old_env is None:
+                os.environ.pop(MESH_SIZE_ENV, None)
+            else:
+                os.environ[MESH_SIZE_ENV] = old_env
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded_clustered",
+          "seconds": time.perf_counter() - t_phase,
+          "max_abs_err_vs_plain": err, "tol": ATOL,
+          "launches": {name: _nonzero(paths[name]) for name in paths
+                       if name.startswith("sharded_clustered")}})
+
 
 
 # -- the dense IVF engine (K5) -----------------------------------------------
@@ -3243,6 +3993,7 @@ def main() -> None:
         phase_cli(served, paths)
         phase_clustered(args.seed, paths, timings, errs)
         phase_clustered_facade(args.seed, paths, timings, errs, tmp)
+        phase_sharded_clustered(args.seed, paths, timings, errs, tmp)
         phase_dense_ivf(args.seed, paths, timings, errs, tmp)
         phase_batcher_clustered(args.seed, paths, errs)
     kernels = []

@@ -179,6 +179,24 @@ class TestPortSurface:
         )
         assert rc != 0
 
+    async def test_heal_serves_the_sharded_clustered_engine(
+            self, temp_dir, capsys, monkeypatch):
+        """``heal`` on a store of ``INDEX_TYPE=sharded_clustered`` (8
+        logical CPU shards): the report is consistent, nothing to
+        recover."""
+        from wdbx_tpu_torch.parallel.mesh import MESH_SIZE_ENV
+
+        monkeypatch.setenv(MESH_SIZE_ENV, "8")
+        monkeypatch.setenv("WDBX_INDEX_TYPE", "sharded_clustered")
+        rc = await amain(
+            ["--data-dir", temp_dir, "--dimension", "4", "--no-plugins",
+             "--device", "cpu", "heal"]
+        )
+        assert rc == 0
+        out = capsys.readouterr().out
+        report = json.loads(out[out.index("{"):])
+        assert report["consistent"] and report["recovered_shards"] == []
+
     async def test_no_device_means_the_card(self, temp_dir):
         import torch
 

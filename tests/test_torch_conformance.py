@@ -3,10 +3,9 @@
 The JAX package's ``tests/test_conformance.py`` checklist, run on the
 port's serving engines built on the CPU: every engine goes through the
 same capability checks, and capabilities an engine rejects are asserted
-to reject (int4 on the dense-table layout raises). The sharded flat and
-sharded IVF engines run on 8 logical CPU shards; the sharded clustered
-engine is not ported yet (slice 5c). The support table is held against
-the reference's for the engines the matrix holds.
+to reject (int4 on the dense-table layout raises). The sharded flat,
+sharded IVF and sharded clustered engines run on 8 logical CPU shards.
+The support table is held against the reference's.
 Checks that apply to some engines only (the tuners, the serve-through
 rebuild) are parametrised over those engines.
 """
@@ -19,7 +18,12 @@ import torch
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 from wdbx_tpu_torch.index.flat import FlatIndex
 from wdbx_tpu_torch.index.ivf import IVFIndex
-from wdbx_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, make_mesh
+from wdbx_tpu_torch.parallel import (
+    ShardedClusteredIndex,
+    ShardedFlatIndex,
+    ShardedIVFIndex,
+    make_mesh,
+)
 
 torch.set_num_threads(2)
 
@@ -44,13 +48,15 @@ ENGINES = {
     "ivf_clustered": (ClusteredIVFIndex, _ann_kwargs()),
     "sharded_flat": (ShardedFlatIndex, {"mesh": MESH}),
     "sharded_ivf": (ShardedIVFIndex, {**_ann_kwargs(), "mesh": MESH}),
+    "sharded_clustered": (ShardedClusteredIndex,
+                          {**_ann_kwargs(), "mesh": MESH}),
 }
 #: engines where the int4 capacity tier is supported; the rest reject it
-INT4_OK = {"flat", "ivf_clustered", "sharded_flat"}
+INT4_OK = {"flat", "ivf_clustered", "sharded_flat", "sharded_clustered"}
 #: engines with a serve-through background rebuild
-BG_REBUILD = {"ivf_clustered"}
+BG_REBUILD = {"ivf_clustered", "sharded_clustered"}
 #: ANN engines (carry tune / tune_filtered; flat is always exact)
-ANN = {"ivf_dense", "ivf_clustered", "sharded_ivf"}
+ANN = {"ivf_dense", "ivf_clustered", "sharded_ivf", "sharded_clustered"}
 
 
 def _make(name, dtype="float32"):
@@ -78,11 +84,10 @@ def corpus():
 
 
 def test_support_table_matches_the_reference():
-    ported = set(ENGINES)
-    assert ported <= set(reference.ENGINES)
-    assert INT4_OK == reference.INT4_OK & ported
-    assert BG_REBUILD == reference.BG_REBUILD & ported
-    assert ANN == reference.ANN & ported
+    assert set(ENGINES) == set(reference.ENGINES)
+    assert INT4_OK == reference.INT4_OK
+    assert BG_REBUILD == reference.BG_REBUILD
+    assert ANN == reference.ANN
 
 
 @pytest.mark.parametrize("engine", sorted(ENGINES))

@@ -5,7 +5,8 @@ The heal cases of ``tests/test_parallel.py`` (checkpoint recovery, the
 escalation to a live remesh, the cold re-host when the remesh cannot
 read the old mesh), with health reports keyed on the mesh's position
 names. Then what the port adds: a heal with every position healthy,
-the engine's stats, and the ``sharded_clustered`` kind still refused.
+the engine's stats, and the same heal on the ``sharded_clustered``
+engine.
 """
 
 import asyncio
@@ -134,6 +135,30 @@ def test_heal_sharded_ivf_and_healthy_mesh(temp_dir):
 
 
 def test_sharded_clustered_still_names_its_slice(temp_dir):
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        WDBX(vector_dimension=8, data_dir=temp_dir, enable_plugins=False,
-             device="cpu", config={"INDEX_TYPE": "sharded_clustered"})
+    """``INDEX_TYPE=sharded_clustered`` (the engine of slice 5c) serves
+    through the facade: a trained store heals onto 7 positions with a
+    live remesh (the cluster layout rebuilt there) and keeps its hits."""
+    from wdbx_tpu_torch.parallel import ShardedClusteredIndex
+
+    db = _db(temp_dir, num_shards=1, config={
+        "INDEX_TYPE": "sharded_clustered", "IVF_NLIST": 8, "IVF_NPROBE": 8,
+        "IVF_TRAIN_THRESHOLD": 128})
+    index = db.store.indices[0]
+    assert type(index) is ShardedClusteredIndex and index.n_devices == 8
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((400, 8)).astype(np.float32)
+    db.batch_store({f"c{i}": v for i, v in enumerate(vecs)})
+    index.build()
+    assert index.is_trained
+    before = db.vector_search_batch(vecs[:6], limit=3)
+    db.store.save()
+    names = list(db.shard_engine.mesh.names)
+    with mock.patch.object(db.shard_engine, "health_check",
+                           return_value=_down(names, {names[2]})):
+        report = db.heal(allow_remesh=True)
+    assert report["remeshed_to"] == names[:2] + names[3:]
+    assert index.n_devices == 7 and index.is_trained
+    after = db.vector_search_batch(vecs[:6], limit=3)
+    assert [[h[0] for h in row] for row in after] == \
+        [[h[0] for h in row] for row in before]
+    assert db.store.verify()["consistent"]

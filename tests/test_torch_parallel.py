@@ -20,10 +20,12 @@ Cases of ``tests/test_parallel.py`` that live elsewhere or are left out:
     ``tests/test_torch_heal.py``;
   * ``TestMultiHost.test_two_process_shard_engine``: its gloo
     counterpart is ``tests/test_torch_multihost.py``;
-  * left out: ``TestRemesh.test_sharded_clustered_load_on_different_mesh``
-    (``ShardedClusteredIndex`` is slice 5c, not ported) and
-    ``TestMultiHost.test_two_process_data_plane`` (a mesh spanning
-    processes: the cross-process data plane is not ported).
+  * left out: ``TestMultiHost.test_two_process_data_plane`` (a mesh
+    spanning processes: the cross-process data plane is not ported).
+
+``TestRemesh.test_sharded_clustered_load_on_different_mesh`` runs here
+too, and ``.ivfsc`` checkpoints of 8 shards load on 4 across the
+packages, both ways.
 """
 
 import asyncio
@@ -317,6 +319,30 @@ class TestRemesh:
         assert (got.ravel() == slots[:5]).all()
 
 
+    def test_sharded_clustered_load_on_different_mesh(self, rng, temp_dir):
+        """A trained checkpoint of 8 shards rebuilds its per-shard
+        extents when loaded on 4 (installing the persisted (8, nlist)
+        extents would corrupt results)."""
+        from wdbx_tpu_torch.parallel import ShardedClusteredIndex
+
+        idx = ShardedClusteredIndex(16, nlist=8, nprobe=8,
+                                    train_threshold=64, device="cpu")
+        idx.batch_flat_fallback = False
+        vecs = _normed(rng, 600, 16)
+        slots = idx.add_batch(vecs)
+        idx.build()
+        path = os.path.join(temp_dir, "xmesh")
+        idx.save(path)
+        idx2 = ShardedClusteredIndex(16, mesh=cpu_mesh(4), nlist=8,
+                                     nprobe=8, train_threshold=64)
+        idx2.batch_flat_fallback = False
+        assert idx2.load(path)
+        assert idx2.is_trained and idx2.n_devices == 4
+        assert idx2._local_counts.shape[0] == 4
+        _, got = idx2.search(vecs[:8], 1)
+        assert (got.ravel() == slots[:8]).all()
+
+
 class TestShardedPipelined:
     def test_sharded_flat_pipelined(self, rng):
         idx = TIndex(dim=16, capacity=1024)
@@ -487,3 +513,35 @@ def test_remesh_matches_jax(rng, n_new):
     more = rng.standard_normal((40, 16)).astype(np.float32)
     np.testing.assert_array_equal(j.add_batch(more), t.add_batch(more))
     _same(j.search(q, 10), t.search(q, 10), "bfloat16")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sharded_clustered_checkpoint_across_packages_and_meshes(
+        rng, temp_dir, writer):
+    """An ``.ivfsc`` checkpoint of 8 shards written by one package loads
+    on 4 shards in the other: the extents rebuild there, and every row
+    answers its own query."""
+    from wdbx_tpu.parallel.sharded_clustered import (
+        ShardedClusteredIndex as JClustered,
+    )
+    from wdbx_tpu_torch.parallel import ShardedClusteredIndex
+
+    vecs = _normed(rng, 700, 16)
+    kw = dict(nlist=8, nprobe=8, train_threshold=64)
+    if writer == "jax":
+        src = JClustered(16, **kw)
+        dst = ShardedClusteredIndex(16, mesh=cpu_mesh(4), **kw)
+    else:
+        src = ShardedClusteredIndex(16, device="cpu", **kw)
+        dst = JClustered(16, mesh=jmesh(4), **kw)
+    slots = src.add_batch(vecs)
+    src.build()
+    src.remove_slots(slots[:5])
+    path = os.path.join(temp_dir, "ckpt")
+    src.save(path)
+    dst.batch_flat_fallback = False
+    assert dst.load(path)
+    assert dst.n_devices == 4 and dst.is_trained
+    assert dst.count() == src.count() == 695
+    _, got = dst.search(vecs[5:21], 1)
+    np.testing.assert_array_equal(got.ravel(), slots[5:21])

@@ -70,6 +70,35 @@ class TestOrbaxPersistence:
         _, got = idx2.search(vecs[:4], k=1)
         np.testing.assert_array_equal(got[:, 0], slots[:4])
 
+    @pytest.mark.parametrize("dtype", ["float32", "int4"])
+    def test_sharded_clustered_orbax_roundtrip(self, rng, temp_dir, dtype):
+        """The per-position files beside the ``.ivfsc`` overlay sidecar:
+        the layout, its holes and its fresh rows come back."""
+        from wdbx_tpu_torch.parallel import ShardedClusteredIndex
+
+        kw = dict(dim=16, dtype=dtype, nlist=8, nprobe=8,
+                  train_threshold=64, device="cpu")
+        idx = ShardedClusteredIndex(**kw)
+        idx.persist_backend = "orbax"
+        vecs = _normed(rng, 500, 16)
+        slots = idx.add_batch(vecs)
+        idx.build()
+        idx.remove_slots(slots[:6])
+        fresh = idx.add_batch(_normed(rng, 4, 16))
+        idx.save(f"{temp_dir}/obc")
+        assert persist.exists(f"{temp_dir}/obc")
+        assert not os.path.exists(f"{temp_dir}/obc.npz")
+        assert os.path.exists(f"{temp_dir}/obc.ivfsc.npz")
+        idx2 = ShardedClusteredIndex(**kw)
+        idx2.batch_flat_fallback = idx.batch_flat_fallback = False
+        assert idx2.load(f"{temp_dir}/obc")
+        assert idx2.persist_backend == "orbax" and idx2.is_trained
+        assert sorted(idx2._quar_flat()) == sorted(idx._quar_flat())
+        assert idx2._residual == idx._residual
+        q = np.concatenate([vecs[10:16], idx.get_vectors(fresh)])
+        for a, b in zip(idx.search(q, 5), idx2.search(q, 5)):
+            np.testing.assert_array_equal(a, b)
+
     def test_int8_orbax(self, rng, temp_dir):
         idx = FlatIndex(dim=16, dtype="int8", device="cpu")
         idx.persist_backend = "orbax"

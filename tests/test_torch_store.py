@@ -117,8 +117,8 @@ def test_unported_surfaces_raise(tmp_path):
     db = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "a"),
                device="cpu")
     assert "sentencetransformers" in db.plugins
-    # the mesh layer is ported (slices 5a / 5b / 5d): a shard engine,
-    # and heal() reports; only the sharded clustered engine (5c) raises
+    # the mesh layer is ported (slices 5a-5d): a shard engine, heal()
+    # reports, and the sharded clustered engine serves
     dist = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "b"),
                  enable_plugins=False, enable_distributed=True, device="cpu")
     assert dist.shard_engine is not None
@@ -127,10 +127,12 @@ def test_unported_surfaces_raise(tmp_path):
                enable_plugins=False, device="cpu")
     assert db.heal()["recovered_shards"] == []
     assert db.store.verify()["consistent"]
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "d"),
-              enable_plugins=False, device="cpu",
-              config={"INDEX_TYPE": "sharded_clustered"})
+    from wdbx_tpu_torch.parallel import ShardedClusteredIndex
+
+    sc = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / "d"),
+               enable_plugins=False, device="cpu",
+               config={"INDEX_TYPE": "sharded_clustered"})
+    assert all(type(ix) is ShardedClusteredIndex for ix in sc.store.indices)
 
 
 @pytest.mark.parametrize("kind,slice_", [
@@ -141,23 +143,23 @@ def test_unported_surfaces_raise(tmp_path):
 def test_index_types_through_the_facade(tmp_path, kind, slice_):
     """The clustered aliases serve through the port's ClusteredIVFIndex
     and ``ivf_dense`` through its dense IVFIndex; ``slice_`` names the
-    mesh slice of a sharded kind: ``sharded_flat`` and ``sharded_ivf``
-    serve through the port's sharded engines, ``sharded_clustered``
-    raises, naming its slice."""
+    mesh slice that ported a sharded kind, which serves through the
+    port's sharded engine of that kind."""
     from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
     from wdbx_tpu_torch.index.ivf import IVFIndex
-    from wdbx_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFIndex
+    from wdbx_tpu_torch.parallel import (
+        ShardedClusteredIndex,
+        ShardedFlatIndex,
+        ShardedIVFIndex,
+    )
 
-    kw = dict(vector_dimension=DIM, data_dir=str(tmp_path / kind),
-              enable_plugins=False, device="cpu",
-              config={"INDEX_TYPE": kind})
-    if kind == "sharded_clustered":
-        with pytest.raises(NotImplementedError, match=slice_):
-            TWDBX(**kw)
-        return
-    db = TWDBX(**kw)
+    db = TWDBX(vector_dimension=DIM, data_dir=str(tmp_path / kind),
+               enable_plugins=False, device="cpu",
+               config={"INDEX_TYPE": kind})
     want = {"ivf_dense": IVFIndex, "sharded_flat": ShardedFlatIndex,
-            "sharded_ivf": ShardedIVFIndex}.get(kind, ClusteredIVFIndex)
+            "sharded_ivf": ShardedIVFIndex,
+            "sharded_clustered": ShardedClusteredIndex,
+            }.get(kind, ClusteredIVFIndex)
     assert all(type(ix) is want for ix in db.store.indices)
     assert db.store.verify()["consistent"]
 

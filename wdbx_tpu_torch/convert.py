@@ -49,6 +49,23 @@ the dense overlay of a sharded IVF index as its global tables:
     index = sharded_ivf_index_from_arrays(arrays | overlay, meta | ivf_meta,
                                           make_mesh(8))
 
+A sharded clustered index comes over as its per-position arrays, ``(n_dev,
+rpd, ...)``, with its slot map, layout and the scalars of its
+``.ivfsc.json`` sidecar:
+
+    arrays = {"slab": np.asarray(jax_index._slab),        # (n_dev, rpd, w)
+              "valid": np.asarray(jax_index._valid),      # (n_dev, rpd)
+              "scales": np.asarray(jax_index._scales),    # int8 / int4 only
+              "slot_of": jax_index._slot_of,
+              "residual": np.asarray(jax_index._residual),
+              "centroids": np.asarray(jax_index._centroids),  # trained
+              "local_counts": jax_index._local_counts}         # trained
+    meta.update(nlist=..., nprobe=..., trained=..., built_size=...,
+                residual_base=..., next_ext_slot=..., free_slots=[...],
+                pos_quarantine=[...], next_slot=..., block_rows=...,
+                fresh_base=...)
+    index = sharded_clustered_index_from_arrays(arrays, meta, make_mesh(8))
+
 A bf16 slab may come as an ml_dtypes bfloat16 array or as its uint16
 bits; both become a torch bfloat16 slab bit for bit.
 """
@@ -63,6 +80,7 @@ from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
 from wdbx_tpu_torch.index.flat import FlatIndex
 from wdbx_tpu_torch.index.ivf import IVFIndex
 from wdbx_tpu_torch.parallel.mesh import Mesh
+from wdbx_tpu_torch.parallel.sharded_clustered import ShardedClusteredIndex
 from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
 from wdbx_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
 
@@ -127,6 +145,28 @@ def sharded_ivf_index_from_arrays(
     index._quarantine = [int(s) for s in meta.get("quarantine", [])]
     if "centroids" in arrays:
         index._install_tables(arrays)
+    return index
+
+
+def sharded_clustered_index_from_arrays(
+    arrays: dict[str, np.ndarray], meta: dict[str, Any],
+    mesh: Mesh | None = None, device: Any = None,
+) -> ShardedClusteredIndex:
+    """A JAX ``ShardedClusteredIndex``'s per-position ``(n_dev, rpd,
+    ...)`` slab, validity and scales put in slot order and striped over
+    ``mesh`` (slot ``row * n_dev + shard``), then its clustered state
+    installed as ``load`` installs a checkpoint's: the extents from
+    ``local_counts`` and ``block_rows``, rebuilt when the mesh has
+    another shard count."""
+    def slot_order(a):
+        a = np.asarray(a)
+        return a.swapaxes(0, 1).reshape((-1,) + a.shape[2:])
+
+    flat = {key: slot_order(arrays[key])
+            for key in ("slab", "valid", "scales") if key in arrays}
+    index = _place_flat(ShardedClusteredIndex, flat, meta, device, mesh=mesh,
+                        nlist=int(meta["nlist"]), nprobe=int(meta["nprobe"]))
+    index._restore_sidecar(arrays, meta, None)
     return index
 
 

@@ -1,9 +1,8 @@
 """Device-resident vector indexes (torch tensors on the CUDA device).
 
 The flat, clustered and dense IVF engines, and (from
-``wdbx_tpu_torch.parallel``) the sharded flat and sharded IVF engines;
-``create_index`` raises ``NotImplementedError`` for
-``sharded_clustered``."""
+``wdbx_tpu_torch.parallel``) the sharded flat, sharded IVF and sharded
+clustered engines."""
 
 from wdbx_tpu_torch.index.base import VectorIndex, create_index
 from wdbx_tpu_torch.index.clustered import ClusteredIVFIndex
@@ -11,11 +10,13 @@ from wdbx_tpu_torch.index.flat import FlatIndex
 from wdbx_tpu_torch.index.ivf import IVFIndex
 
 __all__ = ["VectorIndex", "FlatIndex", "IVFIndex", "ClusteredIVFIndex",
-           "ShardedFlatIndex", "ShardedIVFIndex", "create_index"]
+           "ShardedFlatIndex", "ShardedIVFIndex", "ShardedClusteredIndex",
+           "create_index"]
 
 
 def __getattr__(name):  # lazy: the parallel package imports this one
-    if name in ("ShardedFlatIndex", "ShardedIVFIndex"):
+    if name in ("ShardedFlatIndex", "ShardedIVFIndex",
+                "ShardedClusteredIndex"):
         import wdbx_tpu_torch.parallel as parallel
 
         return getattr(parallel, name)

@@ -1,9 +1,8 @@
 """Index ABC — the contract the store layer programs against.
 
 Torch port of ``wdbx_tpu/index/base.py``: the same ABC and the same
-``INDEX_TYPE`` alias routing. The flat, clustered, dense IVF, sharded
-flat and sharded IVF engines are ported; ``sharded_clustered`` raises
-``NotImplementedError`` naming the ROADMAP slice that ports it.
+``INDEX_TYPE`` alias routing onto the port's flat, clustered, dense IVF,
+sharded flat, sharded IVF and sharded clustered engines.
 
 The reference's ``VectorIndex`` ABC (reference wdbx/core/indexing.py:18)
 speaks string ids and per-vector calls because its backends are
@@ -43,16 +42,6 @@ def resolve_device(device: Any = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is absent")
     return dev
-
-
-def _not_ported(kind: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"INDEX_TYPE={kind!r} routes to the {slice_}, which is not ported "
-        "to wdbx_tpu_torch yet (ROADMAP.md, queue 1)"
-    )
-
-
-_SHARDED_CLUSTERED = "sharded clustered engine (slice 5c)"
 
 
 class VectorIndex(abc.ABC):
@@ -309,5 +298,23 @@ def create_index(
             )
         return ShardedIVFIndex(dim, device=device, **kwargs)
     if kind == "sharded_clustered":
-        raise _not_ported(kind, _SHARDED_CLUSTERED)
+        from wdbx_tpu_torch.parallel.sharded_clustered import (
+            ShardedClusteredIndex,
+        )
+
+        if config is not None:
+            kwargs["axis"] = config.get("MESH_AXIS", "shard")
+            kwargs["replicas"] = int(config.get("MESH_REPLICAS", 1))
+            kwargs["nlist"] = int(config.get("IVF_NLIST", 128))
+            kwargs["nprobe"] = int(config.get("IVF_NPROBE", 8))
+            kwargs["train_threshold"] = int(
+                config.get("IVF_TRAIN_THRESHOLD", 4096)
+            )
+        idx = ShardedClusteredIndex(dim, device=device, **kwargs)
+        if config is not None:
+            idx.background_rebuild = bool(
+                config.get("IVF_BACKGROUND_REBUILD", False)
+            )
+            _apply_kernel_knobs(idx, config)
+        return idx
     raise ValueError(f"unknown index type: {kind}")

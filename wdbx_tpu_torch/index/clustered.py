@@ -339,6 +339,29 @@ class ClusteredSlotMixin:
             pos[fresh] = self._take_slots(n_fresh)
         return pos, fresh
 
+    def optimize(self, background: bool | None = None) -> None:
+        """Rebuild the cluster layout. ``background`` forces the
+        copy-on-write serve-through rebuild on or off for this call;
+        ``None`` defers to ``background_rebuild``."""
+        if self._size > 0:
+            bg = self.background_rebuild if background is None else background
+            if bg:
+                self.build_background()
+            else:
+                self.build()
+
+    def _grow(self, need: int) -> None:
+        """Grow the storage; the slot maps follow."""
+        old_cap = self._cap
+        slot_of, pos_of = self._slot_of, self._pos_of
+        super()._grow(need)
+        so = np.full(self._cap, -1, np.int32)
+        so[:old_cap] = slot_of
+        self._slot_of = so
+        po = np.full(self._cap, -1, np.int32)
+        po[:old_cap] = pos_of
+        self._pos_of = po
+
     def _take_ext_slots(self, n: int) -> np.ndarray:
         slots = []
         while self._free_slots and len(slots) < n:
@@ -813,17 +836,6 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
         #: layout during the rebuild); IVF_BACKGROUND_REBUILD
         self.background_rebuild = False
 
-    def optimize(self, background: bool | None = None) -> None:
-        """Rebuild the clustered layout. ``background`` forces the
-        copy-on-write serve-through rebuild on or off for this call;
-        ``None`` defers to ``background_rebuild``."""
-        if self._size > 0:
-            bg = self.background_rebuild if background is None else background
-            if bg:
-                self.build_background()
-            else:
-                self.build()
-
     # -- storage: position space + slot indirection -------------------------
     def _alloc(self, cap: int) -> None:
         super()._alloc(cap)
@@ -836,17 +848,6 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
         self._layout_gen = getattr(self, "_layout_gen", 0) + 1
         self._cow_writes = False
         self._bg_journal = {}
-
-    def _grow(self, need: int) -> None:
-        old_cap = self._cap
-        slot_of, pos_of = self._slot_of, self._pos_of
-        super()._grow(need)
-        so = np.full(self._cap, -1, np.int32)
-        so[:old_cap] = slot_of
-        self._slot_of = so
-        po = np.full(self._cap, -1, np.int32)
-        po[:old_cap] = pos_of
-        self._pos_of = po
 
     def _reset_overlay(self) -> None:
         self._centroids = None
