@@ -121,6 +121,34 @@ Phases (each prints JSON lines; any failure exits non-zero):
              adopt_mesh, a per-position checkpoint, and the facade with
              enable_distributed and heal(allow_remesh=True) at full probe
              (the same hits on 7 positions)
+  multiprocess
+             two ranks of the port sharing the card (each a subprocess
+             running _rank_main) join through ShardEngine.initialize
+             (WDBX_TORCH_MESH_SIZE=4 each) into a global make_mesh() of 8
+             positions; on it, with identical calls on both ranks:
+             ShardedFlatIndex at bench.py's point (1,048,576 x 384 bf16,
+             nothing cut): search at B=128, search_pipelined (NB=64),
+             remove_slots of 1,024 slots and a search that must not
+             return them, an orbax round trip (each rank its own
+             positions' files) and an npz save; the same rows as int8
+             (one B=128 search, K2); ShardedClusteredIndex at the
+             sharded_clustered phase's point (2,000,000 x 768 int8, nlist
+             2048, nprobe 4, B=64, batch fallback off): build_from across
+             the ranks (rank 0 trains, rows move through the all-to-all),
+             search, search_pipelined (NB=8), the 1% filter through the
+             exact masked route (K2 a shard), an npz round trip. Each
+             rank holds every K1 / K2 / K3 launch on its shards against
+             the plain version, expects 4 stage-1 launches and 2 merges
+             (the rank's, then the cross-rank one) a call, and times the
+             calls and their split (stage 1, the rank's merge, the
+             gather through gloo, the final merge) with the bytes each
+             collective sent. Here, both ranks' answers must be equal,
+             match the plain version over the whole slab and the
+             single-process 8-position index loaded from their
+             checkpoints, and reach recall@10 0.9938 (flat bf16) and 0.95
+             (sharded clustered, also at the 1% filter); times beside
+             the single-process sharded / sharded_clustered numbers of
+             the same run
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -185,8 +213,9 @@ row) and, last, {"ok": true, "device": {...}}.
 
 Launch counts: every path (main, the default facade, each pipelined
 slab, the int8 facade, the sharded flat, replicated, facade and IVF
-paths, each clustered path, the sharded clustered paths, the server, the
-cli's process, the batcher)
+paths, each clustered path, the sharded clustered paths, both ranks'
+multiprocess paths (their counts come back in the ranks' reports), the
+server, the cli's process, the batcher)
 runs with the kernels' counters set to 0 just
 before it and read just after; comparison and timing launches are never
 counted.
@@ -2147,15 +2176,10 @@ def _k3_plain(call):
         qprec="int8" if int8q else "bf16")
 
 
-def _check_sc_calls(name, index, calls, out, errs) -> float:
-    """Every recorded per-shard stage 1, merged by a comparison launch,
-    against its plain version on the same block list; then, where the
-    index holds no fresh rows and one replica group served, each batch's
-    answer (``out``: host scores and slots, (B, k) or (NB, B, k)) against
-    the plain partials of its shards merged by the plain merge."""
-    import numpy as np
-    import torch
-
+def _check_k3_launches(name, calls, errs):
+    """Every recorded stage-1 launch, merged by a comparison launch,
+    against its plain version on the same block list. Returns the
+    largest error and the plain results."""
     from wdbx_tpu_torch.kernels import fused_topk as tf
 
     err, plains = 0.0, []
@@ -2169,6 +2193,21 @@ def _check_sc_calls(name, index, calls, out, errs) -> float:
         errs[key] = max(errs.get(key, 0.0), e)
         err = max(err, e)
         plains.append(ref)
+    return err, plains
+
+
+def _check_sc_calls(name, index, calls, out, errs) -> float:
+    """Every recorded per-shard stage 1, merged by a comparison launch,
+    against its plain version on the same block list; then, where the
+    index holds no fresh rows and one replica group served, each batch's
+    answer (``out``: host scores and slots, (B, k) or (NB, B, k)) against
+    the plain partials of its shards merged by the plain merge."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    err, plains = _check_k3_launches(name, calls, errs)
     n_dev = index.n_devices
     if index._residual or index.replicas != 1 or not calls:
         return err
@@ -2805,6 +2844,639 @@ def phase_sharded_clustered(seed, paths, timings, errs, tmp):
 
 
 # -- the dense IVF engine (K5) -----------------------------------------------
+
+
+MP_RANKS = 2  # processes of the multiprocess phase, sharing the card
+MP_POSITIONS = 4  # positions a rank: the sharded phases' 8 in all
+MP_DEADLINE_S = 600  # the ranks' whole run, build and checks included
+MP_REMOVED = 1024  # slots the flat path removes
+
+
+class _K1Recorder:
+    """While entered, records each stage-1 launch of the sharded flat
+    engine (its inputs and partials); the counters still count the
+    engine's launches."""
+
+    def __enter__(self):
+        from wdbx_tpu_torch.parallel import sharded_flat as sfm
+
+        self.mod, self.orig, self.calls = sfm, sfm.fused_topk_local, []
+
+        def recording(db, queries, valid, k, scales=None, int4=False):
+            out = self.orig(db, queries, valid, k, scales=scales, int4=int4)
+            self.calls.append(dict(db=db, q=queries, valid=valid, k=k,
+                                   scales=scales, int4=int4, out=out))
+            return out
+
+        sfm.fused_topk_local = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fused_topk_local = self.orig
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def _check_k1_launches(name, calls, errs) -> float:
+    """Every recorded K1 / K2 launch of a shard, merged by a comparison
+    launch, against its plain version on the same inputs."""
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    err = 0.0
+    for i, c in enumerate(calls):
+        ref = tf.fused_topk_plain(c["db"], c["q"], c["valid"], c["k"],
+                                  scales=c["scales"], int4=c["int4"])
+        got = tf.topk_merge_partials(*c["out"], c["k"])
+        e = check_topk(f"{name}/launch{i}", ref, got, rescorer(
+            c["db"], c["q"], c["scales"], c["int4"]))
+        dtype = "int4" if c["int4"] else str(c["db"].dtype)[6:]
+        key = f"fused_topk_partial[{dtype}]"
+        errs[key] = max(errs.get(key, 0.0), e)
+        err = max(err, e)
+    return err
+
+
+def _mp_call(rec, label, run, counts, stage1, merges, body, key):
+    """``run()`` with the counters at 0 just before and read just after:
+    ``stage1`` launches of ``key`` on ``body`` and ``merges`` merges, or
+    the rank fails. ``rec.last`` then holds the run's launches."""
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    rec.take()
+    _reset()
+    out = run()
+    got = _counts()
+    rec.last = rec.take()
+    _tally(counts, label, got)
+    if got[key] != stage1 or got["topk_merge_partials"] != merges or \
+            got[f"fused_topk_partial.bodies.{body}"] != stage1 or \
+            sum(tf.fused_topk_partial.launches.values()) != stage1:
+        fail(f"{label}: expected {stage1} launches of {key} on {body} and "
+             f"{merges} merges: {_nonzero(got)}")
+    return out
+
+
+def _wall_ms(fn, reps, warm=1) -> float:
+    """Wall ms of ``fn()`` (host clock, the card synchronized around)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _mp_split(stage1, k, local_k) -> dict:
+    """Where a search's time goes on a rank: ``stage1()`` (the rank's
+    stage-1 launches, returning their partials), the merge of the rank's
+    partials, the gather of every rank's (B, k') (host staging and gloo;
+    also of a host copy, gloo alone), the final merge. Every rank times the same sequence, so the gathers
+    meet. Comparison launches: never counted."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+    from wdbx_tpu_torch.parallel import ShardedFlatIndex, collective
+
+    out = {"stage1_ms": cuda_ms(stage1, reps=5, warm=1)}
+    pv, pi = stage1()
+    out["local_merge_ms"] = cuda_ms(
+        lambda: tf.topk_merge_partials(pv, pi, local_k), reps=10, warm=2)
+    v, i = tf.topk_merge_partials(pv, pi, local_k)
+    packed = torch.cat([v.view(torch.int32), i.to(torch.int32)], -1)
+    out["gather_ms"] = _wall_ms(lambda: collective.all_gather(packed),
+                                reps=20, warm=2)
+    host = packed.cpu()  # the same gather without the device copies
+    out["gather_gloo_only_ms"] = _wall_ms(
+        lambda: collective.all_gather(host), reps=20, warm=2)
+    every = collective.all_gather(packed)
+    gv = every[..., :local_k].contiguous().view(torch.float32)
+    gv = gv.transpose(0, 1).contiguous()
+    gi = every[..., local_k:].transpose(0, 1).contiguous()
+    out["final_merge_ms"] = cuda_ms(
+        lambda: tf.topk_merge_partials(gv, gi, k), reps=10, warm=2)
+    out["call_ms"] = _wall_ms(
+        lambda: ShardedFlatIndex._merge_ranks(v, i, k, tf.merge_partials),
+        reps=5)
+    out["gather_bytes_per_rank"] = int(packed.numel() * 4)
+    return out
+
+
+def _coll_since(before) -> dict:
+    """Collective calls, bytes sent and ms since ``before``, by kind."""
+    from wdbx_tpu_torch.parallel import collective
+
+    now = collective.stats()
+    return {kind: {key: s[key] - before.get(kind, {}).get(key, 0)
+                   for key in s} for kind, s in now.items()
+            if s["calls"] != before.get(kind, {}).get("calls", 0)}
+
+
+def _rank_main(rank, world, port, tmp, seed):
+    """One rank of the ``multiprocess`` phase (started by
+    ``phase_multiprocess``): joins through ``ShardEngine.initialize`` on
+    the global mesh of ``world`` x ``MP_POSITIONS`` positions, drives the
+    flat engine (bf16, int8) and the sharded clustered engine on its
+    shards, holds every stage-1 launch against its plain version, times
+    the calls and their split, and writes its report and answers to
+    ``tmp`` for the parent."""
+    os.environ.update(WDBX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      WDBX_NUM_PROCESSES=str(world),
+                      WDBX_PROCESS_ID=str(rank),
+                      WDBX_TORCH_MESH_SIZE=str(MP_POSITIONS))
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.core.config import WDBXConfig
+    from wdbx_tpu_torch.ops.normalize import l2_normalize
+    from wdbx_tpu_torch.parallel import (
+        ShardedClusteredIndex,
+        ShardedFlatIndex,
+        ShardEngine,
+        collective,
+    )
+
+    engine = ShardEngine(WDBXConfig(
+        {"DATA_DIR": os.path.join(tmp, f"mp_engine{rank}")}))
+    asyncio.run(engine.initialize())
+    mesh = engine.mesh
+    own = list(range(rank * MP_POSITIONS, (rank + 1) * MP_POSITIONS))
+    if mesh.size != world * MP_POSITIONS or \
+            list(mesh.local_positions) != own or \
+            any(d.type != "cuda" for d in mesh.devices):
+        fail(f"rank {rank}: mesh {mesh.names} owners {mesh.owners}")
+    health = engine.health_check()
+    if not health["healthy"] or len(health["devices"]) != mesh.size:
+        fail(f"rank {rank}: health {health}")
+    counts: dict[str, dict] = {}
+    errs: dict[str, float] = {}
+    rep = {"rank": rank, "mesh": list(mesh.names), "counts": counts,
+           "errs": errs}
+    ans = {}
+    k = 10
+    pipe_body = want_body("bfloat16", "bfloat16", 384, 128, k)
+
+    # the flat engine at bench.py's point, bf16
+    x, qs = _data(N_ROWS, seed)
+    nb, b = qs.shape[0], qs.shape[1]
+    qstack = torch.as_tensor(qs, device="cuda")
+    idx = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS,
+                           mesh=mesh)
+    t0 = time.perf_counter()
+    idx.add_batch(x)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    label = "multiprocess_flat"
+    bf16 = "fused_topk_partial[bfloat16]"
+    with _K1Recorder() as k1:
+        before = collective.stats()
+        ans["search"] = _mp_call(k1, label, lambda: idx.search(qs[0], k),
+                                 counts, MP_POSITIONS, 2, pipe_body, bf16)
+        search_coll = _coll_since(before)
+        err = _check_k1_launches(f"{label}/search", k1.last, errs)
+        ans["pipelined"] = _mp_call(
+            k1, label, lambda: idx.search_pipelined(qstack, k), counts,
+            MP_POSITIONS, 2, pipe_body, bf16)
+        err = max(err, _check_k1_launches(f"{label}/pipelined", k1.last,
+                                          errs))
+        # 1,024 removed slots (the first batch's best hits among them)
+        pick = np.random.default_rng(seed + 5).permutation(N_ROWS)
+        first = np.unique(ans["search"][1][:, 0])
+        rest = pick[~np.isin(pick, first)][:MP_REMOVED - len(first)]
+        removed = np.concatenate([first, rest]).astype(np.int64)
+        idx.remove_slots(removed)
+        ans["removed"] = _mp_call(k1, label, lambda: idx.search(qs[0], k),
+                                  counts, MP_POSITIONS, 2, pipe_body, bf16)
+        err = max(err, _check_k1_launches(f"{label}/removed", k1.last,
+                                          errs))
+        if np.isin(ans["removed"][1], removed).any():
+            fail(f"{label}: a removed slot was returned")
+    search_ms = _wall_ms(lambda: idx.search(qs[0], k), reps=10, warm=2)
+    pipe_ms = _wall_ms(lambda: idx.search_pipelined(qstack, k), reps=3) / nb
+    qk = l2_normalize(torch.as_tensor(qs[0], device="cuda"))
+    split = _mp_split(
+        lambda: idx._shard_parts(0, qk, k, idx._valids, True), k, k)
+    # orbax (one file a position, each rank its own) and the npz for the
+    # parent
+    idx.persist_backend = "orbax"
+    t0 = time.perf_counter()
+    idx.save(os.path.join(tmp, "mp_orbax"))
+    orbax_save_s = time.perf_counter() - t0
+    back = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS,
+                            mesh=mesh)
+    back.persist_backend = "orbax"
+    t0 = time.perf_counter()
+    if not back.load(os.path.join(tmp, "mp_orbax")):
+        fail(f"{label}: the orbax checkpoint did not load")
+    orbax_load_s = time.perf_counter() - t0
+    with _K1Recorder() as k1:
+        again = _mp_call(k1, label, lambda: back.search(qs[0], k), counts,
+                         MP_POSITIONS, 2, pipe_body, bf16)
+    if not (np.array_equal(again[1], ans["removed"][1])
+            and np.array_equal(again[0], ans["removed"][0])):
+        fail(f"{label}: the orbax round trip answers otherwise")
+    del back
+    idx.persist_backend = "npz"
+    t0 = time.perf_counter()
+    idx.save(os.path.join(tmp, "mp_flat"))
+    npz_save_s = time.perf_counter() - t0
+    rep["flat"] = {
+        "n": N_ROWS, "positions": mesh.size, "rows_per_shard":
+        idx.rows_per_device, "add_s": add_s, "b": b, "k": k, "nb": nb,
+        "search_b128_ms": search_ms, "pipelined_ms_per_batch": pipe_ms,
+        "split_b128": split, "search_collectives": search_coll,
+        "orbax_save_s": orbax_save_s, "orbax_load_s": orbax_load_s,
+        "npz_save_s": npz_save_s, "removed": int(len(removed)),
+        "max_abs_err_vs_plain": err}
+    ans["removed_slots"] = (removed, removed)
+    del idx
+    torch.cuda.empty_cache()
+
+    # the same rows as int8: one B=128 search (K2 on the rank's shards)
+    idx8 = ShardedFlatIndex(384, dtype="int8", capacity=N_ROWS, mesh=mesh)
+    idx8.add_batch(x)
+    del x
+    i8 = "fused_topk_partial[int8]"
+    body8 = want_body("int8", "bfloat16", 384, 128, k)
+    with _K1Recorder() as k1:
+        ans["int8"] = _mp_call(k1, "multiprocess_int8",
+                               lambda: idx8.search(qs[0], k), counts,
+                               MP_POSITIONS, 2, body8, i8)
+        err8 = _check_k1_launches("multiprocess_int8/search", k1.last, errs)
+    rep["int8"] = {"search_b128_ms": _wall_ms(lambda: idx8.search(qs[0], k),
+                                              reps=10, warm=2),
+                   "max_abs_err_vs_plain": err8}
+    del idx8
+    torch.cuda.empty_cache()
+
+    # sharded clustered at benchmarks/filtered.py's sharded point
+    n, d, nlist, bc, nbc = SC_N, SC_D, SC_NLIST, 64, 8
+    mix = _mixture(4096, d, seed + 17)
+
+    def chunks():
+        for i, lo in enumerate(range(0, n, SC_STEP)):
+            yield mix(5000 + i, min(SC_STEP, n - lo))
+
+    c = ShardedClusteredIndex(d, dtype="int8", capacity=n, mesh=mesh,
+                              nlist=nlist, nprobe=4,
+                              train_threshold=1 << 62)
+    before = collective.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = c.build_from(chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_coll = _coll_since(before)
+    lc = c._local_counts
+    if not np.array_equal(slots, np.arange(n)) or not c.is_trained or \
+            int((lc.max(axis=0) - lc.min(axis=0)).max()) > 1:
+        fail(f"rank {rank}: the clustered build across the ranks")
+    c.batch_flat_fallback = False
+    q_all = mix(9999, nbc * bc)
+    qstack_c = q_all.reshape(nbc, bc, d)
+    q64 = q_all[:bc]
+    body3 = want_body("int8", "bfloat16", d, bc, k)
+    clabel = "multiprocess_clustered"
+    with _K3Recorder() as rec:
+        before = collective.stats()
+        ans["clustered"] = _sc_call(rec, clabel, lambda: c.search(q64, k),
+                                    counts, MP_POSITIONS, 2, body3)
+        clu_coll = _coll_since(before)
+        err3, _ = _check_k3_launches(f"{clabel}/search", rec.last, errs)
+        calls = rec.last
+        ans["clustered_pipelined"] = _sc_call(
+            rec, clabel, lambda: c.search_pipelined(qstack_c, k), counts,
+            MP_POSITIONS * nbc, 2 * nbc, body3)
+        e, _ = _check_k3_launches(f"{clabel}/pipelined", rec.last, errs)
+        err3 = max(err3, e)
+    # 1%: the exact masked route, K2 on the rank's shards
+    pick = np.random.default_rng(seed).choice(n, n // 100, replace=False)
+    mask = np.zeros(c.capacity, bool)
+    mask[pick] = True
+    if not c._filter_plan(mask, 4, nlist)[2]:
+        fail(f"{clabel}: the 1% filter did not take the exact route")
+    body_f = want_body("int8", "bfloat16", d, bc, k)
+    with _K1Recorder() as k1:
+        ans["clustered_filtered"] = _mp_call(
+            k1, clabel, lambda: c.search(q64, k, slot_mask=mask), counts,
+            MP_POSITIONS, 2, body_f, i8)
+        err3 = max(err3, _check_k1_launches(f"{clabel}/filtered 1%",
+                                            k1.last, errs))
+    ans["filter_pick"] = (pick, pick)
+    c_search_ms = _wall_ms(lambda: c.search(q64, k), reps=10, warm=3)
+    c_pipe_ms = _wall_ms(lambda: c.search_pipelined(qstack_c, k),
+                         reps=3) / nbc
+    c_filter_ms = _wall_ms(lambda: c.search(q64, k, slot_mask=mask),
+                           reps=5, warm=1)
+    from wdbx_tpu_torch.kernels import clustered_scan as cs
+
+    def k3_stage1():
+        parts = [cs.clustered_block_partial(
+            cl["slab"], cl["valid"], cl["scales"], cl["uniq"], cl["ok"],
+            cl["qq"], cl["qs"], cl["k"], cl["c"], int4=cl["int4"],
+            gen=cl["gen"]) for cl in calls]
+        return (torch.cat([p[0] for p in parts], 1),
+                torch.cat([p[1] for p in parts], 1))
+
+    c_split = _mp_split(k3_stage1, k, k)
+    c_split["live_blocks_per_shard"] = [int(cl["ok"].sum()) for cl in calls]
+    t0 = time.perf_counter()
+    c.save(os.path.join(tmp, "mp_clu"))
+    c_save_s = time.perf_counter() - t0
+    back = ShardedClusteredIndex(d, dtype="int8", capacity=n, mesh=mesh,
+                                 nlist=nlist, nprobe=4,
+                                 train_threshold=1 << 62)
+    t0 = time.perf_counter()
+    if not back.load(os.path.join(tmp, "mp_clu")):
+        fail(f"{clabel}: the npz checkpoint did not load")
+    c_load_s = time.perf_counter() - t0
+    back.batch_flat_fallback = False
+    with _K3Recorder() as rec:
+        again = _sc_call(rec, clabel, lambda: back.search(q64, k), counts,
+                         MP_POSITIONS, 2, body3)
+    if not np.array_equal(again[1], ans["clustered"][1]):
+        fail(f"{clabel}: the reloaded index answers otherwise")
+    del back
+    rep["clustered"] = {
+        "n": n, "d": d, "nlist": nlist, "b": bc, "k": k, "nprobe": 4,
+        "c": c._c, "rows_per_shard": c.rows_per_device, "build_s": build_s,
+        "build_collectives": build_coll, "search_b64_ms": c_search_ms,
+        "pipelined_ms_per_batch": c_pipe_ms, "filtered_1pct_ms": c_filter_ms,
+        "split_b64": c_split, "search_collectives": clu_coll,
+        "npz_save_s": c_save_s, "npz_load_s": c_load_s,
+        "max_abs_err_vs_plain": err3}
+    rep["collectives"] = collective.stats()
+    np.savez(os.path.join(tmp, f"mp_ans{rank}.npz"),
+             **{f"{key}|{j}": np.asarray(v) for key, pair in ans.items()
+                for j, v in enumerate(pair)})
+    with open(os.path.join(tmp, f"mp_rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    collective.barrier()
+    asyncio.run(engine.shutdown())
+    print(f"rank {rank} done", flush=True)
+
+
+def _mp_load(tmp, rank):
+    import numpy as np
+
+    with open(os.path.join(tmp, f"mp_rank{rank}.json")) as f:
+        rep = json.load(f)
+    ans = {}
+    with np.load(os.path.join(tmp, f"mp_ans{rank}.npz")) as data:
+        for name in data.files:
+            key, j = name.split("|")
+            ans.setdefault(key, [None, None])[int(j)] = data[name]
+    return rep, ans
+
+
+def _same_answers(name, ref, got, tol=MATCH_TOL) -> float:
+    """Two answers (host scores and slots, (..., B, k)) hold the same hits
+    row by row (``_same_hits``)."""
+    import numpy as np
+
+    rs, ri = (np.asarray(a).reshape(-1, np.asarray(a).shape[-1])
+              for a in ref)
+    gs, gi = (np.asarray(a).reshape(rs.shape) for a in got)
+    err = 0.0
+    for row in range(rs.shape[0]):
+        r = [(int(i), float(v)) for i, v in zip(ri[row], rs[row]) if i >= 0]
+        g = [(int(i), float(v)) for i, v in zip(gi[row], gs[row]) if i >= 0]
+        err = max(err, _same_hits(f"{name}/row{row}", r, g, tol))
+    return err
+
+
+def _run_mp_ranks(tmp, seed):
+    """Start the ranks, each ``_rank_main`` in its own interpreter on the
+    card; when one fails or the deadline passes, stop them all and fail.
+    Returns the seconds they took."""
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(MP_RANKS):
+        log = open(os.path.join(tmp, f"mp_rank{rank}.log"), "w")
+        logs.append(log)
+        env = dict(os.environ, PYTHONPATH=here,
+                   CUDA_VISIBLE_DEVICES=os.environ.get(
+                       "CUDA_VISIBLE_DEVICES", "0"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke._rank_main({rank}, "
+             f"{MP_RANKS}, {port}, {tmp!r}, {seed})"],
+            cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+    end = time.monotonic() + MP_DEADLINE_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > end:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        rcs = [p.wait() for p in procs]
+        for log in logs:
+            log.close()
+    if any(rcs):
+        for rank in range(MP_RANKS):
+            with open(os.path.join(tmp, f"mp_rank{rank}.log")) as f:
+                tail = f.read()[-3000:]
+            print(f"--- rank {rank} (rc {rcs[rank]}) ---\n{tail}",
+                  file=sys.stderr, flush=True)
+        fail(f"multiprocess: ranks exited {rcs}")
+    return time.perf_counter() - t0
+
+
+def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
+    """Two ranks on the one card (``_rank_main``) over a global mesh of
+    8 positions; then, here, both ranks' answers against each other, the
+    plain version over the whole slab, the single-process 8-position
+    index loaded from the ranks' checkpoints, and the float32 oracle."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import (
+        ShardedClusteredIndex,
+        ShardedFlatIndex,
+        make_mesh,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks_s = _run_mp_ranks(tmp, seed)
+    reps, answers = zip(*(_mp_load(tmp, r) for r in range(MP_RANKS)))
+    for key, pair in answers[0].items():
+        other = answers[1][key]
+        if not (np.array_equal(pair[0], other[0])
+                and np.array_equal(pair[1], other[1])):
+            fail(f"multiprocess: the ranks answer {key} otherwise")
+    for rep in reps:
+        for label, c in rep["counts"].items():
+            _tally(paths, label, c)
+        for key, e in rep["errs"].items():
+            errs[key] = max(errs.get(key, 0.0), e)
+    ans = answers[0]
+    x, qs = _data(N_ROWS, seed)
+    nb, b, k = qs.shape[0], qs.shape[1], 10
+
+    # flat: the ranks' npz into one process's 8 positions, then the plain
+    # version over the whole slab (every row live before the removal)
+    single = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS,
+                              mesh=make_mesh(SHARDS))
+    t0 = time.perf_counter()
+    if not single.load(os.path.join(tmp, "mp_flat")):
+        fail("multiprocess_flat: the ranks' npz did not load")
+    load_s = time.perf_counter() - t0
+    view = _slot_view(single)
+    whole = (view[0], torch.ones_like(view[1]), view[2])
+    err = _check_sharded("multiprocess_flat/search", single, whole, qs[0],
+                         ans["search"])
+    for i in range(nb):
+        err = max(err, _check_sharded(
+            f"multiprocess_flat/pipelined batch{i}", single, whole, qs[i],
+            (ans["pipelined"][0][i], ans["pipelined"][1][i])))
+    err = max(err, _check_sharded("multiprocess_flat/removed", single, view,
+                                  qs[0], ans["removed"]))
+    err = max(err, _same_answers("multiprocess_flat/npz", single.search(
+        qs[0], k), ans["removed"]))
+    recall = _recall_slots(ans["pipelined"][1].reshape(nb * b, k), truth)
+    fl = reps[0]["flat"]
+    emit({"phase": "multiprocess", "path": "multiprocess_flat",
+          "ranks": MP_RANKS, "dtype": "bfloat16", **{
+              key: fl[key] for key in ("n", "positions", "rows_per_shard",
+                                       "b", "k", "nb")},
+          "search_b128_ms": [r["flat"]["search_b128_ms"] for r in reps],
+          "single_process_search_b128_ms":
+              timings["sharded"]["bfloat16"]["search_b128_ms"],
+          "pipelined_ms_per_batch":
+              [r["flat"]["pipelined_ms_per_batch"] for r in reps],
+          "single_process_pipelined_ms_per_batch":
+              timings["sharded"]["bfloat16"]["ms_per_batch"],
+          "split_b128": [r["flat"]["split_b128"] for r in reps],
+          "search_collectives": [r["flat"]["search_collectives"]
+                                 for r in reps],
+          "add_s": fl["add_s"], "removed": fl["removed"],
+          "orbax_save_s": fl["orbax_save_s"],
+          "orbax_load_s": fl["orbax_load_s"], "npz_save_s": fl["npz_save_s"],
+          "npz_load_single_process_s": load_s,
+          "recall_at_10_raw": recall, "bar": RECALL_BAR,
+          "max_abs_err_vs_plain": max(err, *(r["flat"][
+              "max_abs_err_vs_plain"] for r in reps)), "tol": ATOL,
+          "ranks_s": ranks_s,
+          "launches": _nonzero(paths["multiprocess_flat"])})
+    if recall < RECALL_BAR:
+        fail(f"multiprocess_flat: recall@10 {recall} < {RECALL_BAR}")
+    del single, view, whole
+    torch.cuda.empty_cache()
+
+    # int8: the plain version on one process's index of the same rows
+    single8 = ShardedFlatIndex(384, dtype="int8", capacity=N_ROWS,
+                               mesh=make_mesh(SHARDS))
+    single8.add_batch(x)
+    del x
+    err8 = _check_sharded("multiprocess_int8/search", single8,
+                          _slot_view(single8), qs[0], ans["int8"])
+    emit({"phase": "multiprocess", "path": "multiprocess_int8",
+          "search_b128_ms": [r["int8"]["search_b128_ms"] for r in reps],
+          "single_process_search_b128_ms":
+              timings["sharded"]["int8"]["search_b128_ms"],
+          "max_abs_err_vs_plain": max(err8, *(r["int8"][
+              "max_abs_err_vs_plain"] for r in reps)), "tol": ATOL,
+          "launches": _nonzero(paths["multiprocess_int8"])})
+    del single8
+    torch.cuda.empty_cache()
+
+    # sharded clustered: the ranks' checkpoint into one process's 8
+    # positions (the same layout), its launches against the plain version,
+    # the ranks' answers against its; recall against the float32 oracle
+    n, d, nlist, bc, nbc = SC_N, SC_D, SC_NLIST, 64, 8
+    mix = _mixture(4096, d, seed + 17)
+
+    def chunks():
+        for i, lo in enumerate(range(0, n, SC_STEP)):
+            yield mix(5000 + i, min(SC_STEP, n - lo))
+
+    q_all = mix(9999, nbc * bc)
+    q64 = q_all[:bc]
+    single = ShardedClusteredIndex(d, dtype="int8", capacity=n,
+                                   mesh=make_mesh(SHARDS), nlist=nlist,
+                                   nprobe=4, train_threshold=1 << 62)
+    t0 = time.perf_counter()
+    if not single.load(os.path.join(tmp, "mp_clu")):
+        fail("multiprocess_clustered: the ranks' npz did not load")
+    c_load_s = time.perf_counter() - t0
+    single.batch_flat_fallback = False
+    with _K3Recorder() as rec:
+        ref = single.search(q64, k)
+        err3 = _check_sc_calls("multiprocess_clustered/single", single,
+                               rec.take(), ref, errs)
+        refp = single.search_pipelined(q_all.reshape(nbc, bc, d), k)
+        err3 = max(err3, _check_sc_calls(
+            "multiprocess_clustered/single pipelined", single, rec.take(),
+            refp, errs))
+    err3 = max(err3, _same_answers("multiprocess_clustered/search", ref,
+                                   ans["clustered"]))
+    err3 = max(err3, _same_answers("multiprocess_clustered/pipelined",
+                                   refp, ans["clustered_pipelined"]))
+    pick = ans["filter_pick"][0]
+    mask = np.zeros(single.capacity, bool)
+    mask[pick] = True
+    pm = single._filter_plan(mask, 4, nlist)[0]
+    err3 = max(err3, _check_sc_flat("multiprocess_clustered/filtered 1%",
+                                    single, q64, pm,
+                                    ans["clustered_filtered"], errs))
+    truth_src, _ = _stream_truth(chunks, q_all, k)
+    recall_c = _slot_recall(torch.as_tensor(
+        ans["clustered_pipelined"][1].reshape(nbc * bc, k)), truth_src.cpu())
+    src_mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+    src_mask[torch.as_tensor(pick, device="cuda")] = True
+    t_src, _ = _stream_truth(chunks, q64, k, src_mask=src_mask)
+    recall_f = _slot_recall(torch.as_tensor(ans["clustered_filtered"][1]),
+                            t_src.cpu())
+    cl = reps[0]["clustered"]
+    emit({"phase": "multiprocess", "path": "multiprocess_clustered",
+          "ranks": MP_RANKS, **{key: cl[key] for key in (
+              "n", "d", "nlist", "b", "k", "nprobe", "c", "rows_per_shard")},
+          "build_s": [r["clustered"]["build_s"] for r in reps],
+          "build_collectives": [r["clustered"]["build_collectives"]
+                                for r in reps],
+          "search_b64_ms": [r["clustered"]["search_b64_ms"] for r in reps],
+          "single_process_search_b64_ms":
+              timings["sharded_clustered"]["search_b64_ms"],
+          "pipelined_ms_per_batch":
+              [r["clustered"]["pipelined_ms_per_batch"] for r in reps],
+          "single_process_pipelined_ms_per_batch":
+              timings["sharded_clustered"]["pipelined_ms_per_batch"],
+          "filtered_1pct_ms": [r["clustered"]["filtered_1pct_ms"]
+                               for r in reps],
+          "split_b64": [r["clustered"]["split_b64"] for r in reps],
+          "search_collectives": [r["clustered"]["search_collectives"]
+                                 for r in reps],
+          "npz_save_s": cl["npz_save_s"], "npz_load_s": cl["npz_load_s"],
+          "npz_load_single_process_s": c_load_s,
+          "recall_at_10_nprobe4": recall_c, "recall_at_10_filtered_1pct":
+              recall_f, "bar": FACADE_BAR,
+          "max_abs_err_vs_plain": max(err3, *(r["clustered"][
+              "max_abs_err_vs_plain"] for r in reps)), "tol": ATOL,
+          "launches": _nonzero(paths["multiprocess_clustered"])})
+    if recall_c < FACADE_BAR or recall_f < FACADE_BAR:
+        fail(f"multiprocess_clustered: recall@10 {recall_c} / {recall_f} "
+             f"< {FACADE_BAR}")
+    del single
+    torch.cuda.empty_cache()
+
+
+def _recall_slots(slots, truth) -> float:
+    return float(sum(len(set(a.tolist()) & set(t.tolist()))
+                     for a, t in zip(slots, truth)) / truth.size)
 
 
 def bucket_rescorer(rows, probes, qidx, qq):
@@ -3994,6 +4666,7 @@ def main() -> None:
         phase_clustered(args.seed, paths, timings, errs)
         phase_clustered_facade(args.seed, paths, timings, errs, tmp)
         phase_sharded_clustered(args.seed, paths, timings, errs, tmp)
+        phase_multiprocess(args.seed, truth, paths, timings, errs, tmp)
         phase_dense_ivf(args.seed, paths, timings, errs, tmp)
         phase_batcher_clustered(args.seed, paths, errs)
     kernels = []

@@ -18,10 +18,9 @@ Cases of ``tests/test_parallel.py`` that live elsewhere or are left out:
     ``TestRemesh.test_heal_cold_rehosts_when_remesh_fails`` and
     ``TestRemesh.test_heal_escalates_to_remesh`` (the facade):
     ``tests/test_torch_heal.py``;
-  * ``TestMultiHost.test_two_process_shard_engine``: its gloo
-    counterpart is ``tests/test_torch_multihost.py``;
-  * left out: ``TestMultiHost.test_two_process_data_plane`` (a mesh
-    spanning processes: the cross-process data plane is not ported).
+  * ``TestMultiHost.test_two_process_shard_engine`` and
+    ``test_two_process_data_plane``: their gloo counterparts are in
+    ``tests/test_torch_multihost.py``.
 
 ``TestRemesh.test_sharded_clustered_load_on_different_mesh`` runs here
 too, and ``.ivfsc`` checkpoints of 8 shards load on 4 across the

@@ -18,7 +18,10 @@ live on — the CUDA device by default (raising when there is none),
 Torch port of ``wdbx_tpu/core/wdbx.py``; plugins come from
 ``wdbx_tpu_torch.plugins``. ``enable_distributed`` builds a
 ``ShardEngine`` over the facade's device (``parallel/shard_engine.py``),
-which ``heal()`` uses for liveness, recovery plans and re-meshing.
+which ``heal()`` uses for liveness, recovery plans and re-meshing. With
+``WDBX_COORDINATOR_ADDRESS`` set, the engine joins its group before the
+store is built, so a sharded store lays its index on the global mesh
+(every rank then makes the same calls); ``heal()`` is not ported there.
 """
 
 from __future__ import annotations
@@ -73,6 +76,14 @@ class WDBX:
         self.enable_distributed = enable_distributed
 
         os.makedirs(data_dir, exist_ok=True)
+        self.shard_engine = None
+        if enable_distributed:
+            from wdbx_tpu_torch.parallel.shard_engine import ShardEngine
+
+            self.shard_engine = ShardEngine(self.config, device=device)
+            # join the group (WDBX_COORDINATOR_ADDRESS) before the store
+            # exists: a sharded index then lays out on the global mesh
+            self.shard_engine.join()
         self.store = VectorStore(self.config, data_dir=data_dir, device=device)
 
         self.plugin_manager = None
@@ -80,12 +91,6 @@ class WDBX:
             from wdbx_tpu_torch.plugins import load_plugins
 
             self.plugin_manager = load_plugins(self)
-
-        self.shard_engine = None
-        if enable_distributed:
-            from wdbx_tpu_torch.parallel.shard_engine import ShardEngine
-
-            self.shard_engine = ShardEngine(self.config, device=device)
 
         self._initialized = False
 
@@ -210,7 +215,10 @@ class WDBX:
         to LIVE RE-MESHING when positions stay unhealthy: sharded indexes
         re-stripe onto a mesh of only the surviving positions (slot ids
         are mesh-independent, so the store's registries are untouched)
-        and serving continues degraded."""
+        and serving continues degraded. Not ported on a global mesh
+        (``NotImplementedError``): a lost rank ends the group."""
+        if self.shard_engine is not None:
+            self.shard_engine.refuse_global()
         # Layer 1: bookkeeping integrity — registry / index divergence
         # (state corruption with healthy devices) recovers per shard.
         integrity = self.store.verify()

@@ -520,25 +520,41 @@ class FlatIndex(VectorIndex):
             self._save_locked(path, skip_slab=skip_slab)
 
     def _save_locked(self, path: str, skip_slab: bool = False) -> None:
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        lead = self._is_lead()
+        if lead:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         hwm = self._next_slot
         if self.persist_backend == "orbax":
-            # one file a mesh position, written from its device
+            # one file a mesh position, written from its device (by the
+            # rank holding it)
             from wdbx_tpu_torch.store import persist
 
-            persist.save_arrays(path, self._position_arrays())
+            own, total = self._positions_held()
+            persist.save_arrays(path, self._position_arrays(), own, total)
             skip_slab = False
         else:
             # skip_slab: valid derives on the host (allocated minus
             # freed); scales regenerate through the requantize at restore
             arrays = ({"valid": self._host_valid(hwm)} if skip_slab
                       else self._npz_arrays(hwm))
-            np.savez(path + ".npz", **arrays)
+            if lead:
+                np.savez(path + ".npz", **arrays)
         meta = self._persist_meta()
         if skip_slab:
             meta["slab_external"] = True
-        with open(path + ".meta.json", "w") as f:
-            json.dump(meta, f)
+        if lead:
+            with open(path + ".meta.json", "w") as f:
+                json.dump(meta, f)
+        self._barrier()
+
+    def _is_lead(self) -> bool:
+        """Whether this process writes the files every rank shares
+        (always, outside a mesh spanning ranks)."""
+        return True
+
+    def _barrier(self) -> None:
+        """Wait for every rank holding this index (no one, outside a mesh
+        spanning ranks)."""
 
     def _npz_arrays(self, hwm: int) -> dict[str, np.ndarray]:
         """The npz checkpoint's slot-order host arrays below ``hwm``."""
@@ -647,8 +663,14 @@ class FlatIndex(VectorIndex):
         if scales_np is not None:
             self._scales = torch.from_numpy(scales_np).to(self.device)
 
+    def _positions_held(self) -> tuple[list[int], int]:
+        """The per-position checkpoint's positions that this process
+        holds, and the checkpoint's position count: one here."""
+        return [0], 1
+
     def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
-        """The per-position checkpoint's arrays: one position here."""
+        """The per-position checkpoint's arrays of the positions this
+        process holds: one here."""
         arrays = {"slab": [self._slab], "valid": [self._valid]}
         if self._is_quantized:
             arrays["scales"] = [self._scales]
@@ -664,7 +686,9 @@ class FlatIndex(VectorIndex):
         onto this index's positions, at its saved capacity."""
         from wdbx_tpu_torch.store import persist
 
-        arrays = persist.load_arrays(path, self._position_devices())
+        own, total = self._positions_held()
+        arrays = persist.load_arrays(path, self._position_devices(), own,
+                                     total)
         if arrays is None:
             return False
         self._cap = int(meta["capacity"])

@@ -20,6 +20,18 @@ environment variable ``WDBX_TORCH_MESH_SIZE`` sets a number of logical
 positions, laid round-robin over those devices. It is the port's
 counterpart of ``--xla_force_host_platform_device_count``. An explicit
 count always gets that many positions, round-robin.
+
+Global mesh: when a ``torch.distributed`` group of more than one rank
+is up (``ShardEngine.initialize`` joins one), ``make_mesh()`` spans the
+ranks, as ``jax.devices()`` spans the processes of
+``jax.distributed``. Each rank lays its own L positions (the count
+above, over its own devices), the ranks exchange their lists once, and
+rank r owns positions ``[r*L, (r+1)*L)``; every rank must hold the same
+L. ``make_mesh(n)`` takes n positions in all, n / world a rank. Names
+stay ``"<device>#<global position>"``, unique across ranks. A rank
+holds tensors only for its own positions (``Mesh.local_positions``);
+the data plane between ranks is ``parallel/collective.py``. A ``Mesh``
+built directly is this process's own, whatever the group.
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ import os
 from typing import Any, Sequence
 
 import torch
+
+from wdbx_tpu_torch.parallel import collective
 
 #: environment variable: logical mesh positions of ``make_mesh()``
 MESH_SIZE_ENV = "WDBX_TORCH_MESH_SIZE"
@@ -54,6 +68,7 @@ class Mesh:
         axis_names: Sequence[str] = ("shard",),
         shape: Sequence[int] | None = None,
         names: Sequence[str] | None = None,
+        owners: Sequence[int] | None = None,
     ):
         self.devices = tuple(_canon(d) for d in devices)
         self.axis_names = tuple(axis_names)
@@ -72,6 +87,27 @@ class Mesh:
                 len(set(self.names)) != len(self.names):
             raise ValueError(f"position names must be unique, one a "
                              f"device: {self.names}")
+        #: this process's rank, and the rank owning each position (all
+        #: this process's unless ``owners`` says otherwise)
+        self.rank = collective.rank_world()[0]
+        self.owners = (tuple(int(o) for o in owners) if owners is not None
+                       else (self.rank,) * len(self.devices))
+        if len(self.owners) != len(self.devices):
+            raise ValueError(f"{len(self.owners)} owners for "
+                             f"{len(self.devices)} positions")
+        #: the positions whose tensors live in this process
+        self.local_positions = tuple(
+            i for i, o in enumerate(self.owners) if o == self.rank)
+
+    @property
+    def is_global(self) -> bool:
+        """Whether other ranks own positions of this mesh."""
+        return len(self.local_positions) != len(self.devices)
+
+    @property
+    def world(self) -> int:
+        """Ranks holding positions of this mesh."""
+        return len(set(self.owners))
 
     @property
     def size(self) -> int:
@@ -108,12 +144,41 @@ def make_mesh(
 ) -> Mesh:
     """A 1-D mesh of ``n_devices`` positions (default: one per visible
     device, or ``WDBX_TORCH_MESH_SIZE``) over the CUDA devices, or over
-    ``device`` when one is given."""
+    ``device`` when one is given. In a group of several ranks: the
+    global mesh, the default count a rank, ``n_devices`` in all."""
     base = _base_devices(device)
     n = _pool_size(base) if n_devices is None else int(n_devices)
     if n < 1:
         raise ValueError(f"a mesh needs at least one position, got {n}")
+    _, world = collective.rank_world()
+    if world > 1:
+        devices, owners = _global_positions(base, n, n_devices is not None)
+        return Mesh(devices, (axis,), owners=owners)
     return Mesh(_round_robin(base, n), (axis,))
+
+
+def _global_positions(base: list[torch.device], n: int, total: bool):
+    """The devices and owning ranks of a mesh over every rank of the
+    group: ``n`` positions a rank (``n`` in all when ``total``), this
+    rank's round-robin over its own devices, exchanged once; rank r owns
+    ``[r*L, (r+1)*L)``."""
+    _, world = collective.rank_world()
+    if total:
+        if n % world:
+            raise ValueError(f"{n} positions do not split over {world} "
+                             "ranks")
+        n //= world
+    mine = [str(d) for d in _round_robin(base, n)]
+    lists = collective.all_gather_object(mine)
+    counts = [len(x) for x in lists]
+    if len(set(counts)) != 1:
+        raise ValueError(
+            f"every rank of a global mesh holds the same number of "
+            f"positions; the ranks hold {counts} (set {MESH_SIZE_ENV} or "
+            "the visible devices alike on every rank)")
+    devices = [torch.device(d) for x in lists for d in x]
+    owners = [r for r, x in enumerate(lists) for _ in x]
+    return devices, owners
 
 
 def make_mesh2(
@@ -125,8 +190,15 @@ def make_mesh2(
     """2-D mesh for replicated serving: the corpus shards over
     ``axes[1]`` and replicates over ``axes[0]``; query batches split
     over ``axes[0]``. ``shards`` defaults to the mesh size (see
-    ``make_mesh``) over ``replicas``."""
+    ``make_mesh``) over ``replicas``. In a group of several ranks only
+    ``replicas=1`` is ported: the global mesh as one replica group."""
     base = _base_devices(device)
+    if collective.rank_world()[1] > 1:
+        if replicas != 1:
+            raise collective.not_ported("replicas")
+        n = _pool_size(base) if shards is None else int(shards)
+        devices, owners = _global_positions(base, n, shards is not None)
+        return Mesh(devices, axes, shape=(1, len(devices)), owners=owners)
     if shards is None:
         total = _pool_size(base)
         if total % replicas:

@@ -8,10 +8,13 @@ the partials (``parallel/sharded_flat.py``).
 
 Hosts join through ``torch.distributed`` when ``WDBX_COORDINATOR_ADDRESS``
 is set (with ``WDBX_NUM_PROCESSES`` and ``WDBX_PROCESS_ID``), the
-counterpart of ``jax.distributed.initialize``. The group is gloo: it
-carries the control plane only. The mesh stays this process's own
-devices (a global mesh over several processes is not ported), so every
-shard is local to the process that owns the engine.
+counterpart of ``jax.distributed.initialize``. The group is gloo. Once
+joined, the default mesh is global (``parallel/mesh.py``): it lists
+every rank's positions, a shard is local to the rank that owns its
+position, the health probe runs on a rank's own positions and the ranks
+exchange the statuses. A lost rank ends a gloo group, as a lost process
+ends ``jax.distributed``, so a global mesh is not re-meshed or healed
+here (``ROADMAP.md`` queue 1).
 
 Every map here is keyed on the mesh's position names (``"cuda:0#3"``),
 never on ``str(device)``: positions of one card share their device.
@@ -29,11 +32,13 @@ from typing import Any
 
 import torch
 
+from wdbx_tpu_torch.parallel import collective
 from wdbx_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
 
-#: seconds init_process_group waits for the other processes
+#: seconds init_process_group waits for the other processes (and the
+#: group's collectives for each other)
 JOIN_TIMEOUT_S = 120
 
 
@@ -63,9 +68,10 @@ class ShardEngine:
             self.mesh = make_mesh(axis=self.axis, device=self.device)
         return self.mesh
 
-    async def initialize(self) -> None:
-        if self._initialized:
-            return
+    def join(self) -> None:
+        """Join the group that ``WDBX_COORDINATOR_ADDRESS`` names, if it
+        is set and no group is up yet. ``WDBX`` joins before it builds
+        its store, so a sharded index lays out on the global mesh."""
         import torch.distributed as dist
 
         coord = os.environ.get("WDBX_COORDINATOR_ADDRESS")
@@ -80,6 +86,11 @@ class ShardEngine:
                 self._joined = True
             except Exception as e:
                 logger.warning("torch.distributed join failed: %s", e)
+
+    async def initialize(self) -> None:
+        if self._initialized:
+            return
+        self.join()
         self._mesh()
         self._persist_allocation()
         self._initialized = True
@@ -95,11 +106,13 @@ class ShardEngine:
 
     @staticmethod
     def _process() -> tuple[int, int]:
-        import torch.distributed as dist
+        return collective.rank_world()
 
-        if dist.is_available() and dist.is_initialized():
-            return dist.get_rank(), dist.get_world_size()
-        return 0, 1
+    def refuse_global(self) -> None:
+        """Raise on a global mesh: what calls this (re-meshing, healing)
+        is not ported across ranks."""
+        if self._mesh().is_global:
+            raise collective.not_ported("re-meshing")
 
     # -- placement metadata ------------------------------------------------
     def allocation(self) -> dict[str, Any]:
@@ -136,18 +149,20 @@ class ShardEngine:
             logger.warning("failed to persist shard allocation: %s", e)
 
     def is_local_shard(self, shard: int) -> bool:
-        """Whether this process owns the shard's position: always, since
-        the mesh is this process's own devices."""
-        del shard
-        return True
+        """Whether this process owns the shard's position."""
+        mesh = self._mesh()
+        return mesh.owners[shard % mesh.size] == mesh.rank
 
     def health_check(self) -> dict[str, Any]:
         """Per-position liveness: an 8x8 product on each position's
         device, then a synchronization of that device, so an
-        asynchronous CUDA fault counts against the position that ran."""
+        asynchronous CUDA fault counts against the position that ran.
+        A rank probes its own positions; on a global mesh the ranks then
+        exchange their statuses, so every rank holds the whole map."""
         mesh = self._mesh()
         statuses = {}
-        for name, device in zip(mesh.names, mesh.devices):
+        for p in mesh.local_positions:
+            name, device = mesh.names[p], mesh.devices[p]
             try:
                 out = torch.ones((8, 8), device=device) @ torch.ones(
                     (8, 8), device=device)
@@ -158,6 +173,11 @@ class ShardEngine:
                 statuses[name] = f"error: {e}"
                 continue
             statuses[name] = "ok" if ok else "bad-result"
+        if mesh.is_global:
+            merged = {}
+            for part in collective.all_gather_object(statuses):
+                merged.update(part)
+            statuses = {name: merged[name] for name in mesh.names}
         healthy = all(v == "ok" for v in statuses.values())
         return {"healthy": healthy, "devices": statuses}
 
@@ -187,6 +207,7 @@ class ShardEngine:
         the live re-meshing target when a device is gone. Returns the
         current mesh unchanged when everything is healthy. Replica axes
         collapse: survival beats data-parallel fan-out."""
+        self.refuse_global()
         health = health or self.health_check()
         mesh = self._mesh()
         keep = [i for i, n in enumerate(mesh.names)
@@ -200,6 +221,7 @@ class ShardEngine:
 
     def adopt_mesh(self, mesh: Mesh) -> None:
         """Install a new mesh (post-remesh) and persist the allocation."""
+        self.refuse_global()
         self.mesh = mesh
         self._persist_allocation()
 
@@ -210,5 +232,7 @@ class ShardEngine:
             "devices": list(self.mesh.names) if self.mesh else [],
             "replication_factor": self.replication_factor,
             "process_count": self._process()[1],
+            "local_positions": (list(self.mesh.local_positions)
+                                if self.mesh else []),
             "initialized": self._initialized,
         }

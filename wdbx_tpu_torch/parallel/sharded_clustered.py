@@ -41,6 +41,21 @@ position's device. The on-disk format (the slot-order ``ShardedFlatIndex``
 checkpoint with ``.ivfsc.npz`` + ``.ivfsc.json`` beside it) is the JAX
 package's, so checkpoints move between the packages and between shard
 counts.
+
+Global mesh (``ShardedFlatIndex``'s module docstring): a build reads
+the training sample's rows from their owners onto rank 0, which trains
+and broadcasts the centroids (``index_add_`` sums with float atomics on
+CUDA, so centroids trained on each rank could differ in the last bits
+and the ranks would disagree on the layout); each rank assigns the rows
+it holds and the ranks all-gather the assignments, so the striped
+layout is computed alike everywhere; then the rows move to their new
+(shard, row) ``_CHUNK`` at a time, a rank sending only rows bound for
+another rank's shards (``collective.all_to_all``). A search runs K3 and
+the fresh rows on the rank's shards, merges them, all-gathers the
+``(B, k)`` of every rank and merges once more; the probe top-k and the
+block dedup stay per rank, on identical inputs. ``build_background``
+is not ported there: its collectives would interleave with the
+foreground's in another order on each rank.
 """
 
 from __future__ import annotations
@@ -74,6 +89,7 @@ from wdbx_tpu_torch.kernels.fused_topk import merge_partials
 from wdbx_tpu_torch.kernels.quant import prep_query_block, unpack_int4
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.parallel import collective
 from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
@@ -186,6 +202,10 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         super()._grow(need)
         self._check_blocks()
 
+    def _elsize(self) -> int:
+        """Bytes of one stored element."""
+        return torch.empty((), dtype=self._dtype).element_size()
+
     def _check_blocks(self) -> None:
         """K3 takes a shard's slab only in whole c-row blocks."""
         if self.is_trained and self.rows_per_device % self._c:
@@ -281,10 +301,10 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         pos = np.asarray(pos, np.int64)
         shard, row = pos % n_dev, pos // n_dev
         dev = self.device
-        rows = torch.empty((len(pos), slabs[0].shape[1]),
-                           dtype=slabs[0].dtype, device=dev)
+        rows = torch.empty((len(pos), self._row_width), dtype=self._dtype,
+                           device=dev)
         sc = (torch.empty((len(pos),), dtype=torch.float32, device=dev)
-              if scales[0] is not None else None)
+              if self._is_quantized else None)
         for s in np.unique(shard).tolist():
             at = np.nonzero(shard == s)[0]
             r = torch.as_tensor(row[at], device=slabs[s].device)
@@ -297,7 +317,11 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
     def _gather_unit_of(self, slabs, scales, pos, n_dev) -> torch.Tensor:
         """Float32 rows at global positions (dequantized; unit norm for
         cosine)."""
-        rows, sc = self._gather_raw_of(slabs, scales, pos, n_dev)
+        return self._unit(*self._gather_raw_of(slabs, scales, pos, n_dev))
+
+    def _unit(self, rows, sc) -> torch.Tensor:
+        """Stored rows and scales -> float32 rows (unit norm for
+        cosine)."""
         if self._is_int4:
             rows = unpack_int4(rows)
         rows = rows.to(torch.float32)
@@ -322,6 +346,9 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                 n_live, self.train_sample, replace=False
             )
             sample = live_pos[np.sort(sel)]
+        if self.mesh.is_global:
+            return self._plan_across_ranks(slabs, scales, live_pos, sample,
+                                           nlist, n_dev)
         train = self._gather_unit_of(slabs, scales, sample, n_dev)
         centroids, _ = kmeans(train, num_clusters=nlist,
                               iters=self.kmeans_iters)
@@ -334,35 +361,138 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
             del rows
         return centroids.cpu().numpy(), assign
 
+    def _owner_of(self, pos: np.ndarray) -> np.ndarray:
+        """The rank holding each global position's shard."""
+        return np.asarray(self.mesh.owners, np.int64)[
+            np.asarray(pos, np.int64) % self.n_devices]
+
+    def _pack(self, rows, sc) -> torch.Tensor:
+        """Stored rows (and scales) as one ``(n, bytes)`` uint8 block."""
+        out = rows.contiguous().view(torch.uint8)
+        if sc is not None:
+            out = torch.cat([out, sc[:, None].contiguous().view(torch.uint8)],
+                            1)
+        return out
+
+    def _unpack(self, buf):
+        """Inverse of ``_pack``."""
+        wb = self._row_width * self._elsize()
+        rows = buf[:, :wb].contiguous().view(self._dtype)
+        sc = (buf[:, wb:].contiguous().view(torch.float32)[:, 0]
+              if self._is_quantized else None)
+        return rows, sc
+
+    def _to_lead(self, slabs, scales, pos, n_dev):
+        """Stored rows and scales at global positions ``pos``, read by
+        their owners and assembled on rank 0 in the order of ``pos``
+        (None on the other ranks)."""
+        rank, world = self.mesh.rank, self.mesh.world
+        owner = self._owner_of(pos)
+        mine = self._pack(*self._gather_raw_of(
+            slabs, scales, pos[owner == rank], n_dev))
+        got = collective.all_to_all(
+            [mine if r == 0 and rank != 0 else mine[:0]
+             for r in range(world)])
+        if rank != 0:
+            return None
+        buf = torch.empty((len(pos), mine.shape[1]), dtype=torch.uint8,
+                          device=self.device)
+        for r in range(world):
+            at = torch.as_tensor(np.nonzero(owner == r)[0],
+                                 device=self.device)
+            buf[at] = mine if r == 0 else got[r]
+        return self._unpack(buf)
+
+    def _plan_across_ranks(self, slabs, scales, live_pos, sample, nlist,
+                           n_dev):
+        """``_plan_clusters`` on a global mesh: rank 0 trains on the
+        sample read from its owners and broadcasts the centroids; each
+        rank assigns the live rows it holds, and the ranks all-gather the
+        assignments."""
+        rank, world = self.mesh.rank, self.mesh.world
+        train = self._to_lead(slabs, scales, sample, n_dev)
+        if rank == 0:
+            centroids, _ = kmeans(self._unit(*train), num_clusters=nlist,
+                                  iters=self.kmeans_iters)
+        else:
+            centroids = torch.empty((nlist, self.dim), dtype=torch.float32,
+                                    device=self.device)
+        del train
+        centroids = collective.broadcast(centroids, 0)
+        owner = self._owner_of(live_pos)
+        mine = live_pos[owner == rank]
+        a_mine = np.empty(len(mine), np.int32)
+        for i in range(0, len(mine), _CHUNK):
+            end = min(i + _CHUNK, len(mine))
+            rows = self._gather_unit_of(slabs, scales, mine[i:end], n_dev)
+            a_mine[i:end] = _assign_blocked(rows, centroids)
+            del rows
+        got = collective.all_to_all([torch.from_numpy(a_mine)] * world)
+        assign = np.empty(len(live_pos), np.int32)
+        for r in range(world):
+            assign[owner == r] = got[r].numpy()
+        return centroids.cpu().numpy(), assign
+
+    def _put_rows(self, slabs_n, valids_n, scales_n, dst, rows, sc):
+        """Write stored rows (and scales) at global positions ``dst`` of
+        the new per-position tensors, into every copy held here."""
+        n_dev = self.n_devices
+        dshard, drow = dst % n_dev, dst // n_dev
+        for s in np.unique(dshard).tolist():
+            at = torch.as_tensor(np.nonzero(dshard == s)[0],
+                                 device=rows.device)
+            r_np = drow[dshard == s]
+            for p in self._copies(s):
+                dev = self.mesh.devices[p]
+                r = torch.as_tensor(r_np, device=dev)
+                slabs_n[p][r] = rows[at].to(dev)
+                valids_n[p][r] = True
+                if sc is not None:
+                    scales_n[p][r] = sc[at].to(dev)
+
     def _permute_striped(self, slabs, scales, src_global, dest, cap, n_dev):
         """Move the live rows of the explicit (snapshot-safe) source
         lists into fresh per-position tensors at ``cap``, in striped
         cluster order, ``_CHUNK`` rows at a time. Device peak: old slabs
-        + new slabs + one chunk."""
+        + new slabs + one chunk. On a global mesh a rank reads the rows
+        it holds, keeps those bound for its own shards and sends the
+        rest to their ranks."""
         rpd = cap // n_dev
-        devs = self.mesh.devices
-        slabs_n = [torch.zeros((rpd, self._row_width), dtype=self._dtype,
-                               device=d) for d in devs]
-        valids_n = [torch.zeros((rpd,), dtype=torch.bool, device=d)
-                    for d in devs]
-        scales_n = [torch.zeros((rpd,), dtype=torch.float32, device=d)
-                    if self._is_quantized else None for d in devs]
+        slabs_n = self._held(lambda p, d: torch.zeros(
+            (rpd, self._row_width), dtype=self._dtype, device=d))
+        valids_n = self._held(
+            lambda p, d: torch.zeros((rpd,), dtype=torch.bool, device=d))
+        scales_n = self._held(
+            lambda p, d: torch.zeros((rpd,), dtype=torch.float32, device=d)
+            if self._is_quantized else None)
+        spread = self.mesh.is_global
+        rank, world = self.mesh.rank, self.mesh.world
         for i in range(0, len(src_global), _CHUNK):
             end = min(i + _CHUNK, len(src_global))
-            rows, sc = self._gather_raw_of(slabs, scales,
-                                           src_global[i:end], n_dev)
-            dst = dest[i:end]
-            dshard, drow = dst % n_dev, dst // n_dev
-            for s in np.unique(dshard).tolist():
-                at = torch.as_tensor(np.nonzero(dshard == s)[0],
-                                     device=rows.device)
-                r_np = drow[dshard == s]
-                for p in range(s, len(devs), n_dev):  # every copy
-                    r = torch.as_tensor(r_np, device=devs[p])
-                    slabs_n[p][r] = rows[at].to(devs[p])
-                    valids_n[p][r] = True
-                    if sc is not None:
-                        scales_n[p][r] = sc[at].to(devs[p])
+            src, dst = src_global[i:end], dest[i:end]
+            if not spread:
+                rows, sc = self._gather_raw_of(slabs, scales, src, n_dev)
+                self._put_rows(slabs_n, valids_n, scales_n, dst, rows, sc)
+                continue
+            s_own, d_own = self._owner_of(src), self._owner_of(dst)
+            mine = s_own == rank
+            rows, sc = self._gather_raw_of(slabs, scales, src[mine], n_dev)
+            to = d_own[mine]
+            here = torch.as_tensor(np.nonzero(to == rank)[0],
+                                   device=rows.device)
+            self._put_rows(slabs_n, valids_n, scales_n, dst[mine][to == rank],
+                           rows[here], None if sc is None else sc[here])
+            packed = self._pack(rows, sc)
+            got = collective.all_to_all([
+                packed[torch.as_tensor(np.nonzero(to == r)[0],
+                                       device=rows.device)]
+                if r != rank else packed[:0] for r in range(world)])
+            for r in range(world):
+                if r != rank:
+                    rr, ss = self._unpack(got[r])
+                    self._put_rows(slabs_n, valids_n, scales_n,
+                                   dst[(s_own == r) & (d_own == rank)],
+                                   rr, ss)
         return slabs_n, valids_n, scales_n
 
     def _install_striped(
@@ -416,7 +546,10 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         would overflow rows_per_device (growth cannot happen off the
         lock). A ``remesh`` / ``clear`` / ``load`` in the window bumps
         ``_layout_gen`` and the snapshot is abandoned. Device peak: two
-        slabs (+ a clone per copy-on-write mutation batch)."""
+        slabs (+ a clone per copy-on-write mutation batch). Not ported on
+        a global mesh (``NotImplementedError``)."""
+        if self.mesh.is_global:
+            raise collective.not_ported("re-meshing")
         with self._mu.write():
             if self._cow_writes:
                 return  # already rebuilding
@@ -536,7 +669,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         if c is None:
             # row bytes of the STORAGE width (int4 packs two dims a byte)
             c = _block_rows(
-                self._row_width, self._slabs[0].element_size(), rpd,
+                self._row_width, self._elsize(), rpd,
                 target=self.block_bytes_target,
             )
         self._c = c
@@ -564,11 +697,10 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
             np.array(centroids, np.float32)).to(self.device)
         self._centroids_np = np.asarray(centroids, np.float32)
         self._centroids_at = {self.device: self._centroids}
-        devs = self.mesh.devices
 
         def per_position(table):
-            return [torch.as_tensor(table[p % n_dev], device=d)
-                    for p, d in enumerate(devs)]
+            return self._held(
+                lambda p, d: torch.as_tensor(table[p % n_dev], device=d))
 
         self._blk_lo = per_position(blk_lo)
         self._blk_hi = per_position(blk_hi)
@@ -618,7 +750,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         if lp == "ranges":
             return True
         nlist = int(self._local_counts.shape[1])
-        bytes_per_row = self._row_width * self._slabs[0].element_size()
+        bytes_per_row = self._row_width * self._elsize()
         read = self._range_L * min(nprobe, nlist)
         return (
             pad_b <= self.small_batch_threshold
@@ -724,12 +856,16 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         """Sorted ``(B, k')`` scores and global positions of queries
         ``q`` (normalized) over replica group ``g``: every shard's
         partials on its position, local rows -> global positions (``row
-        * n_dev + shard``, -1 stays -1) on the device, one merge."""
+        * n_dev + shard``, -1 stays -1) on the device, one merge. On a
+        global mesh: the merge of the rank's shards, then the cross-rank
+        merge (``ShardedFlatIndex._merge_ranks``)."""
         n_dev = self.n_devices
         on_dev = {}  # the queries (and the kernel's prep) once a device
         parts_v, parts_i = [], []
         for s in range(n_dev):
             p = g * n_dev + s
+            if p not in self._local:
+                continue
             slab = self._slabs[p]
             dev = slab.device
             if dev not in on_dev:
@@ -750,7 +886,11 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                 parts_v.append(pv.to(self.device))
                 parts_i.append(gi.to(torch.int32).to(self.device))
         part_v, part_i = torch.cat(parts_v, 1), torch.cat(parts_i, 1)
-        return merge_partials(part_v, part_i, min(k, self._cap))
+        kk = min(k, self._cap)
+        if not self.mesh.is_global:
+            return merge_partials(part_v, part_i, kk)
+        v, i = merge_partials(part_v, part_i, min(kk, self._rank_rows()))
+        return self._merge_ranks(v, i, kk, merge_partials)
 
     def _query(self, q, k, nprobe, pad_b, valids):
         """One batch ``q`` (B, d) through the route of a batch of (JAX)
@@ -928,9 +1068,11 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
             if self.is_trained:
                 arrays["centroids"] = self._centroids_np
                 arrays["local_counts"] = self._local_counts
-            np.savez(path + ".ivfsc.npz", **arrays)
-            with open(path + ".ivfsc.json", "w") as f:
-                json.dump(self._sidecar_meta(), f)
+            if self._is_lead():
+                np.savez(path + ".ivfsc.npz", **arrays)
+                with open(path + ".ivfsc.json", "w") as f:
+                    json.dump(self._sidecar_meta(), f)
+            self._barrier()
 
     def _sidecar_meta(self) -> dict:
         return {

@@ -26,6 +26,22 @@ a write (JAX's scatter drops them); checkpoints: the npz slot-order
 layout of the JAX index (so checkpoints move between device counts and
 between the packages), or one file a position with
 ``persist_backend="orbax"`` (``store/persist.py``).
+
+Global mesh (``make_mesh`` in a group of several ranks): every rank
+makes the same calls with the same arguments and holds tensors only for
+its own positions (``None`` at the others'), so a method that reaches a
+remote position fails instead of reading garbage. Slot routing is host
+arithmetic, identical on every rank; a write lands on the writer's own
+positions. A search runs stage 1 on the rank's shards, merges them to
+the rank's ``(B, k)``, all-gathers those over the ranks and merges once
+more (``parallel/collective.py``): JAX's local top-k, ``all_gather``
+and ``top_k``, ``B * k * 8`` bytes a rank. Host reads of the slab
+(checkpoints, ``get_vectors``, the validity) gather across ranks, as
+JAX's ``_host_replicated`` does. Checkpoints: each rank writes its own
+positions' files (``persist_backend="orbax"``), or rank 0 writes the
+gathered npz; rank 0 writes the shared metadata, and the ranks meet at
+a barrier. Replicas across ranks and re-meshing a global mesh are not
+ported (``NotImplementedError``, ``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ from wdbx_tpu_torch.kernels.quant import (
     unpack_int4,
 )
 from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.parallel import collective
 from wdbx_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh2
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
@@ -104,15 +121,26 @@ class ShardedFlatIndex(FlatIndex):
         if mesh.axis_names[-1] != self.axis:
             raise ValueError(f"the shard axis {self.axis!r} must be the "
                              f"mesh's last: {mesh.axis_names}")
+        n_dev = int(mesh.shape[self.axis])
+        if mesh.is_global:
+            if mesh.size != n_dev:
+                raise collective.not_ported("replicas")
+            per = mesh.size // mesh.world
+            if mesh.owners != tuple(p // per for p in range(mesh.size)):
+                raise ValueError("a global mesh's ranks must own equal, "
+                                 f"ordered blocks: {mesh.owners}")
         self.mesh = mesh
         self.replica_axis = (
             "replica" if "replica" in mesh.axis_names else None
         )
         #: number of corpus shards (slot striping runs over these)
-        self.n_devices = int(mesh.shape[self.axis])
+        self.n_devices = n_dev
         self.replicas = mesh.size // self.n_devices
-        #: queries, results and merges live on the first position's device
-        self.device = mesh.devices[0]
+        #: the positions this process holds tensors for
+        self._local = frozenset(mesh.local_positions)
+        #: queries, results and merges live on the first own position's
+        #: device
+        self.device = mesh.devices[mesh.local_positions[0]]
 
     # -- sharded storage ------------------------------------------------------
     def _round_cap(self, need: int) -> int:
@@ -130,24 +158,39 @@ class ShardedFlatIndex(FlatIndex):
     def rows_per_device(self) -> int:
         return self._cap // self.n_devices
 
+    def _held(self, make) -> list:
+        """``make(p, device)`` at each position this process holds, None
+        at the others' (the positions of other ranks)."""
+        return [make(p, d) if p in self._local else None
+                for p, d in enumerate(self.mesh.devices)]
+
+    def _own_shards(self) -> list[int]:
+        """The shards whose first copy this process holds (every shard
+        on a mesh of one process)."""
+        return [s for s in range(self.n_devices) if s in self._local]
+
+    def _rank_rows(self) -> int:
+        """Rows of the shards one rank holds (the same on every rank)."""
+        return len(self._own_shards()) * self.rows_per_device
+
     def _alloc(self, cap: int) -> None:
         self._gen += 1
         rpd = cap // self.n_devices
-        devs = self.mesh.devices
-        self._slabs = [torch.zeros((rpd, self._row_width), dtype=self._dtype,
-                                   device=d) for d in devs]
-        self._valids = [torch.zeros((rpd,), dtype=torch.bool, device=d)
-                        for d in devs]
-        self._row_scales = [
-            torch.zeros((rpd,), dtype=torch.float32, device=d)
-            if self._is_quantized else None for d in devs
-        ]
+        self._slabs = self._held(lambda p, d: torch.zeros(
+            (rpd, self._row_width), dtype=self._dtype, device=d))
+        self._valids = self._held(
+            lambda p, d: torch.zeros((rpd,), dtype=torch.bool, device=d))
+        self._row_scales = self._held(
+            lambda p, d: torch.zeros((rpd,), dtype=torch.float32, device=d)
+            if self._is_quantized else None)
 
     def _grow(self, need: int) -> None:
         new_cap = self._round_cap(max(need, int(self._cap * 1.5)))
         rpd = new_cap // self.n_devices
-        self._slabs = [self._grown(t, rpd) for t in self._slabs]
-        self._valids = [self._grown(t, rpd) for t in self._valids]
+        self._slabs = [None if t is None else self._grown(t, rpd)
+                       for t in self._slabs]
+        self._valids = [None if t is None else self._grown(t, rpd)
+                        for t in self._valids]
         self._row_scales = [None if t is None else self._grown(t, rpd)
                             for t in self._row_scales]
         self._cap = new_cap
@@ -170,8 +213,10 @@ class ShardedFlatIndex(FlatIndex):
                 yield s, at, slots[at] // n_dev
 
     def _copies(self, s: int):
-        """Mesh positions holding shard ``s`` (one per replica group)."""
-        return range(s, self.mesh.size, self.n_devices)
+        """Mesh positions holding shard ``s`` (one per replica group)
+        that this process holds."""
+        return [p for p in range(s, self.mesh.size, self.n_devices)
+                if p in self._local]
 
     def _write_rows(self, slots: torch.Tensor, vecs: torch.Tensor,
                     flag: bool) -> None:
@@ -219,62 +264,71 @@ class ShardedFlatIndex(FlatIndex):
     ) -> None:
         """Slot-order ``(cap, width)`` host arrays -> striped positions."""
         n_dev = self.n_devices
-        devs = self.mesh.devices
-        self._slabs = [slab_from_numpy(slab_np[p % n_dev::n_dev],
-                                       self._dtype).to(d)
-                       for p, d in enumerate(devs)]
-        self._valids = [torch.from_numpy(np.require(
-            valid_np[p % n_dev::n_dev], bool, ["C", "W", "O"])).to(d)
-            for p, d in enumerate(devs)]
+        self._slabs = self._held(lambda p, d: slab_from_numpy(
+            slab_np[p % n_dev::n_dev], self._dtype).to(d))
+        self._valids = self._held(lambda p, d: torch.from_numpy(np.require(
+            valid_np[p % n_dev::n_dev], bool, ["C", "W", "O"])).to(d))
         if self._is_quantized and scales_np is None:
             scales_np = np.zeros(self._cap, np.float32)
-        self._row_scales = [
-            torch.from_numpy(np.require(scales_np[p % n_dev::n_dev],
-                                        np.float32, ["C", "W", "O"])).to(d)
-            if self._is_quantized else None for p, d in enumerate(devs)
-        ]
+        self._row_scales = self._held(
+            lambda p, d: torch.from_numpy(np.require(
+                scales_np[p % n_dev::n_dev], np.float32,
+                ["C", "W", "O"])).to(d)
+            if self._is_quantized else None)
         self._gen += 1
 
     def _install_loaded(self, slab_hwm, valid_np, scales_np) -> None:
         n_dev, rpd = self.n_devices, self.rows_per_device
-        slabs = []
-        for p, dev in enumerate(self.mesh.devices):
+
+        def slab_at(p, dev):
             slab = torch.zeros((rpd, self._row_width), dtype=self._dtype,
                                device=dev)
             part = slab_hwm[p % n_dev::n_dev] if slab_hwm is not None else []
             if len(part):
                 slab[: len(part)] = slab_from_numpy(part, self._dtype).to(dev)
-            slabs.append(slab)
-        self._slabs = slabs
+            return slab
+
+        self._slabs = self._held(slab_at)
         # owned copies: replica positions must not share host storage
-        self._valids = [torch.from_numpy(np.require(
-            valid_np[p % n_dev::n_dev], bool, ["C", "W", "O"])).to(d)
-            for p, d in enumerate(self.mesh.devices)]
-        self._row_scales = [
-            torch.from_numpy(np.require(
-                scales_np[p % n_dev::n_dev], np.float32, ["C", "W", "O"])).to(d)
-            if scales_np is not None else None
-            for p, d in enumerate(self.mesh.devices)
-        ]
+        self._valids = self._held(lambda p, d: torch.from_numpy(np.require(
+            valid_np[p % n_dev::n_dev], bool, ["C", "W", "O"])).to(d))
+        self._row_scales = self._held(
+            lambda p, d: torch.from_numpy(np.require(
+                scales_np[p % n_dev::n_dev], np.float32,
+                ["C", "W", "O"])).to(d)
+            if scales_np is not None else None)
+
+    def _is_lead(self) -> bool:
+        return not self.mesh.is_global or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh.is_global:
+            collective.barrier()
+
+    def _positions_held(self) -> tuple[list[int], int]:
+        """One position per shard (the first replica group's copies),
+        the shards this process holds, of ``n_devices``."""
+        return self._own_shards(), self.n_devices
 
     def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
-        """One position per shard (the first replica group's copies)."""
-        n_dev = self.n_devices
-        arrays = {"slab": self._slabs[:n_dev], "valid": self._valids[:n_dev]}
+        own = self._own_shards()
+        arrays = {"slab": [self._slabs[s] for s in own],
+                  "valid": [self._valids[s] for s in own]}
         if self._is_quantized:
-            arrays["scales"] = self._row_scales[:n_dev]
+            arrays["scales"] = [self._row_scales[s] for s in own]
         return arrays
 
     def _position_devices(self) -> list[torch.device]:
-        return list(self.mesh.devices[: self.n_devices])
+        return [self.mesh.devices[s] for s in self._own_shards()]
 
     def _install_positions(self, arrays: dict[str, list]) -> None:
         n_dev, devs = self.n_devices, self.mesh.devices
+        own = self._own_shards()
 
         def spread(parts):
-            return [parts[p] if p < n_dev else
-                    parts[p % n_dev].to(devs[p], copy=True)
-                    for p in range(len(devs))]
+            at = dict(zip(own, parts))
+            return self._held(lambda p, d: at[p] if p < n_dev else
+                              at[p % n_dev].to(d, copy=True))
 
         self._slabs = spread(arrays["slab"])
         self._valids = spread(arrays["valid"])
@@ -283,8 +337,13 @@ class ShardedFlatIndex(FlatIndex):
 
     def _interleave(self, parts: list[torch.Tensor]) -> np.ndarray:
         """Slot-order host array from one tensor a shard (checkpoint
-        encoding: bf16 as uint16 bits)."""
+        encoding: bf16 as uint16 bits). On a global mesh the ranks
+        gather their shards' host copies."""
         n_dev = self.n_devices
+        if self.mesh.is_global:
+            mine = torch.stack([parts[s].cpu() for s in self._own_shards()])
+            every = collective.all_gather(mine)
+            parts = list(every.reshape((n_dev,) + tuple(mine.shape[1:])))
         host = [slab_to_numpy(t) for t in parts[:n_dev]]
         out = np.empty((self._cap,) + host[0].shape[1:], host[0].dtype)
         for s, h in enumerate(host):
@@ -303,7 +362,8 @@ class ShardedFlatIndex(FlatIndex):
         return self._interleave(self._valids)
 
     def valid_count(self) -> int:
-        return int(sum(int(v.sum()) for v in self._valids[: self.n_devices]))
+        mine = sum(int(self._valids[s].sum()) for s in self._own_shards())
+        return collective.all_sum(mine) if self.mesh.is_global else mine
 
     def _npz_arrays(self, hwm: int) -> dict[str, np.ndarray]:
         slab, valid, scales = self._host_slot_view()
@@ -327,8 +387,9 @@ class ShardedFlatIndex(FlatIndex):
         n = min(len(mask_np), self._cap)
         full[:n] = mask_np[:n]
         n_dev = self.n_devices
-        out = [torch.logical_and(v, torch.from_numpy(np.ascontiguousarray(
-            full[p % n_dev::n_dev])).to(v.device))
+        out = [None if v is None else torch.logical_and(
+            v, torch.from_numpy(np.ascontiguousarray(
+                full[p % n_dev::n_dev])).to(v.device))
             for p, v in enumerate(self._valids)]
         while len(cache) >= 4:
             cache.pop(next(iter(cache)))
@@ -340,15 +401,46 @@ class ShardedFlatIndex(FlatIndex):
         """Sorted ``(B, k)`` scores and int64 slots of queries ``q`` over
         replica group ``group``: each shard's stage 1 on its position,
         local rows -> slots (``row * n_dev + shard``, -1 stays -1) on the
-        device, then one merge over all shards' partials."""
-        n_dev = self.n_devices
-        k_local = min(k, self.rows_per_device)
+        device, then one merge over all shards' partials. On a global
+        mesh: the merge of the rank's shards, then ``_merge_ranks``."""
         if self.metric == "cosine":
             q = l2_normalize(q)
+        part_v, part_i = self._shard_parts(group, q, k, valids, kernels)
+        merge = merge_partials if kernels else merge_partials_plain
+        if not self.mesh.is_global:
+            return merge(part_v, part_i, k)
+        v, i = merge(part_v, part_i, min(k, self._rank_rows()))
+        return self._merge_ranks(v, i, k, merge)
+
+    @staticmethod
+    def _merge_ranks(v: torch.Tensor, i: torch.Tensor, k: int, merge):
+        """The cross-rank step of a search on a global mesh: every rank's
+        sorted ``(B, k')`` scores and slots, all-gathered as one int32
+        block (score bits beside slots) into ``(B, world, k')`` partials
+        and merged to ``(B, k)``. Ties keep each rank's merge order, then
+        the lower rank."""
+        kk = v.shape[1]
+        packed = torch.cat([v.contiguous().view(torch.int32),
+                            i.to(torch.int32)], -1)
+        every = collective.all_gather(packed)  # (world, B, 2k')
+        gv = every[..., :kk].contiguous().view(torch.float32)
+        gi = every[..., kk:]
+        return merge(gv.transpose(0, 1).contiguous(),
+                     gi.transpose(0, 1).contiguous(), k)
+
+    def _shard_parts(self, group: int, q: torch.Tensor, k: int, valids,
+                     kernels: bool):
+        """Stage 1 of each shard of replica group ``group`` that this
+        process holds, on normalized queries ``q``: ``(B, parts, k')``
+        scores and int32 slots on ``self.device``."""
+        n_dev = self.n_devices
+        k_local = min(k, self.rows_per_device)
         parts_v, parts_i = [], []
         prepped = {}  # the kernel's query type, once a device
         for s in range(n_dev):
             p = group * n_dev + s
+            if p not in self._local:
+                continue
             slab, sc = self._slabs[p], self._row_scales[p]
             qk = prepped.get(slab.device)
             if qk is None:
@@ -364,9 +456,7 @@ class ShardedFlatIndex(FlatIndex):
             gi = torch.where(pi >= 0, pi * n_dev + s, -1)
             parts_v.append(pv.to(self.device))
             parts_i.append(gi.to(self.device))
-        part_v, part_i = torch.cat(parts_v, 1), torch.cat(parts_i, 1)
-        merge = merge_partials if kernels else merge_partials_plain
-        return merge(part_v, part_i, k)
+        return torch.cat(parts_v, 1), torch.cat(parts_i, 1)
 
     def _mesh_search(self, qstack: torch.Tensor, k: int, valids):
         """``(NB, B, min(k, cap))`` device scores and slots of a query
@@ -445,6 +535,8 @@ class ShardedFlatIndex(FlatIndex):
         """Install a new topology with EMPTY storage (cold re-host): the
         old mesh may be unreachable, so nothing is read from it; the
         caller reloads from a checkpoint (``load`` / ``store.recover``)."""
+        if self.mesh.is_global or mesh.is_global:
+            raise collective.not_ported("re-meshing")
         with self._mu.write():
             self._set_mesh(mesh)
             self._cap = self._round_cap(max(self._next_slot, 1024))
@@ -460,6 +552,8 @@ class ShardedFlatIndex(FlatIndex):
         n_old)`` to ``(s % n_new, s // n_new)`` through the host
         slot-order view. Reads every old position: a dead device makes
         this raise (``WDBX.heal`` then cold re-hosts)."""
+        if self.mesh.is_global or mesh.is_global:
+            raise collective.not_ported("re-meshing")
         with self._mu.write():
             if self.axis not in mesh.axis_names:
                 raise ValueError(
@@ -495,6 +589,8 @@ class ShardedFlatIndex(FlatIndex):
         out = np.zeros((len(slots), self.dim), np.float32)
         with self._mu.read():
             for s, at, rows in self._route(torch.as_tensor(slots)):
+                if s not in self._local:
+                    continue
                 r = rows.to(self._slabs[s].device)
                 got = self._slabs[s][r]
                 if self._is_int4:
@@ -503,6 +599,12 @@ class ShardedFlatIndex(FlatIndex):
                 if self._is_quantized:
                     got = got * self._row_scales[s][r][:, None]
                 out[at.numpy()] = got.cpu().numpy()
+        if self.mesh.is_global:
+            # every rank filled its own shards' rows: take each row from
+            # the rank owning its shard
+            every = collective.all_gather(torch.from_numpy(out)).numpy()
+            owner = np.asarray(self.mesh.owners)[slots % self.n_devices]
+            out = every[owner, np.arange(len(slots))]
         return out
 
     def get_stats(self) -> dict:
@@ -510,7 +612,8 @@ class ShardedFlatIndex(FlatIndex):
         stats.update(
             dtype=self.dtype_name,
             tombstones=len(self._free),
-            hbm_bytes=sum(t.numel() * t.element_size() for t in self._slabs),
+            hbm_bytes=sum(t.numel() * t.element_size()
+                          for t in self._slabs if t is not None),
             device=str(self.device),
             devices=self.n_devices,
             mesh_axis=self.axis,

@@ -58,6 +58,7 @@ from wdbx_tpu_torch.index.ivf import (
 from wdbx_tpu_torch.ops.exact_search import f32_scores, true_f32
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.parallel import collective
 from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
@@ -83,6 +84,8 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
             self, dim, metric=metric, dtype=dtype, capacity=capacity,
             mesh=mesh, axis=axis, device=device,
         )
+        if self.mesh.is_global:
+            raise collective.not_ported("ShardedIVFIndex")
         self.nlist = nlist
         self.nprobe = nprobe
         self.assignments = 1

@@ -11,6 +11,12 @@ port keeps its config value and its directory (``<path>.orbax/``) but
 not its format: neither package reads the other's per-position
 checkpoint, and a directory orbax wrote raises ``ValueError`` here. The
 npz checkpoint stays the format both packages read.
+
+On a mesh spanning ranks each rank writes and reads only its own
+positions' files (``positions`` of ``total``): rank 0 clears the
+directory, every rank writes its files, rank 0 writes the sidecar, with
+a barrier between the steps. The ranks share the checkpoint's
+directory, as JAX's multi-controller orbax checkpoints do.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Any, Sequence
 
 import torch
 
+from wdbx_tpu_torch.parallel import collective
+
 #: the sidecar that marks a directory as this backend's
 SIDECAR = "wdbx_positions.json"
 FORMAT = "wdbx_tpu_torch.per_position.v1"
@@ -31,23 +39,40 @@ def _dir(path: str) -> str:
     return os.path.abspath(path) + ".orbax"
 
 
-def save_arrays(path: str, arrays: dict[str, Sequence[torch.Tensor]]) -> None:
+def save_arrays(path: str, arrays: dict[str, Sequence[torch.Tensor]],
+                positions: Sequence[int] | None = None,
+                total: int | None = None) -> None:
     """Write ``arrays`` (name -> one tensor a position) as one file a
-    position, each from its own device, plus the sidecar."""
+    position, each from its own device, plus the sidecar. ``positions``
+    (default: all) numbers the given tensors among the checkpoint's
+    ``total``; fewer than ``total`` means the other ranks write the
+    rest."""
     d = _dir(path)
     counts = {len(v) for v in arrays.values()}
     if len(counts) != 1:
         raise ValueError(f"arrays disagree on the position count: {counts}")
     (n,) = counts
-    if os.path.isdir(d):
-        shutil.rmtree(d)
-    os.makedirs(d)
-    for i in range(n):
+    positions = list(range(n)) if positions is None else list(positions)
+    total = n if total is None else int(total)
+    if len(positions) != n:
+        raise ValueError(f"{n} tensors for positions {positions}")
+    split = total != n
+    lead = not split or collective.rank_world()[0] == 0
+    if lead:
+        if os.path.isdir(d):
+            shutil.rmtree(d)
+        os.makedirs(d)
+    if split:
+        collective.barrier()
+    for i, p in enumerate(positions):
         torch.save({name: arrays[name][i].detach() for name in arrays},
-                   os.path.join(d, f"position{i:05d}.pt"))
-    with open(os.path.join(d, SIDECAR), "w") as f:
-        json.dump({"format": FORMAT, "positions": n,
-                   "arrays": sorted(arrays)}, f)
+                   os.path.join(d, f"position{p:05d}.pt"))
+    if split:
+        collective.barrier()
+    if lead:
+        with open(os.path.join(d, SIDECAR), "w") as f:
+            json.dump({"format": FORMAT, "positions": total,
+                       "arrays": sorted(arrays)}, f)
 
 
 def _positions(path: str) -> int | None:
@@ -71,23 +96,28 @@ def _positions(path: str) -> int | None:
 
 
 def load_arrays(
-    path: str, devices: Sequence[Any]
+    path: str, devices: Sequence[Any], positions: Sequence[int] | None = None,
+    total: int | None = None,
 ) -> dict[str, list[torch.Tensor]] | None:
-    """Restore name -> one tensor a position, position ``i`` onto
-    ``devices[i]``; None if no checkpoint exists at ``path``. The
-    checkpoint must have ``len(devices)`` positions."""
+    """Restore name -> one tensor a position, ``positions[i]`` (default:
+    all) onto ``devices[i]``; None if no checkpoint exists at ``path``.
+    The checkpoint must have ``total`` positions (default
+    ``len(devices)``)."""
+    positions = (list(range(len(devices))) if positions is None
+                 else list(positions))
+    total = len(devices) if total is None else int(total)
     n = _positions(path)
     if n is None:
         return None
-    if n != len(devices):
+    if n != total:
         raise ValueError(
             f"{_dir(path)} holds {n} positions, the target has "
-            f"{len(devices)}: per-position checkpoints load onto the same "
+            f"{total}: per-position checkpoints load onto the same "
             "shard count (npz moves between counts)"
         )
     out: dict[str, list[torch.Tensor]] = {}
-    for i, dev in enumerate(devices):
-        part = torch.load(os.path.join(_dir(path), f"position{i:05d}.pt"),
+    for p, dev in zip(positions, devices):
+        part = torch.load(os.path.join(_dir(path), f"position{p:05d}.pt"),
                           map_location=torch.device(dev), weights_only=True)
         for name, t in part.items():
             out.setdefault(name, []).append(t)

@@ -478,7 +478,12 @@ class VectorStore:
                     self._lock.release()
                     held = False
                 pool = self._fanout_pool
-                if len(indices) > 1 and pool is not None:
+                # indexes on a mesh spanning ranks search one after
+                # another: every rank must issue their collectives in the
+                # same order
+                spread = any(getattr(getattr(ix, "mesh", None), "is_global",
+                                     False) for ix in indices)
+                if len(indices) > 1 and pool is not None and not spread:
                     # fan shards out on threads: each search holds only
                     # its index's read lock, so dispatch+transfer round
                     # trips overlap across shards (persistent pool; a
