@@ -148,7 +148,31 @@ Phases (each prints JSON lines; any failure exits non-zero):
              checkpoints, and reach recall@10 0.9938 (flat bf16) and 0.95
              (sharded clustered, also at the 1% filter); times beside
              the single-process sharded / sharded_clustered numbers of
-             the same run
+             the same run. Then make_mesh2(2) on the same ranks (a full
+             copy of 4 shards a rank, each rank serving half of every
+             batch and the ranks gathering the answered rows): the flat
+             point in bf16 (B=128, B=1 where rank 0 launches nothing,
+             pipelined NB=64, the removals, 32 updates and 32 adds that
+             both copies take and both groups find, npz and per-position
+             round trips) and int8 (B=128), and ShardedClusteredIndex at
+             the same point (build, search, pipelined, the 1% filter, and
+             the unreplicated ranks' checkpoint loaded on it); answers
+             equal to the unreplicated ones, recall@10 0.9938 / 0.95.
+             Last, the production_serving deployment: WDBX(
+             enable_distributed=True, INDEX_TYPE=sharded_ivf) at the
+             dense_ivf phase's point (1,048,576 x 384 bf16, nlist 1024),
+             built across the ranks (rank 0 trains, the rows fill their
+             buckets' tables through the all-to-all), tuned to 0.97, two
+             B=128 searches and a pipelined NB=2 stack (the quota scan,
+             no kernel), 10% (pushdown) and 1% (exact masked, K1 a
+             shard) filters, the batch fallback (K1 a shard), 1,024
+             removals and a search, per-position and npz round trips;
+             here one process's 8-position index loaded from the ranks'
+             npz replays the calls and must answer alike, every score is
+             rescored from the slab, and recall@10 is gated at 0.95
+             unfiltered and at both filters (paths
+             multiprocess_replicated, multiprocess_replicated_clustered,
+             multiprocess_ivf)
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -2982,9 +3006,11 @@ def _rank_main(rank, world, port, tmp, seed):
     ``phase_multiprocess``): joins through ``ShardEngine.initialize`` on
     the global mesh of ``world`` x ``MP_POSITIONS`` positions, drives the
     flat engine (bf16, int8) and the sharded clustered engine on its
-    shards, holds every stage-1 launch against its plain version, times
-    the calls and their split, and writes its report and answers to
-    ``tmp`` for the parent."""
+    shards, then both on ``make_mesh2(2)`` (a copy a rank), then the
+    production_serving deployment (``ShardedIVFIndex`` through
+    ``WDBX(enable_distributed=True)``); holds every stage-1 launch
+    against its plain version, times the calls and their split, and
+    writes its report and answers to ``tmp`` for the parent."""
     os.environ.update(WDBX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                       WDBX_NUM_PROCESSES=str(world),
                       WDBX_PROCESS_ID=str(rank),
@@ -3102,7 +3128,6 @@ def _rank_main(rank, world, port, tmp, seed):
     # the same rows as int8: one B=128 search (K2 on the rank's shards)
     idx8 = ShardedFlatIndex(384, dtype="int8", capacity=N_ROWS, mesh=mesh)
     idx8.add_batch(x)
-    del x
     i8 = "fused_topk_partial[int8]"
     body8 = want_body("int8", "bfloat16", 384, 128, k)
     with _K1Recorder() as k1:
@@ -3115,6 +3140,9 @@ def _rank_main(rank, world, port, tmp, seed):
                    "max_abs_err_vs_plain": err8}
     del idx8
     torch.cuda.empty_cache()
+    rep["replicated"] = _rank_replicated(x, qs, removed, ans, counts, errs,
+                                         tmp, seed)
+    del x
 
     # sharded clustered at benchmarks/filtered.py's sharded point
     n, d, nlist, bc, nbc = SC_N, SC_D, SC_NLIST, 64, 8
@@ -3212,6 +3240,11 @@ def _rank_main(rank, world, port, tmp, seed):
         "split_b64": c_split, "search_collectives": clu_coll,
         "npz_save_s": c_save_s, "npz_load_s": c_load_s,
         "max_abs_err_vs_plain": err3}
+    del c, calls, k3_stage1
+    torch.cuda.empty_cache()
+    rep["replicated_clustered"] = _rank_replicated_clustered(
+        chunks, q64, qstack_c, pick, ans, counts, errs, tmp)
+    rep["ivf"] = _rank_ivf(tmp, seed, ans, counts, errs)
     rep["collectives"] = collective.stats()
     np.savez(os.path.join(tmp, f"mp_ans{rank}.npz"),
              **{f"{key}|{j}": np.asarray(v) for key, pair in ans.items()
@@ -3221,6 +3254,451 @@ def _rank_main(rank, world, port, tmp, seed):
     collective.barrier()
     asyncio.run(engine.shutdown())
     print(f"rank {rank} done", flush=True)
+
+
+MP_IVF_CONFIG = {"INDEX_TYPE": "sharded_ivf", "INDEX_DTYPE": "bfloat16",
+                 "IVF_NLIST": 1024, "IVF_TRAIN_THRESHOLD": 1 << 62,
+                 "INDEX_CAPACITY": 1 << 20, "RAW_STORE": "none",
+                 "VECTOR_STORE_AUTOSAVE_INTERVAL": 0}
+
+
+def _written_rows(seed):
+    """The 64 unit rows the replicated path writes: 32 updates, 32 adds."""
+    import numpy as np
+
+    new = np.random.default_rng(seed + 23).standard_normal(
+        (64, 384)).astype(np.float32)
+    return new / np.linalg.norm(new, axis=1, keepdims=True)
+
+
+def _rank_replicated(x, qs, removed, ans, counts, errs, tmp, seed):
+    """``make_mesh2(2)`` on the two ranks: each holds one full copy of 4
+    shards. The flat point in bf16 and int8: B=128 and B=1 (group 0's
+    slice is empty, so rank 0 launches nothing and still joins the
+    answers' gather), search_pipelined, the flat path's removals, then
+    updates and adds that both copies take (read back from each rank's
+    own copy, and searched by both groups), npz and per-position round
+    trips. Returns the rank's report."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import ShardedFlatIndex, collective
+    from wdbx_tpu_torch.parallel.mesh import make_mesh2
+
+    mesh = make_mesh2(2)
+    rank = mesh.rank
+    if mesh.local_groups != (rank,) or mesh.shape != {
+            "replica": 2, "shard": MP_POSITIONS}:
+        fail(f"rank {rank}: replicated mesh {mesh.shape} groups "
+             f"{mesh.local_groups}")
+    k, nb, b = 10, qs.shape[0], qs.shape[1]
+    half = b // 2
+    qstack = torch.as_tensor(qs, device="cuda")
+    label = "multiprocess_replicated"
+    out = {}
+    for dtype in ("bfloat16", "int8"):
+        key = f"fused_topk_partial[{dtype}]"
+        idx = ShardedFlatIndex(384, dtype=dtype, capacity=N_ROWS, mesh=mesh)
+        t0 = time.perf_counter()
+        idx.add_batch(x)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        with _K1Recorder() as k1:
+            ans[f"rep_{dtype}"] = _mp_call(
+                k1, label, lambda: idx.search(qs[0], k), counts,
+                MP_POSITIONS, 1, want_body(dtype, "bfloat16", 384, half, k),
+                key)
+            err = _check_k1_launches(f"{label}/{dtype}/search", k1.last,
+                                     errs)
+        search_ms = _wall_ms(lambda: idx.search(qs[0], k), reps=10, warm=2)
+        if dtype == "int8":
+            out["int8"] = {"add_s": add_s, "search_b128_ms": search_ms,
+                           "max_abs_err_vs_plain": err}
+            del idx
+            break
+        with _K1Recorder() as k1:
+            ans["rep_b1"] = _mp_call(
+                k1, label, lambda: idx.search(qs[1][:1], k), counts,
+                MP_POSITIONS * rank, rank,
+                want_body(dtype, "bfloat16", 384, 1, k), key)
+            err = max(err, _check_k1_launches(f"{label}/b1", k1.last, errs))
+            ans["rep_pipelined"] = _mp_call(
+                k1, label, lambda: idx.search_pipelined(qstack, k), counts,
+                MP_POSITIONS, 1,
+                want_body(dtype, "bfloat16", 384, nb * half, k), key)
+            err = max(err, _check_k1_launches(f"{label}/pipelined", k1.last,
+                                              errs))
+            idx.remove_slots(removed)
+            ans["rep_removed"] = _mp_call(
+                k1, label, lambda: idx.search(qs[0], k), counts,
+                MP_POSITIONS, 1, want_body(dtype, "bfloat16", 384, half, k),
+                key)
+            err = max(err, _check_k1_launches(f"{label}/removed", k1.last,
+                                              errs))
+        b1_ms = _wall_ms(lambda: idx.search(qs[1][:1], k), reps=10, warm=2)
+        pipe_ms = _wall_ms(lambda: idx.search_pipelined(qstack, k),
+                           reps=3) / nb
+        v = torch.zeros((b, k), device="cuda")
+        i = torch.zeros((b, k), dtype=torch.int64, device="cuda")
+        share_ms = _wall_ms(lambda: idx._share_slices(v, i, idx._cuts(b)),
+                            reps=20, warm=2)
+        # writes both copies take: 32 updates and 32 adds, read back from
+        # this rank's own copy; each group searches all 64
+        new = _written_rows(seed)
+        upd = np.setdiff1d(np.arange(4096), removed)[:32]
+        idx.update_slots(upd, new[:32])
+        added = idx.add_batch(new[32:])
+        written = np.concatenate([upd, np.asarray(added, np.int64)])
+        ans["rep_written"] = (idx.get_vectors(written), written)
+        found = idx.search(np.concatenate([new, new]), 1)
+        if not np.array_equal(found[1][:, 0], np.concatenate([written] * 2)):
+            fail(f"{label}: a written row is not found by both groups")
+        ans["rep_found"] = found
+        ans["rep_count"] = (np.asarray([idx.count(), idx.valid_count()]),
+                            np.asarray([idx.get_stats()["size"],
+                                        idx.get_stats()["replicas"]]))
+        q = qs[2]
+        ans["rep_final"] = idx.search(q, k)
+        # checkpoints: rank 0 writes its copy (npz, or 4 files); every
+        # rank loads it into the group it holds
+        saves = {}
+        for backend in ("npz", "orbax"):
+            idx.persist_backend = backend
+            path = os.path.join(tmp, f"mp_rep_{backend}")
+            t0 = time.perf_counter()
+            idx.save(path)
+            save_s = time.perf_counter() - t0
+            back = ShardedFlatIndex(384, dtype=dtype, capacity=N_ROWS,
+                                    mesh=mesh)
+            back.persist_backend = backend
+            t0 = time.perf_counter()
+            if not back.load(path):
+                fail(f"{label}: the {backend} checkpoint did not load")
+            load_s = time.perf_counter() - t0
+            again = back.search(q, k)
+            if not (np.array_equal(again[1], ans["rep_final"][1])
+                    and np.array_equal(again[0], ans["rep_final"][0])):
+                fail(f"{label}: the {backend} round trip answers otherwise")
+            saves[backend] = {"save_s": save_s, "load_s": load_s}
+            del back
+        out["bfloat16"] = {
+            "add_s": add_s, "search_b128_ms": search_ms, "search_b1_ms":
+            b1_ms, "pipelined_ms_per_batch": pipe_ms,
+            "answers_gather_ms": share_ms, "checkpoints": saves,
+            "max_abs_err_vs_plain": err}
+        del idx
+        torch.cuda.empty_cache()
+    out["collectives"] = collective.stats()
+    return out
+
+
+def _rank_replicated_clustered(chunks, q64, qstack_c, pick, ans, counts,
+                               errs, tmp):
+    """``ShardedClusteredIndex`` on ``make_mesh2(2)`` at the sharded
+    clustered point: the build (rank 0 trains and assigns on its own
+    copy, no row moves), search, search_pipelined, the 1% filter (exact
+    masked, K2 a shard); then the unreplicated ranks' checkpoint loaded
+    on this mesh (the same layout: the same answers). Returns the rank's
+    report."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import ShardedClusteredIndex, collective
+    from wdbx_tpu_torch.parallel.mesh import make_mesh2
+
+    n, d, nlist, k = SC_N, SC_D, SC_NLIST, 10
+    nbc, bc = qstack_c.shape[0], qstack_c.shape[1]
+    mesh = make_mesh2(2)
+    label = "multiprocess_replicated_clustered"
+    c = ShardedClusteredIndex(d, dtype="int8", capacity=n, mesh=mesh,
+                              nlist=nlist, nprobe=4, train_threshold=1 << 62)
+    before = collective.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = c.build_from(chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_coll = _coll_since(before)
+    if not np.array_equal(slots, np.arange(n)) or not c.is_trained:
+        fail(f"{label}: the build")
+    c.batch_flat_fallback = False
+    body3 = want_body("int8", "bfloat16", d, bc // 2, k)
+    with _K3Recorder() as rec:
+        ans["rep_clustered"] = _sc_call(rec, label, lambda: c.search(q64, k),
+                                        counts, MP_POSITIONS, 1, body3)
+        err, _ = _check_k3_launches(f"{label}/search", rec.last, errs)
+        ans["rep_clustered_pipelined"] = _sc_call(
+            rec, label, lambda: c.search_pipelined(qstack_c, k), counts,
+            MP_POSITIONS * nbc, nbc, body3)
+        e, _ = _check_k3_launches(f"{label}/pipelined", rec.last, errs)
+        err = max(err, e)
+    mask = np.zeros(c.capacity, bool)
+    mask[pick] = True
+    if not c._filter_plan(mask, 4, nlist)[2]:
+        fail(f"{label}: the 1% filter did not take the exact route")
+    with _K1Recorder() as k1:
+        ans["rep_clustered_filtered"] = _mp_call(
+            k1, label, lambda: c.search(q64, k, slot_mask=mask), counts,
+            MP_POSITIONS, 1, want_body("int8", "bfloat16", d, bc // 2, k),
+            "fused_topk_partial[int8]")
+        err = max(err, _check_k1_launches(f"{label}/filtered 1%", k1.last,
+                                          errs))
+    search_ms = _wall_ms(lambda: c.search(q64, k), reps=10, warm=3)
+    pipe_ms = _wall_ms(lambda: c.search_pipelined(qstack_c, k),
+                       reps=3) / nbc
+    filter_ms = _wall_ms(lambda: c.search(q64, k, slot_mask=mask), reps=5,
+                         warm=1)
+    del c
+    torch.cuda.empty_cache()
+    back = ShardedClusteredIndex(d, dtype="int8", capacity=n, mesh=mesh,
+                                 nlist=nlist, nprobe=4,
+                                 train_threshold=1 << 62)
+    t0 = time.perf_counter()
+    if not back.load(os.path.join(tmp, "mp_clu")):
+        fail(f"{label}: the unreplicated ranks' npz did not load")
+    load_s = time.perf_counter() - t0
+    back.batch_flat_fallback = False
+    with _K3Recorder() as rec:
+        ans["rep_clu_loaded"] = _sc_call(
+            rec, label, lambda: back.search(q64, k), counts, MP_POSITIONS,
+            1, body3)
+        e, _ = _check_k3_launches(f"{label}/loaded", rec.last, errs)
+        err = max(err, e)
+        ans["rep_clu_loaded_pipelined"] = _sc_call(
+            rec, label, lambda: back.search_pipelined(qstack_c, k), counts,
+            MP_POSITIONS * nbc, nbc, body3)
+        e, _ = _check_k3_launches(f"{label}/loaded pipelined", rec.last,
+                                  errs)
+        err = max(err, e)
+    del back
+    torch.cuda.empty_cache()
+    return {"n": n, "d": d, "nlist": nlist, "b": bc, "k": k, "nprobe": 4,
+            "build_s": build_s, "build_collectives": build_coll,
+            "search_b64_ms": search_ms, "pipelined_ms_per_batch": pipe_ms,
+            "filtered_1pct_ms": filter_ms, "npz_load_s": load_s,
+            "max_abs_err_vs_plain": err}
+
+
+def _ivf_data(seed):
+    """The dense IVF point: 1,048,576 x 384 rows of a 1024-component
+    mixture (noise 0.45/sqrt(d)) and 256 held-out queries, on the card."""
+    import torch
+
+    mix = _mixture(1024, 384, seed + 13, noise=0.45)
+    return (torch.cat([mix(3000 + i, 1 << 18) for i in range(4)]),
+            mix(4444, 256))
+
+
+def _ivf_filters(seed, n):
+    """The 10% and 1% filters' slots (the same on every rank)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 29)
+    return (rng.choice(n, n // 10, replace=False),
+            rng.choice(n, n // 100, replace=False))
+
+
+def _slot_mask(capacity, pick):
+    import numpy as np
+
+    mask = np.zeros(capacity, bool)
+    mask[pick] = True
+    return mask
+
+
+def _ivf_calls(index, held, picks, removed, quota_call, flat_call):
+    """The sharded IVF searches the ranks make and the parent replays,
+    in order: two B=128 searches and a pipelined NB=2 stack (the quota
+    scan, fallback off), a 10% filter (pushdown) and a 1% one (exact
+    masked, K1 a shard), the batch fallback (K1 a shard), then the
+    removals and a search. ``quota_call`` / ``flat_call`` wrap the calls
+    of each route."""
+    import numpy as np
+
+    k, d = 10, held.shape[1]
+    out = {}
+    index.batch_flat_fallback = False
+    two = [quota_call(lambda i=i: index.search(held[i:i + 128], k))
+           for i in (0, 128)]
+    out["ivf_search"] = tuple(np.concatenate(z) for z in zip(*two))
+    out["ivf_pipelined"] = quota_call(
+        lambda: index.search_pipelined(held.reshape(2, 128, d), k))
+    m10, m1 = (_slot_mask(index.capacity, p) for p in picks)
+    out["ivf_f10"] = quota_call(
+        lambda: index.search(held[:128], k, slot_mask=m10))
+    out["ivf_f1"] = flat_call(
+        lambda: index.search(held[:128], k, slot_mask=m1))
+    index.batch_flat_fallback = True
+    out["ivf_fallback"] = flat_call(lambda: index.search(held[:128], k))
+    index.batch_flat_fallback = False
+    index.remove_slots(removed)
+    out["ivf_removed"] = quota_call(lambda: index.search(held[:128], k))
+    return out
+
+
+def _rank_ivf(tmp, seed, ans, counts, errs):
+    """The production_serving deployment on the global mesh:
+    ``WDBX(enable_distributed=True, INDEX_TYPE="sharded_ivf")`` at the
+    dense IVF point, bulk-loaded, built across the ranks and tuned; the
+    calls of ``_ivf_calls`` (the quota route launches no kernel: its
+    counters must stay 0; the exact masked and fallback routes launch
+    K1 on the rank's 4 shards and 2 merges, each against its plain
+    version); the split of a B=128 search; per-position and npz round
+    trips. The npz written after the tuning is what the parent replays
+    the calls on. Returns the rank's report."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.core.wdbx import WDBX
+    from wdbx_tpu_torch.parallel import ShardedIVFIndex, collective
+    from wdbx_tpu_torch.parallel.sharded_ivf import _topk_merge
+
+    label, k, d = "multiprocess_ivf", 10, 384
+    rank = collective.rank_world()[0]
+    xi, held = _ivf_data(seed)
+    n = len(xi)
+    db = WDBX(vector_dimension=d, enable_plugins=False,
+              enable_distributed=True,
+              data_dir=os.path.join(tmp, f"mp_ivf_db{rank}"),
+              config=MP_IVF_CONFIG)
+    asyncio.run(db.initialize())
+    t0 = time.perf_counter()
+    db.store.bulk_load([str(i) for i in range(n)], xi.cpu().numpy())
+    load_s = time.perf_counter() - t0
+    del xi
+    torch.cuda.empty_cache()
+    index = db.store.indices[0]
+    if not isinstance(index, ShardedIVFIndex) or not index.mesh.is_global \
+            or index.mesh.local_positions != tuple(range(
+                rank * MP_POSITIONS, (rank + 1) * MP_POSITIONS)):
+        fail(f"{label}: {type(index).__name__} on {index.mesh.names}")
+    before = collective.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_coll = _coll_since(before)
+    index.batch_flat_fallback = False
+    held_np = held.cpu().numpy()
+    t0 = time.perf_counter()
+    tuned = index.tune(held_np[:64], k=k, target_recall=DENSE_TUNE)
+    tune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.save(os.path.join(tmp, "mp_ivf"))
+    npz_save_s = time.perf_counter() - t0
+
+    def quota_call(run):
+        _reset()
+        got = run()
+        c = _counts()
+        _tally(counts, label, c)
+        if _nonzero(c):
+            fail(f"{label}: the quota route launched {_nonzero(c)}")
+        return got
+
+    flat_errs = []
+    body = want_body("bfloat16", "bfloat16", d, 128, k)
+    picks = _ivf_filters(seed, n)
+    first = np.unique(np.concatenate([
+        index.search(held_np[i:i + 128], k)[1][:, 0] for i in (0, 128)]))
+    rest = np.random.default_rng(seed + 31).permutation(n)
+    rest = rest[~np.isin(rest, first)][:MP_REMOVED - len(first)]
+    removed = np.concatenate([first, rest]).astype(np.int64)
+    with _K1Recorder() as rec:
+        def flat_call(run):
+            got = _mp_call(rec, label, run, counts, MP_POSITIONS, 2, body,
+                           "fused_topk_partial[bfloat16]")
+            flat_errs.append(_check_k1_launches(f"{label}/flat route",
+                                                rec.last, errs))
+            return got
+
+        ans.update(_ivf_calls(index, held_np, picks, removed, quota_call,
+                              flat_call))
+    if np.isin(ans["ivf_removed"][1], removed).any():
+        fail(f"{label}: a removed slot was returned")
+    ans["ivf_picks"] = picks
+    ans["ivf_removed_slots"] = (removed, removed)
+    # the split of a B=128 search: the rank's quota scans and its merge
+    # (no collective), the gather of every rank's (B, k), the final merge
+    search_ms = _wall_ms(lambda: index.search(held_np[:128], k), reps=5)
+    pipe_ms = _wall_ms(lambda: index.search_pipelined(
+        held_np.reshape(2, 128, d), k), reps=3) / 2
+    q = torch.as_tensor(held_np[:128], device="cuda")
+    nprobe = index.nprobe
+    quota = index._quota(128 * nprobe)
+    index._spans = False  # the rank's shards alone, for the timing
+    try:
+        local_ms = _wall_ms(lambda: index._ivf_query(
+            q, k, nprobe, quota, index._bucket_valid, index._valids),
+            reps=5)
+        v, i = index._ivf_query(q, k, nprobe, quota, index._bucket_valid,
+                                index._valids)
+    finally:
+        index._spans = True
+    pv = torch.randn((128, 1, MP_POSITIONS * k), device="cuda")
+    pi = torch.zeros((128, 1, MP_POSITIONS * k), dtype=torch.int64,
+                     device="cuda")
+    rank_merge_ms = cuda_ms(lambda: _topk_merge(pv, pi, k), reps=10)
+    packed = torch.cat([v.contiguous().view(torch.int32),
+                        i.to(torch.int32)], -1)
+    gather_ms = _wall_ms(lambda: collective.all_gather(packed), reps=20,
+                         warm=2)
+    host = packed.cpu()
+    gloo_ms = _wall_ms(lambda: collective.all_gather(host), reps=20, warm=2)
+    every = collective.all_gather(packed)
+    gv = every[..., :k].contiguous().view(torch.float32)
+    gi = every[..., k:]
+    gv, gi = gv.transpose(0, 1).contiguous(), gi.transpose(0, 1).contiguous()
+    final_ms = cuda_ms(lambda: _topk_merge(gv, gi, k), reps=10)
+    # per-position and npz round trips of the final state
+    saves = {}
+    for backend in ("orbax", "npz"):
+        index.persist_backend = backend
+        path = os.path.join(tmp, f"mp_ivf_{backend}")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        back = ShardedIVFIndex(d, dtype="bfloat16", capacity=n,
+                               mesh=index.mesh, nlist=1024,
+                               train_threshold=1 << 62)
+        back.persist_backend = backend
+        t0 = time.perf_counter()
+        if not back.load(path) or not back.is_trained:
+            fail(f"{label}: the {backend} checkpoint did not load")
+        load_s2 = time.perf_counter() - t0
+        back.batch_flat_fallback = False
+        again = quota_call(lambda: back.search(held_np[:128], k))
+        if not (np.array_equal(again[1], ans["ivf_removed"][1])
+                and np.array_equal(again[0], ans["ivf_removed"][0])):
+            fail(f"{label}: the {backend} round trip answers otherwise")
+        saves[backend] = {"save_s": save_s, "load_s": load_s2}
+        del back
+    stats = index.get_stats()
+    ans["ivf_count"] = (np.asarray([index.count(), index.valid_count()]),
+                        np.asarray([stats["size"], stats["nprobe"]]))
+    rep = {"n": n, "nlist": int(index._centroids.shape[0]),
+           "cap_b": int(index._any_table().shape[1]),
+           "bulk_load_s": load_s, "build_s": build_s,
+           "build_collectives": build_coll,
+           "build_all_to_all_bytes": build_coll.get(
+               "all_to_all", {}).get("bytes", 0),
+           "tune_s": tune_s, "nprobe": nprobe,
+           "tuned_recall_vs_index_exact": tuned, "npz_save_s": npz_save_s,
+           "search_b128_ms": search_ms, "pipelined_ms_per_batch": pipe_ms,
+           "split_b128": {"quota_scans_and_rank_merge_ms": local_ms,
+                          "rank_merge_ms": rank_merge_ms,
+                          "gather_ms": gather_ms,
+                          "gather_gloo_only_ms": gloo_ms,
+                          "final_merge_ms": final_ms},
+           "checkpoints": saves,
+           "max_abs_err_vs_plain": max(flat_errs)}
+    # no db.shutdown(): its store save would write the whole index again
+    del db, index
+    torch.cuda.empty_cache()
+    return rep
 
 
 def _mp_load(tmp, rank):
@@ -3295,11 +3773,152 @@ def _run_mp_ranks(tmp, seed):
     return time.perf_counter() - t0
 
 
+def _check_mp_replicated(seed, reps, ans, single, whole, qs, truth, paths,
+                         tmp):
+    """The replicated flat path's answers against the unreplicated
+    ranks' on the same rows and queries, B=1 against the plain version
+    over the whole slab (``single``: one process's index of the
+    unreplicated ranks' checkpoint), the written rows as stored, the
+    counts, recall, and the replicated npz in one process."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import ShardedFlatIndex, make_mesh
+
+    label = "multiprocess_replicated"
+    nb, b, k = qs.shape[0], qs.shape[1], 10
+    err = 0.0
+    for key, ref in (("rep_bfloat16", "search"),
+                     ("rep_pipelined", "pipelined"),
+                     ("rep_removed", "removed"), ("rep_int8", "int8")):
+        err = max(err, _same_answers(f"{label}/{key}", ans[ref], ans[key]))
+    err = max(err, _check_sharded(f"{label}/b1", single, whole, qs[1][:1],
+                                  ans["rep_b1"]))
+    new = torch.from_numpy(_written_rows(seed)).to(torch.bfloat16)
+    stored = float(np.abs(ans["rep_written"][0]
+                          - new.to(torch.float32).numpy()).max())
+    if stored:
+        fail(f"{label}: a written row reads back {stored} off")
+    want = N_ROWS - MP_REMOVED + 32
+    if list(ans["rep_count"][0]) != [want, want] or \
+            list(ans["rep_count"][1]) != [want, 2]:
+        fail(f"{label}: counts {ans['rep_count']}, want {want}")
+    recall = _recall_slots(ans["rep_pipelined"][1].reshape(nb * b, k), truth)
+    one = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS,
+                           mesh=make_mesh(SHARDS))
+    if not one.load(os.path.join(tmp, "mp_rep_npz")):
+        fail(f"{label}: the replicated ranks' npz did not load")
+    err = max(err, _same_answers(f"{label}/npz", one.search(qs[2], k),
+                                 ans["rep_final"]))
+    del one
+    rr = [r["replicated"] for r in reps]
+    emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
+          "replicas": 2, "shards": MP_POSITIONS, "dtype": "bfloat16",
+          "b": b, "k": k, "nb": nb,
+          **{key: [r["bfloat16"][key] for r in rr] for key in (
+              "add_s", "search_b128_ms", "search_b1_ms",
+              "pipelined_ms_per_batch", "answers_gather_ms",
+              "checkpoints")},
+          "unreplicated_search_b128_ms": [r["flat"]["search_b128_ms"]
+                                          for r in reps],
+          "unreplicated_pipelined_ms_per_batch":
+              [r["flat"]["pipelined_ms_per_batch"] for r in reps],
+          "int8_search_b128_ms": [r["int8"]["search_b128_ms"] for r in rr],
+          "recall_at_10_raw": recall, "bar": RECALL_BAR,
+          "max_abs_err_vs_plain": max(err, *(r[dt]["max_abs_err_vs_plain"]
+                                             for r in rr
+                                             for dt in ("bfloat16", "int8"))),
+          "tol": ATOL, "launches": _nonzero(paths[label]),
+          "launches_by_rank": [_nonzero(r["counts"][label]) for r in reps]})
+    if recall < RECALL_BAR:
+        fail(f"{label}: recall@10 {recall} < {RECALL_BAR}")
+
+
+def _check_mp_ivf(seed, reps, ans, paths, tmp):
+    """The sharded IVF path: one process's 8-position index loaded from
+    the ranks' npz (written after the tuning) replays the ranks' calls
+    and must give their answers (slots equal off ties, scores within
+    ``ATOL``); every returned score must be q . row of the slab; recall
+    against the float32 oracle at ``DENSE_BAR`` unfiltered and at both
+    filters."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.ops.normalize import l2_normalize
+    from wdbx_tpu_torch.parallel import ShardedIVFIndex, make_mesh
+
+    label, k, d = "multiprocess_ivf", 10, 384
+    xi, held = _ivf_data(seed)
+    n = len(xi)
+    held_np = held.cpu().numpy()
+    single = ShardedIVFIndex(d, dtype="bfloat16", capacity=n,
+                             mesh=make_mesh(SHARDS), nlist=1024,
+                             train_threshold=1 << 62)
+    t0 = time.perf_counter()
+    if not single.load(os.path.join(tmp, "mp_ivf")) or \
+            not single.is_trained:
+        fail(f"{label}: the ranks' npz did not load")
+    load_s = time.perf_counter() - t0
+    picks = tuple(ans["ivf_picks"])
+    removed = ans["ivf_removed_slots"][0]
+    ref = _ivf_calls(single, held_np, picks, removed, lambda run: run(),
+                     lambda run: run())
+    err = 0.0
+    for key, pair in ref.items():
+        err = max(err, _same_answers(f"{label}/{key}", pair, ans[key], ATOL))
+    # every returned score is q . row (bf16 queries, bf16 rows)
+    qn = l2_normalize(held).to(torch.bfloat16).float()
+    off = 0.0
+    for key in ref:
+        scores, slots = (np.asarray(a).reshape(-1, k) for a in ans[key])
+        if (slots < 0).any():
+            fail(f"{label}/{key}: fewer than {k} hits")
+        rows = torch.as_tensor(single.get_vectors(slots.reshape(-1)),
+                               device="cuda").reshape(len(slots), k, d)
+        true = (qn[:len(slots)][:, None, :] * rows).sum(-1)
+        off = max(off, float(np.abs(true.cpu().numpy() - scores).max()))
+    if off > ATOL:
+        fail(f"{label}: a returned score is {off} off q . row")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sc = held @ xi.T
+    truth = torch.topk(sc, k, dim=1).indices.cpu().numpy()
+    rec = _slot_sets_recall(ans["ivf_search"][1], truth)
+    rec_f = []
+    for pick, key in zip(picks, ("ivf_f10", "ivf_f1")):
+        keep = torch.zeros(n, dtype=torch.bool, device="cuda")
+        keep[torch.as_tensor(pick, device="cuda")] = True
+        t = torch.topk(sc[:128].masked_fill(~keep, float("-inf")), k,
+                       dim=1).indices.cpu().numpy()
+        rec_f.append(_slot_sets_recall(ans[key][1], t))
+    del sc, xi
+    iv = [r["ivf"] for r in reps]
+    emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
+          "shards": SHARDS, "dtype": "bfloat16", "b": 128, "k": k,
+          **{key: iv[0][key] for key in ("n", "nlist", "cap_b", "nprobe",
+                                         "tuned_recall_vs_index_exact")},
+          **{key: [r[key] for r in iv] for key in (
+              "bulk_load_s", "build_s", "build_all_to_all_bytes",
+              "build_collectives", "tune_s", "npz_save_s", "search_b128_ms",
+              "pipelined_ms_per_batch", "split_b128", "checkpoints")},
+          "npz_load_single_process_s": load_s,
+          "recall_at_10": rec, "recall_at_10_filtered_10pct": rec_f[0],
+          "recall_at_10_filtered_1pct": rec_f[1], "bar": DENSE_BAR,
+          "rescore_max_off": off,
+          "max_abs_err_vs_plain": max(err, *(r["max_abs_err_vs_plain"]
+                                             for r in iv)), "tol": ATOL,
+          "launches": _nonzero(paths[label])})
+    if min(rec, *rec_f) < DENSE_BAR:
+        fail(f"{label}: recall@10 {rec} / {rec_f} < {DENSE_BAR}")
+    del single
+    torch.cuda.empty_cache()
+
+
 def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
     """Two ranks on the one card (``_rank_main``) over a global mesh of
-    8 positions; then, here, both ranks' answers against each other, the
-    plain version over the whole slab, the single-process 8-position
-    index loaded from the ranks' checkpoints, and the float32 oracle."""
+    8 positions, unreplicated and as ``make_mesh2(2)``; then, here, both
+    ranks' answers against each other, the plain version over the whole
+    slab, the unreplicated answers, the single-process 8-position index
+    loaded from the ranks' checkpoints, and the float32 oracle."""
     import numpy as np
     import torch
 
@@ -3374,6 +3993,8 @@ def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
           "launches": _nonzero(paths["multiprocess_flat"])})
     if recall < RECALL_BAR:
         fail(f"multiprocess_flat: recall@10 {recall} < {RECALL_BAR}")
+    _check_mp_replicated(seed, reps, ans, single, whole, qs, truth, paths,
+                         tmp)
     del single, view, whole
     torch.cuda.empty_cache()
 
@@ -3472,6 +4093,39 @@ def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
              f"< {FACADE_BAR}")
     del single
     torch.cuda.empty_cache()
+
+    # replicated clustered: the unreplicated ranks' layout loaded on the
+    # replicated mesh answers as they did; the replicated build's recall
+    label = "multiprocess_replicated_clustered"
+    err_r = 0.0
+    for key, ref in (("rep_clu_loaded", "clustered"),
+                     ("rep_clu_loaded_pipelined", "clustered_pipelined")):
+        err_r = max(err_r, _same_answers(f"{label}/{key}", ans[ref],
+                                         ans[key]))
+    recall_rc = _slot_recall(torch.as_tensor(
+        ans["rep_clustered_pipelined"][1].reshape(nbc * bc, k)),
+        truth_src.cpu())
+    recall_rf = _slot_recall(torch.as_tensor(
+        ans["rep_clustered_filtered"][1]), t_src.cpu())
+    rc = [r["replicated_clustered"] for r in reps]
+    emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
+          "replicas": 2, **{key: rc[0][key] for key in (
+              "n", "d", "nlist", "b", "k", "nprobe")},
+          **{key: [r[key] for r in rc] for key in (
+              "build_s", "build_collectives", "search_b64_ms",
+              "pipelined_ms_per_batch", "filtered_1pct_ms", "npz_load_s")},
+          "unreplicated_search_b64_ms": [r["clustered"]["search_b64_ms"]
+                                         for r in reps],
+          "recall_at_10_nprobe4": recall_rc,
+          "recall_at_10_filtered_1pct": recall_rf, "bar": FACADE_BAR,
+          "max_abs_err_vs_plain": max(err_r, *(r["max_abs_err_vs_plain"]
+                                               for r in rc)), "tol": ATOL,
+          "launches": _nonzero(paths[label])})
+    if recall_rc < FACADE_BAR or recall_rf < FACADE_BAR:
+        fail(f"{label}: recall@10 {recall_rc} / {recall_rf} < {FACADE_BAR}")
+    del truth_src, t_src
+    torch.cuda.empty_cache()
+    _check_mp_ivf(seed, reps, ans, paths, tmp)
 
 
 def _recall_slots(slots, truth) -> float:

@@ -27,10 +27,14 @@ devices), and 4 ranks x 2. Every worker asserts that neither ``jax`` nor
 * npz checkpoints: the ranks' npz loads into a single-process port index
   and into JAX's ``ShardedFlatIndex``; a JAX npz loads onto the ranks.
 * a 4-rank x 2-position run of the flat part.
-* refusals on a global mesh, one test each: replicas, ``ShardedIVFIndex``,
-  ``build_background``, ``remesh`` / ``adopt_mesh``, the facade's
-  ``heal()`` (each ``NotImplementedError`` naming its ``ROADMAP.md``
-  item); and ranks holding unequal position counts (``ValueError``).
+* refusals on a global mesh, one test each: replica groups spanning
+  ranks (``make_mesh2(2)`` on the 4-rank run, where a group of 4 shards
+  spans two ranks of 2 positions), ``build_background``, ``remesh`` /
+  ``adopt_mesh``, the facade's ``heal()`` (each ``NotImplementedError``
+  naming its ``ROADMAP.md`` item); and ranks holding unequal position
+  counts (``ValueError``). ``ShardedIVFIndex`` and replica groups within
+  one rank serve on a global mesh: ``tests/test_torch_multihost_ivf.py``
+  and ``tests/test_torch_multihost_replicas.py``.
 
 Every run has a deadline: the parent kills every worker when one fails
 or time runs out, and each group's collectives time out after 60 s, so
@@ -115,8 +119,7 @@ print(f"proc{rank} OK local={local}", flush=True)
 DATA_WORKER = PRELUDE + r"""
 asyncio.run(engine.initialize())
 from wdbx_tpu_torch.parallel import (
-    ShardedClusteredIndex, ShardedFlatIndex, ShardedIVFIndex, make_mesh,
-    make_mesh2)
+    ShardedClusteredIndex, ShardedFlatIndex, make_mesh, make_mesh2)
 flat_only = sys.argv[5] == "flat"
 dtypes = sys.argv[6].split(",")
 L = int(os.environ["WDBX_TORCH_MESH_SIZE"])
@@ -206,10 +209,6 @@ for dtype in dtypes:
             else:
                 refusals[name] = ["none", ""]
 
-        refused("replicas", lambda: make_mesh2(2, device="cpu"))
-        refused("replicas_index", lambda: ShardedFlatIndex(
-            dim=16, replicas=2, device="cpu"))
-        refused("ivf", lambda: ShardedIVFIndex(dim=16, mesh=mesh))
         refused("build_background", c.build_background)
         refused("remesh", lambda: idx.remesh(mesh))
         refused("adopt_mesh", lambda: idx.adopt_mesh(mesh))
@@ -232,6 +231,21 @@ for dtype in dtypes:
         refused("heal", db.heal)
         with open(os.path.join(out, f"refusals{rank}.json"), "w") as f:
             json.dump(refusals, f)
+if flat_only:
+    # 2 positions a rank: a replica group of 4 shards spans two ranks
+    spanning = {}
+    for name, fn in (
+            ("replicas", lambda: make_mesh2(2, device="cpu")),
+            ("replicas_index", lambda: ShardedFlatIndex(
+                dim=16, replicas=2, device="cpu"))):
+        try:
+            fn()
+        except (NotImplementedError, ValueError) as e:
+            spanning[name] = [type(e).__name__, str(e)]
+        else:
+            spanning[name] = ["none", ""]
+    with open(os.path.join(out, f"spanning{rank}.json"), "w") as f:
+        json.dump(spanning, f)
 no_jax()
 np.savez(os.path.join(out, f"ans{rank}_{world}.npz"),
          **{f"{key}|{i}": np.asarray(v) for key, pair in ans.items()
@@ -466,9 +480,9 @@ def test_two_process_facade(two_ranks):
 
 
 REFUSALS = {
-    "replicas": ("NotImplementedError", "replicas across ranks"),
-    "replicas_index": ("NotImplementedError", "replicas across ranks"),
-    "ivf": ("NotImplementedError", "ShardedIVFIndex on a global mesh"),
+    "replicas": ("NotImplementedError", "replica groups spanning ranks"),
+    "replicas_index": ("NotImplementedError",
+                       "replica groups spanning ranks"),
     "build_background": ("NotImplementedError",
                          "build_background, remesh and heal across ranks"),
     "remesh": ("NotImplementedError",
@@ -482,12 +496,21 @@ REFUSALS = {
 }
 
 
+#: refusals of the 4-rank run: a replica group spanning ranks
+SPANNING = {"replicas", "replicas_index"}
+
+
 @pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_global_mesh_refuses(two_ranks, name):
-    tmp, _ = two_ranks
+def test_global_mesh_refuses(request, name):
+    if name in SPANNING:
+        tmp, _ = request.getfixturevalue("four_ranks")
+        files, world = "spanning", 4
+    else:
+        tmp, _ = request.getfixturevalue("two_ranks")
+        files, world = "refusals", 2
     kind, item = REFUSALS[name]
-    for rank in range(2):
-        got = json.loads((tmp / f"refusals{rank}.json").read_text())[name]
+    for rank in range(world):
+        got = json.loads((tmp / f"{files}{rank}.json").read_text())[name]
         assert got[0] == kind, (rank, got)
         assert "ROADMAP.md" in got[1] and item in got[1], (rank, got)
 
@@ -502,17 +525,25 @@ def test_unequal_positions_refused(tmp_path):
             out[-2000:]
 
 
-def test_four_process_flat(tmp_path):
-    """4 ranks x 2 positions: the flat steps (float32, int8) answer as
-    the single-process port does."""
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """One 4-rank x 2-position run of the data worker's flat part
+    (float32, int8), which also records the spanning-group refusals."""
+    tmp = tmp_path_factory.mktemp("four_ranks")
     for dtype in ("float32", "int8"):
         j = JFlat(dim=16, capacity=8 * 16, dtype=dtype)
         j.add_batch(np.random.default_rng(0).standard_normal(
             (32, 16)).astype(np.float32))
-        j.save(str(tmp_path / f"jax_{dtype}"))
-    _assert_ok(_run_ranks(DATA_WORKER, tmp_path, 4,
+        j.save(str(tmp / f"jax_{dtype}"))
+    _assert_ok(_run_ranks(DATA_WORKER, tmp, 4,
                           ("flat", "float32,int8")), "DATA OK")
-    ranks = _answers(tmp_path, 4)
+    return tmp, _answers(tmp, 4)
+
+
+def test_four_process_flat(four_ranks):
+    """4 ranks x 2 positions: the flat steps (float32, int8) answer as
+    the single-process port does."""
+    _, ranks = four_ranks
     for dtype in ("float32", "int8"):
         single = ShardedFlatIndex(16, capacity=8 * 16, dtype=dtype,
                                   mesh=make_mesh(8, device="cpu"))

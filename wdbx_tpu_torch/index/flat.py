@@ -530,7 +530,9 @@ class FlatIndex(VectorIndex):
             from wdbx_tpu_torch.store import persist
 
             own, total = self._positions_held()
-            persist.save_arrays(path, self._position_arrays(), own, total)
+            if own:  # a replica rank may hold no file to write
+                persist.save_arrays(path, self._position_arrays(), own,
+                                    total)
             skip_slab = False
         else:
             # skip_slab: valid derives on the host (allocated minus
@@ -663,9 +665,11 @@ class FlatIndex(VectorIndex):
         if scales_np is not None:
             self._scales = torch.from_numpy(scales_np).to(self.device)
 
-    def _positions_held(self) -> tuple[list[int], int]:
+    def _positions_held(self, writing: bool = True
+                        ) -> tuple[list[int], int]:
         """The per-position checkpoint's positions that this process
-        holds, and the checkpoint's position count: one here."""
+        writes (``writing``) or reads, and the checkpoint's position
+        count: one here."""
         return [0], 1
 
     def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
@@ -686,7 +690,7 @@ class FlatIndex(VectorIndex):
         onto this index's positions, at its saved capacity."""
         from wdbx_tpu_torch.store import persist
 
-        own, total = self._positions_held()
+        own, total = self._positions_held(writing=False)
         arrays = persist.load_arrays(path, self._position_devices(), own,
                                      total)
         if arrays is None:

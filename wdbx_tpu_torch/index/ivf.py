@@ -914,8 +914,13 @@ class IVFIndex(FlatIndex):
     def save(self, path: str, skip_slab: bool = False) -> None:
         with self._mu.read():
             FlatIndex._save_locked(self, path, skip_slab=skip_slab)
-            if self.is_trained:
-                np.savez(path + ".ivf.npz", **self._overlay_host_arrays())
+            overlay = (self._overlay_host_arrays() if self.is_trained
+                       else None)
+            if not self._is_lead():
+                self._barrier()
+                return
+            if overlay is not None:
+                np.savez(path + ".ivf.npz", **overlay)
             with open(path + ".ivf.json", "w") as f:
                 json.dump({
                     "nlist": self.nlist,
@@ -925,9 +930,11 @@ class IVFIndex(FlatIndex):
                     "residual_base": self._residual_base,
                     "quarantine": self._quarantine,
                 }, f)
+            self._barrier()
 
-    def _overlay_host_arrays(self) -> dict[str, np.ndarray]:
-        """The trained overlay as the ``.ivf.npz`` sidecar holds it."""
+    def _overlay_host_arrays(self) -> dict[str, np.ndarray] | None:
+        """The trained overlay as the ``.ivf.npz`` sidecar holds it (on
+        the rank that writes it; None on the others)."""
         arrays = dict(
             centroids=self._centroids.cpu().numpy(),
             bucket_slot=self._bucket_slot.cpu().numpy(),

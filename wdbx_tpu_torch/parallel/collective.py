@@ -4,10 +4,12 @@
 A global mesh (``parallel/mesh.py``) spans the ranks of a group, and
 every rank issues the same calls with the same arguments: each writes,
 scans and saves only the positions it owns. What crosses ranks goes
-through this module: the ``(B, k)`` partials of a search
-(``all_gather``), the centroids of a build (``broadcast``), the rows a
-build moves between ranks (``all_to_all`` of variable-length row
-blocks), and the order of a checkpoint's writes (``barrier``).
+through this module: the ``(B, k)`` partials of a search and the
+answered batch slices of a replicated mesh (``all_gather``), the
+centroids of a build (``broadcast``), the rows a build moves between
+ranks (``all_to_all`` of variable-length row blocks), the tables a
+checkpoint writes on rank 0 (``gather``), and the order of a
+checkpoint's writes (``barrier``).
 
 The group is gloo, as ``ShardEngine.initialize`` creates it: NCCL takes
 one card a rank, and ranks may share a card. Device tensors are staged
@@ -38,8 +40,7 @@ _STATS: dict[str, dict[str, float]] = {}
 
 #: what a mesh spanning ranks does not port yet: its ROADMAP.md item
 NOT_PORTED = {
-    "replicas": "replicas across ranks",
-    "ShardedIVFIndex": "ShardedIVFIndex on a global mesh",
+    "replicas": "replica groups spanning ranks",
     "re-meshing": "build_background, remesh and heal across ranks",
 }
 
@@ -78,6 +79,8 @@ def reset_stats() -> None:
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A host copy of ``t`` as flat raw bytes."""
+    if not t.numel():  # an empty view's strides may not allow the cast
+        return torch.empty(0, dtype=torch.uint8)
     return t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8)
 
 
@@ -101,6 +104,27 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
         dist.all_gather(parts, mine)
         out = _typed(torch.stack(parts), t, (world,) + tuple(t.shape))
         _count("all_gather", mine.numel() * (world - 1), t0)
+    return out
+
+
+def gather(t: torch.Tensor, dst: int = 0) -> torch.Tensor | None:
+    """``(world, *t.shape)`` on rank ``dst`` (every rank's ``t`` in rank
+    order, on ``t``'s device), None on the others. Every rank passes the
+    same shape and dtype."""
+    rank, world = rank_world()
+    if world == 1:
+        return t[None]
+    import torch.distributed as dist
+
+    with _LOCK:
+        t0 = time.perf_counter()
+        mine = _bytes(t)
+        parts = ([torch.empty_like(mine) for _ in range(world)]
+                 if rank == dst else None)
+        dist.gather(mine, parts, dst)
+        out = (_typed(torch.stack(parts), t, (world,) + tuple(t.shape))
+               if rank == dst else None)
+        _count("gather", 0 if rank == dst else mine.numel(), t0)
     return out
 
 

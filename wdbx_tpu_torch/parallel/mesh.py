@@ -27,11 +27,13 @@ ranks, as ``jax.devices()`` spans the processes of
 ``jax.distributed``. Each rank lays its own L positions (the count
 above, over its own devices), the ranks exchange their lists once, and
 rank r owns positions ``[r*L, (r+1)*L)``; every rank must hold the same
-L. ``make_mesh(n)`` takes n positions in all, n / world a rank. Names
-stay ``"<device>#<global position>"``, unique across ranks. A rank
-holds tensors only for its own positions (``Mesh.local_positions``);
-the data plane between ranks is ``parallel/collective.py``. A ``Mesh``
-built directly is this process's own, whatever the group.
+L. ``make_mesh(n)`` takes n positions in all, n / world a rank;
+``make_mesh2(r)`` lays r replica groups over the same list, each group
+within one rank. Names stay ``"<device>#<global position>"``, unique
+across ranks. A rank holds tensors only for its own positions
+(``Mesh.local_positions``, ``Mesh.local_groups``); the data plane
+between ranks is ``parallel/collective.py``. A ``Mesh`` built directly
+is this process's own, whatever the group.
 """
 
 from __future__ import annotations
@@ -113,6 +115,13 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def local_groups(self) -> tuple[int, ...]:
+        """The replica groups (rows over the last axis) with a position
+        in this process, in order."""
+        shards = self.shape[self.axis_names[-1]]
+        return tuple(sorted({p // shards for p in self.local_positions}))
+
 
 def _base_devices(device: Any) -> list[torch.device]:
     if device is not None:
@@ -190,15 +199,35 @@ def make_mesh2(
     """2-D mesh for replicated serving: the corpus shards over
     ``axes[1]`` and replicates over ``axes[0]``; query batches split
     over ``axes[0]``. ``shards`` defaults to the mesh size (see
-    ``make_mesh``) over ``replicas``. In a group of several ranks only
-    ``replicas=1`` is ported: the global mesh as one replica group."""
+    ``make_mesh``) over ``replicas``. In a group of several ranks the
+    mesh is global, laid row-major over the ranks' positions as
+    ``jax.devices()`` lays it: group g is positions ``[g*shards,
+    (g+1)*shards)``. Each rank's L positions must hold whole groups
+    (``L % shards == 0``), so a rank holds ``L / shards`` full copies of
+    the corpus; a group spanning ranks is not ported (``replicas=1``,
+    the one group over every rank, excepted)."""
+    if replicas < 1 or (shards is not None and shards < 1):
+        raise ValueError(f"a {replicas} x {shards} mesh is empty")
     base = _base_devices(device)
-    if collective.rank_world()[1] > 1:
-        if replicas != 1:
-            raise collective.not_ported("replicas")
-        n = _pool_size(base) if shards is None else int(shards)
-        devices, owners = _global_positions(base, n, shards is not None)
-        return Mesh(devices, axes, shape=(1, len(devices)), owners=owners)
+    world = collective.rank_world()[1]
+    if world > 1:
+        if shards is None:
+            devices, owners = _global_positions(base, _pool_size(base),
+                                                False)
+            if len(devices) % replicas:
+                raise ValueError(f"{len(devices)} positions not divisible "
+                                 f"by {replicas} replicas")
+            shards = len(devices) // replicas
+        else:
+            devices, owners = _global_positions(base, replicas * shards,
+                                                True)
+        per = len(devices) // world
+        if replicas > 1 and per % shards:
+            if shards % per == 0:
+                raise collective.not_ported("replicas")
+            raise ValueError(f"{replicas} groups of {shards} shards do not "
+                             f"lie on ranks of {per} positions")
+        return Mesh(devices, axes, shape=(replicas, shards), owners=owners)
     if shards is None:
         total = _pool_size(base)
         if total % replicas:
@@ -206,7 +235,5 @@ def make_mesh2(
                 f"{total} positions not divisible by {replicas} replicas"
             )
         shards = total // replicas
-    if replicas < 1 or shards < 1:
-        raise ValueError(f"a {replicas} x {shards} mesh is empty")
     return Mesh(_round_robin(base, replicas * shards), axes,
                 shape=(replicas, shards))

@@ -53,9 +53,13 @@ layout is computed alike everywhere; then the rows move to their new
 another rank's shards (``collective.all_to_all``). A search runs K3 and
 the fresh rows on the rank's shards, merges them, all-gathers the
 ``(B, k)`` of every rank and merges once more; the probe top-k and the
-block dedup stay per rank, on identical inputs. ``build_background``
-is not ported there: its collectives would interleave with the
-foreground's in another order on each rank.
+block dedup stay per rank, on identical inputs. On a replicated global
+mesh every rank holds whole copies: rank 0 still trains (and assigns,
+reading its own copy) and broadcasts, no row moves between ranks, and
+a search runs K3 on the shards of the rank's own groups and gathers
+the answered batch slices (``ShardedFlatIndex._share_slices``).
+``build_background`` is not ported on any global mesh: its collectives
+would interleave with the foreground's in another order on each rank.
 """
 
 from __future__ import annotations
@@ -87,15 +91,11 @@ from wdbx_tpu_torch.kernels.clustered_scan import (
 )
 from wdbx_tpu_torch.kernels.fused_topk import merge_partials
 from wdbx_tpu_torch.kernels.quant import prep_query_block, unpack_int4
-from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
 from wdbx_tpu_torch.parallel import collective
-from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+from wdbx_tpu_torch.parallel.sharded_flat import _CHUNK, ShardedFlatIndex
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
-
-#: rows a build gathers, assigns or moves at once
-_CHUNK = 131_072
 
 
 def _striped_layout(assign, nlist, n_dev):
@@ -202,10 +202,6 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         super()._grow(need)
         self._check_blocks()
 
-    def _elsize(self) -> int:
-        """Bytes of one stored element."""
-        return torch.empty((), dtype=self._dtype).element_size()
-
     def _check_blocks(self) -> None:
         """K3 takes a shard's slab only in whole c-row blocks."""
         if self.is_trained and self.rows_per_device % self._c:
@@ -294,45 +290,6 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
             slabs_n, valids_n, scales_n,
         )
 
-    def _gather_raw_of(self, slabs, scales, pos, n_dev):
-        """Stored rows (raw codes) and scales at global positions ``pos``
-        of the explicit per-position lists (a snapshot in the background
-        build), on the index's device in the order of ``pos``."""
-        pos = np.asarray(pos, np.int64)
-        shard, row = pos % n_dev, pos // n_dev
-        dev = self.device
-        rows = torch.empty((len(pos), self._row_width), dtype=self._dtype,
-                           device=dev)
-        sc = (torch.empty((len(pos),), dtype=torch.float32, device=dev)
-              if self._is_quantized else None)
-        for s in np.unique(shard).tolist():
-            at = np.nonzero(shard == s)[0]
-            r = torch.as_tensor(row[at], device=slabs[s].device)
-            at_t = torch.as_tensor(at, device=dev)
-            rows[at_t] = slabs[s][r].to(dev)
-            if sc is not None:
-                sc[at_t] = scales[s][r].to(dev)
-        return rows, sc
-
-    def _gather_unit_of(self, slabs, scales, pos, n_dev) -> torch.Tensor:
-        """Float32 rows at global positions (dequantized; unit norm for
-        cosine)."""
-        return self._unit(*self._gather_raw_of(slabs, scales, pos, n_dev))
-
-    def _unit(self, rows, sc) -> torch.Tensor:
-        """Stored rows and scales -> float32 rows (unit norm for
-        cosine)."""
-        if self._is_int4:
-            rows = unpack_int4(rows)
-        rows = rows.to(torch.float32)
-        if sc is not None:
-            rows = rows * sc[:, None]
-        if self.metric == "cosine":
-            rows = rows / torch.clamp_min(
-                torch.linalg.norm(rows, dim=-1, keepdim=True), 1e-12
-            )
-        return rows
-
     def _plan_clusters(self, slabs, scales, live_pos, n_dev):
         """Train centroids and assign every live row, reading only the
         explicit per-position lists (so the background build runs it off
@@ -346,92 +303,16 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                 n_live, self.train_sample, replace=False
             )
             sample = live_pos[np.sort(sel)]
-        if self.mesh.is_global:
-            return self._plan_across_ranks(slabs, scales, live_pos, sample,
-                                           nlist, n_dev)
-        train = self._gather_unit_of(slabs, scales, sample, n_dev)
-        centroids, _ = kmeans(train, num_clusters=nlist,
-                              iters=self.kmeans_iters)
-        del train
-        assign = np.empty(n_live, np.int32)
-        for i in range(0, n_live, _CHUNK):
-            end = min(i + _CHUNK, n_live)
-            rows = self._gather_unit_of(slabs, scales, live_pos[i:end], n_dev)
-            assign[i:end] = _assign_blocked(rows, centroids)
-            del rows
-        return centroids.cpu().numpy(), assign
-
-    def _owner_of(self, pos: np.ndarray) -> np.ndarray:
-        """The rank holding each global position's shard."""
-        return np.asarray(self.mesh.owners, np.int64)[
-            np.asarray(pos, np.int64) % self.n_devices]
-
-    def _pack(self, rows, sc) -> torch.Tensor:
-        """Stored rows (and scales) as one ``(n, bytes)`` uint8 block."""
-        out = rows.contiguous().view(torch.uint8)
-        if sc is not None:
-            out = torch.cat([out, sc[:, None].contiguous().view(torch.uint8)],
-                            1)
-        return out
-
-    def _unpack(self, buf):
-        """Inverse of ``_pack``."""
-        wb = self._row_width * self._elsize()
-        rows = buf[:, :wb].contiguous().view(self._dtype)
-        sc = (buf[:, wb:].contiguous().view(torch.float32)[:, 0]
-              if self._is_quantized else None)
-        return rows, sc
-
-    def _to_lead(self, slabs, scales, pos, n_dev):
-        """Stored rows and scales at global positions ``pos``, read by
-        their owners and assembled on rank 0 in the order of ``pos``
-        (None on the other ranks)."""
-        rank, world = self.mesh.rank, self.mesh.world
-        owner = self._owner_of(pos)
-        mine = self._pack(*self._gather_raw_of(
-            slabs, scales, pos[owner == rank], n_dev))
-        got = collective.all_to_all(
-            [mine if r == 0 and rank != 0 else mine[:0]
-             for r in range(world)])
-        if rank != 0:
-            return None
-        buf = torch.empty((len(pos), mine.shape[1]), dtype=torch.uint8,
-                          device=self.device)
-        for r in range(world):
-            at = torch.as_tensor(np.nonzero(owner == r)[0],
-                                 device=self.device)
-            buf[at] = mine if r == 0 else got[r]
-        return self._unpack(buf)
-
-    def _plan_across_ranks(self, slabs, scales, live_pos, sample, nlist,
-                           n_dev):
-        """``_plan_clusters`` on a global mesh: rank 0 trains on the
-        sample read from its owners and broadcasts the centroids; each
-        rank assigns the live rows it holds, and the ranks all-gather the
-        assignments."""
-        rank, world = self.mesh.rank, self.mesh.world
-        train = self._to_lead(slabs, scales, sample, n_dev)
-        if rank == 0:
-            centroids, _ = kmeans(self._unit(*train), num_clusters=nlist,
-                                  iters=self.kmeans_iters)
-        else:
-            centroids = torch.empty((nlist, self.dim), dtype=torch.float32,
-                                    device=self.device)
-        del train
-        centroids = collective.broadcast(centroids, 0)
-        owner = self._owner_of(live_pos)
-        mine = live_pos[owner == rank]
-        a_mine = np.empty(len(mine), np.int32)
+        centroids = self._train_centroids(slabs, scales, sample, nlist)
+        mine = self._build_rows(live_pos)
+        assign = np.empty(len(mine), np.int32)
         for i in range(0, len(mine), _CHUNK):
-            end = min(i + _CHUNK, len(mine))
-            rows = self._gather_unit_of(slabs, scales, mine[i:end], n_dev)
-            a_mine[i:end] = _assign_blocked(rows, centroids)
+            rows = self._gather_unit_of(slabs, scales, mine[i:i + _CHUNK],
+                                        n_dev)
+            assign[i:i + _CHUNK] = _assign_blocked(rows, centroids)
             del rows
-        got = collective.all_to_all([torch.from_numpy(a_mine)] * world)
-        assign = np.empty(len(live_pos), np.int32)
-        for r in range(world):
-            assign[owner == r] = got[r].numpy()
-        return centroids.cpu().numpy(), assign
+        return (centroids.cpu().numpy(),
+                self._share_by_owner(live_pos, assign))
 
     def _put_rows(self, slabs_n, valids_n, scales_n, dst, rows, sc):
         """Write stored rows (and scales) at global positions ``dst`` of
@@ -465,34 +346,12 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         scales_n = self._held(
             lambda p, d: torch.zeros((rpd,), dtype=torch.float32, device=d)
             if self._is_quantized else None)
-        spread = self.mesh.is_global
-        rank, world = self.mesh.rank, self.mesh.world
         for i in range(0, len(src_global), _CHUNK):
-            end = min(i + _CHUNK, len(src_global))
-            src, dst = src_global[i:end], dest[i:end]
-            if not spread:
-                rows, sc = self._gather_raw_of(slabs, scales, src, n_dev)
-                self._put_rows(slabs_n, valids_n, scales_n, dst, rows, sc)
-                continue
-            s_own, d_own = self._owner_of(src), self._owner_of(dst)
-            mine = s_own == rank
-            rows, sc = self._gather_raw_of(slabs, scales, src[mine], n_dev)
-            to = d_own[mine]
-            here = torch.as_tensor(np.nonzero(to == rank)[0],
-                                   device=rows.device)
-            self._put_rows(slabs_n, valids_n, scales_n, dst[mine][to == rank],
-                           rows[here], None if sc is None else sc[here])
-            packed = self._pack(rows, sc)
-            got = collective.all_to_all([
-                packed[torch.as_tensor(np.nonzero(to == r)[0],
-                                       device=rows.device)]
-                if r != rank else packed[:0] for r in range(world)])
-            for r in range(world):
-                if r != rank:
-                    rr, ss = self._unpack(got[r])
-                    self._put_rows(slabs_n, valids_n, scales_n,
-                                   dst[(s_own == r) & (d_own == rank)],
-                                   rr, ss)
+            dst = dest[i:i + _CHUNK]
+            self._move_rows(
+                slabs, scales, src_global[i:i + _CHUNK], self._owner_of(dst),
+                lambda at, rows, sc, dst=dst: self._put_rows(
+                    slabs_n, valids_n, scales_n, dst[at], rows, sc))
         return slabs_n, valids_n, scales_n
 
     def _install_striped(
@@ -887,7 +746,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                 parts_i.append(gi.to(torch.int32).to(self.device))
         part_v, part_i = torch.cat(parts_v, 1), torch.cat(parts_i, 1)
         kk = min(k, self._cap)
-        if not self.mesh.is_global:
+        if not self._spans:
             return merge_partials(part_v, part_i, kk)
         v, i = merge_partials(part_v, part_i, min(kk, self._rank_rows()))
         return self._merge_ranks(v, i, kk, merge_partials)
@@ -912,14 +771,14 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         b, kk = q.shape[0], min(k, self._cap)
         out_v = torch.full((b, kk), float("-inf"), device=self.device)
         out_i = torch.full((b, kk), -1, dtype=torch.int64, device=self.device)
-        cuts = [b * g // r for g in range(r + 1)]
-        for g in range(r):
+        cuts = self._cuts(b)
+        for g in self._groups:
             lo, hi = cuts[g], cuts[g + 1]
             if hi > lo:
                 out_v[lo:hi], out_i[lo:hi] = self._group_topk_clustered(
                     g, q[lo:hi], None if probe is None else probe[lo:hi],
                     *args)
-        return out_v, out_i
+        return self._share_slices(out_v, out_i, cuts)
 
     def _pad_b(self, b: int) -> int:
         """JAX's batch width: the next power of two, rounded up to a

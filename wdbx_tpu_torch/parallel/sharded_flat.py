@@ -40,8 +40,19 @@ and ``top_k``, ``B * k * 8`` bytes a rank. Host reads of the slab
 JAX's ``_host_replicated`` does. Checkpoints: each rank writes its own
 positions' files (``persist_backend="orbax"``), or rank 0 writes the
 gathered npz; rank 0 writes the shared metadata, and the ranks meet at
-a barrier. Replicas across ranks and re-meshing a global mesh are not
-ported (``NotImplementedError``, ``ROADMAP.md`` queue 1).
+a barrier.
+
+A replicated global mesh (``make_mesh2``) holds whole replica groups a
+rank: every rank holds every shard, one full copy a group it owns.
+Host reads take the rank's lowest group's copies (the read group) and
+gather nothing; a write reaches every copy the rank holds. A search
+serves the batch slices of the rank's own groups, each group merged on
+the rank, and the ranks all-gather the answered rows (padded to the
+largest rank's), so every rank returns the whole batch. Checkpoints:
+rank 0 writes its own copy (npz, or group 0's ``n_devices`` files), and
+every rank loads all of them into each group it holds. Replica groups
+spanning ranks and re-meshing a global mesh are not ported
+(``NotImplementedError``, ``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -72,11 +83,15 @@ from wdbx_tpu_torch.kernels.quant import (
     quantize_rows_int4,
     unpack_int4,
 )
+from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
 from wdbx_tpu_torch.parallel import collective
 from wdbx_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh2
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
+
+#: rows a build gathers, assigns or moves at once
+_CHUNK = 131_072
 
 
 class ShardedFlatIndex(FlatIndex):
@@ -123,9 +138,9 @@ class ShardedFlatIndex(FlatIndex):
                              f"mesh's last: {mesh.axis_names}")
         n_dev = int(mesh.shape[self.axis])
         if mesh.is_global:
-            if mesh.size != n_dev:
-                raise collective.not_ported("replicas")
             per = mesh.size // mesh.world
+            if mesh.size != n_dev and per % n_dev:
+                raise collective.not_ported("replicas")
             if mesh.owners != tuple(p // per for p in range(mesh.size)):
                 raise ValueError("a global mesh's ranks must own equal, "
                                  f"ordered blocks: {mesh.owners}")
@@ -138,6 +153,15 @@ class ShardedFlatIndex(FlatIndex):
         self.replicas = mesh.size // self.n_devices
         #: the positions this process holds tensors for
         self._local = frozenset(mesh.local_positions)
+        #: the replica groups this process holds, and the one whose
+        #: copies its host reads take (its lowest)
+        self._groups = mesh.local_groups
+        self._read_group = self._groups[0]
+        #: whether the read group's shards lie on several ranks (the
+        #: unreplicated global mesh): host reads then gather and a search
+        #: merges across ranks. A replicated global mesh holds whole
+        #: groups a rank, and its ranks gather answered batch slices.
+        self._spans = len(self._own_shards()) < n_dev
         #: queries, results and merges live on the first own position's
         #: device
         self.device = mesh.devices[mesh.local_positions[0]]
@@ -164,14 +188,185 @@ class ShardedFlatIndex(FlatIndex):
         return [make(p, d) if p in self._local else None
                 for p, d in enumerate(self.mesh.devices)]
 
+    def _read_pos(self, s: int) -> int:
+        """The position of shard ``s``'s copy that host reads take."""
+        return self._read_group * self.n_devices + s
+
     def _own_shards(self) -> list[int]:
-        """The shards whose first copy this process holds (every shard
-        on a mesh of one process)."""
-        return [s for s in range(self.n_devices) if s in self._local]
+        """The shards of the read group this process holds (every shard
+        outside the unreplicated global mesh)."""
+        return [s for s in range(self.n_devices)
+                if self._read_pos(s) in self._local]
 
     def _rank_rows(self) -> int:
         """Rows of the shards one rank holds (the same on every rank)."""
         return len(self._own_shards()) * self.rows_per_device
+
+    # -- row reads --------------------------------------------------------------
+    def _elsize(self) -> int:
+        """Bytes of one stored element."""
+        return torch.empty((), dtype=self._dtype).element_size()
+
+    def _gather_raw_of(self, slabs, scales, pos, n_dev):
+        """Stored rows (raw codes) and scales at global positions ``pos``
+        of the explicit per-position lists (a snapshot in the background
+        build), read from the read group's copies, on the index's device
+        in the order of ``pos``."""
+        pos = np.asarray(pos, np.int64)
+        shard, row = pos % n_dev, pos // n_dev
+        dev = self.device
+        rows = torch.empty((len(pos), self._row_width), dtype=self._dtype,
+                           device=dev)
+        sc = (torch.empty((len(pos),), dtype=torch.float32, device=dev)
+              if self._is_quantized else None)
+        for s in np.unique(shard).tolist():
+            p = self._read_pos(s)
+            at = np.nonzero(shard == s)[0]
+            r = torch.as_tensor(row[at], device=slabs[p].device)
+            at_t = torch.as_tensor(at, device=dev)
+            rows[at_t] = slabs[p][r].to(dev)
+            if sc is not None:
+                sc[at_t] = scales[p][r].to(dev)
+        return rows, sc
+
+    def _gather_unit_of(self, slabs, scales, pos, n_dev) -> torch.Tensor:
+        """Float32 rows at global positions (dequantized; unit norm for
+        cosine)."""
+        return self._unit(*self._gather_raw_of(slabs, scales, pos, n_dev))
+
+    def _unit(self, rows, sc) -> torch.Tensor:
+        """Stored rows and scales -> float32 rows (unit norm for
+        cosine)."""
+        if self._is_int4:
+            rows = unpack_int4(rows)
+        rows = rows.to(torch.float32)
+        if sc is not None:
+            rows = rows * sc[:, None]
+        if self.metric == "cosine":
+            rows = rows / torch.clamp_min(
+                torch.linalg.norm(rows, dim=-1, keepdim=True), 1e-12
+            )
+        return rows
+
+    def _owner_of(self, pos: np.ndarray) -> np.ndarray:
+        """The rank that reads each global position's shard for the
+        others: the owner of its copy in group 0."""
+        return np.asarray(self.mesh.owners, np.int64)[
+            np.asarray(pos, np.int64) % self.n_devices]
+
+    def _pack(self, rows, sc) -> torch.Tensor:
+        """Stored rows (and scales) as one ``(n, bytes)`` uint8 block."""
+        out = rows.contiguous().view(torch.uint8)
+        if sc is not None:
+            out = torch.cat([out, sc[:, None].contiguous().view(torch.uint8)],
+                            1)
+        return out
+
+    def _unpack(self, buf):
+        """Inverse of ``_pack``."""
+        wb = self._row_width * self._elsize()
+        rows = buf[:, :wb].contiguous().view(self._dtype)
+        sc = (buf[:, wb:].contiguous().view(torch.float32)[:, 0]
+              if self._is_quantized else None)
+        return rows, sc
+
+    def _to_lead(self, slabs, scales, pos, n_dev):
+        """Stored rows and scales at global positions ``pos``, read by
+        their owners and assembled on rank 0 in the order of ``pos``
+        (None on the other ranks)."""
+        rank, world = self.mesh.rank, self.mesh.world
+        owner = self._owner_of(pos)
+        mine = self._pack(*self._gather_raw_of(
+            slabs, scales, pos[owner == rank], n_dev))
+        got = collective.all_to_all(
+            [mine if r == 0 and rank != 0 else mine[:0]
+             for r in range(world)])
+        if rank != 0:
+            return None
+        buf = torch.empty((len(pos), mine.shape[1]), dtype=torch.uint8,
+                          device=self.device)
+        for r in range(world):
+            at = torch.as_tensor(np.nonzero(owner == r)[0],
+                                 device=self.device)
+            buf[at] = mine if r == 0 else got[r]
+        return self._unpack(buf)
+
+    # -- a build's steps across ranks -------------------------------------------
+    def _train_centroids(self, slabs, scales, sample, nlist) -> torch.Tensor:
+        """k-means centroids (float32, on ``self.device``) of the rows at
+        global positions ``sample``. On a global mesh rank 0 trains on
+        the rows read from their owners and broadcasts: ``index_add_``
+        sums with float atomics on CUDA, so centroids trained on each
+        rank could differ in the last bits and the ranks would disagree
+        on the layout."""
+        n_dev = self.n_devices
+        if not self.mesh.is_global:
+            return kmeans(self._gather_unit_of(slabs, scales, sample, n_dev),
+                          num_clusters=nlist, iters=self.kmeans_iters)[0]
+        train = self._to_lead(slabs, scales, sample, n_dev)
+        if self.mesh.rank == 0:
+            centroids, _ = kmeans(self._unit(*train), num_clusters=nlist,
+                                  iters=self.kmeans_iters)
+        else:
+            centroids = torch.empty((nlist, self.dim), dtype=torch.float32,
+                                    device=self.device)
+        del train
+        return collective.broadcast(centroids, 0)
+
+    def _build_rows(self, pos: np.ndarray) -> np.ndarray:
+        """The global positions among ``pos`` whose rows this rank reads
+        for a build: all of them outside a global mesh, those of the
+        shards it reads for the others on one (``_owner_of``)."""
+        if not self.mesh.is_global:
+            return pos
+        return pos[self._owner_of(pos) == self.mesh.rank]
+
+    def _share_by_owner(self, pos: np.ndarray, mine: np.ndarray
+                        ) -> np.ndarray:
+        """Per-row results of ``_build_rows(pos)`` (``mine``, one entry
+        a row) -> those of every position of ``pos``, in its order,
+        exchanged between the ranks on a global mesh."""
+        if not self.mesh.is_global:
+            return mine
+        owner = self._owner_of(pos)
+        got = collective.all_to_all([torch.from_numpy(mine)]
+                                    * self.mesh.world)
+        out = np.empty((len(pos),) + mine.shape[1:], mine.dtype)
+        for r, block in enumerate(got):
+            out[owner == r] = block.numpy()
+        return out
+
+    def _move_rows(self, slabs, scales, src, to, put) -> None:
+        """Deliver the stored rows at global positions ``src`` (read from
+        the explicit per-position lists) to ranks ``to``:
+        ``put(at, rows, scales)`` writes the rows of entries ``at``
+        (indices into ``src``) that land on this rank. When the shards
+        span ranks a rank reads only the rows it holds, keeps those bound
+        for itself and sends the rest through the all-to-all; otherwise
+        every row is here."""
+        n_dev = self.n_devices
+        if not self._spans:
+            put(np.arange(len(src)), *self._gather_raw_of(slabs, scales, src,
+                                                          n_dev))
+            return
+        rank, world = self.mesh.rank, self.mesh.world
+        owner = self._owner_of(src)
+        mine = np.nonzero(owner == rank)[0]
+        rows, sc = self._gather_raw_of(slabs, scales, src[mine], n_dev)
+        dest = to[mine]
+
+        def pick(m):
+            return torch.as_tensor(np.nonzero(m)[0], device=rows.device)
+
+        here = pick(dest == rank)
+        put(mine[dest == rank], rows[here], None if sc is None else sc[here])
+        packed = self._pack(rows, sc)
+        got = collective.all_to_all([packed[pick(dest == r)] if r != rank
+                                     else packed[:0] for r in range(world)])
+        for r in range(world):
+            if r != rank:
+                put(np.nonzero((owner == r) & (to == rank))[0],
+                    *self._unpack(got[r]))
 
     def _alloc(self, cap: int) -> None:
         self._gen += 1
@@ -305,21 +500,27 @@ class ShardedFlatIndex(FlatIndex):
         if self.mesh.is_global:
             collective.barrier()
 
-    def _positions_held(self) -> tuple[list[int], int]:
-        """One position per shard (the first replica group's copies),
-        the shards this process holds, of ``n_devices``."""
-        return self._own_shards(), self.n_devices
+    def _positions_held(self, writing: bool = True
+                        ) -> tuple[list[int], int]:
+        """One file a shard, of ``n_devices``: the shards of the read
+        group this process holds. On a replicated global mesh every rank
+        reads all of them, and only the rank of group 0 writes them."""
+        own = self._own_shards()
+        if writing and not self._spans and self._read_group:
+            own = []
+        return own, self.n_devices
 
     def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
-        own = self._own_shards()
-        arrays = {"slab": [self._slabs[s] for s in own],
-                  "valid": [self._valids[s] for s in own]}
+        at = [self._read_pos(s) for s in self._positions_held()[0]]
+        arrays = {"slab": [self._slabs[p] for p in at],
+                  "valid": [self._valids[p] for p in at]}
         if self._is_quantized:
-            arrays["scales"] = [self._row_scales[s] for s in own]
+            arrays["scales"] = [self._row_scales[p] for p in at]
         return arrays
 
     def _position_devices(self) -> list[torch.device]:
-        return [self.mesh.devices[s] for s in self._own_shards()]
+        return [self.mesh.devices[self._read_pos(s)]
+                for s in self._own_shards()]
 
     def _install_positions(self, arrays: dict[str, list]) -> None:
         n_dev, devs = self.n_devices, self.mesh.devices
@@ -327,8 +528,9 @@ class ShardedFlatIndex(FlatIndex):
 
         def spread(parts):
             at = dict(zip(own, parts))
-            return self._held(lambda p, d: at[p] if p < n_dev else
-                              at[p % n_dev].to(d, copy=True))
+            return self._held(
+                lambda p, d: at[p % n_dev] if p == self._read_pos(p % n_dev)
+                else at[p % n_dev].to(d, copy=True))
 
         self._slabs = spread(arrays["slab"])
         self._valids = spread(arrays["valid"])
@@ -336,15 +538,17 @@ class ShardedFlatIndex(FlatIndex):
                             else [None] * len(devs))
 
     def _interleave(self, parts: list[torch.Tensor]) -> np.ndarray:
-        """Slot-order host array from one tensor a shard (checkpoint
-        encoding: bf16 as uint16 bits). On a global mesh the ranks
-        gather their shards' host copies."""
+        """Slot-order host array from one tensor a position (checkpoint
+        encoding: bf16 as uint16 bits), read from the read group's
+        copies. When those span ranks the ranks gather their shards'
+        host copies."""
         n_dev = self.n_devices
-        if self.mesh.is_global:
-            mine = torch.stack([parts[s].cpu() for s in self._own_shards()])
+        parts = [parts[self._read_pos(s)] for s in self._own_shards()]
+        if self._spans:
+            mine = torch.stack([t.cpu() for t in parts])
             every = collective.all_gather(mine)
             parts = list(every.reshape((n_dev,) + tuple(mine.shape[1:])))
-        host = [slab_to_numpy(t) for t in parts[:n_dev]]
+        host = [slab_to_numpy(t) for t in parts]
         out = np.empty((self._cap,) + host[0].shape[1:], host[0].dtype)
         for s, h in enumerate(host):
             out[s::n_dev] = h
@@ -362,8 +566,9 @@ class ShardedFlatIndex(FlatIndex):
         return self._interleave(self._valids)
 
     def valid_count(self) -> int:
-        mine = sum(int(self._valids[s].sum()) for s in self._own_shards())
-        return collective.all_sum(mine) if self.mesh.is_global else mine
+        mine = sum(int(self._valids[self._read_pos(s)].sum())
+                   for s in self._own_shards())
+        return collective.all_sum(mine) if self._spans else mine
 
     def _npz_arrays(self, hwm: int) -> dict[str, np.ndarray]:
         slab, valid, scales = self._host_slot_view()
@@ -407,7 +612,7 @@ class ShardedFlatIndex(FlatIndex):
             q = l2_normalize(q)
         part_v, part_i = self._shard_parts(group, q, k, valids, kernels)
         merge = merge_partials if kernels else merge_partials_plain
-        if not self.mesh.is_global:
+        if not self._spans:
             return merge(part_v, part_i, k)
         v, i = merge(part_v, part_i, min(k, self._rank_rows()))
         return self._merge_ranks(v, i, k, merge)
@@ -468,8 +673,8 @@ class ShardedFlatIndex(FlatIndex):
         out_i = torch.full((nb, b, kk), -1, dtype=torch.int64,
                            device=self.device)
         kernels = self._resolve_topk() == "fused"
-        cuts = [b * g // self.replicas for g in range(self.replicas + 1)]
-        for g in range(self.replicas):
+        cuts = self._cuts(b)
+        for g in self._groups:
             lo, hi = cuts[g], cuts[g + 1]
             if hi == lo:
                 continue
@@ -477,7 +682,38 @@ class ShardedFlatIndex(FlatIndex):
             v, i = self._group_topk(g, q, kk, valids, kernels)
             out_v[:, lo:hi] = v.reshape(nb, hi - lo, kk)
             out_i[:, lo:hi] = i.reshape(nb, hi - lo, kk)
-        return out_v, out_i
+        return self._share_slices(out_v, out_i, cuts)
+
+    def _cuts(self, b: int) -> list[int]:
+        """Batch bounds of the replica groups: group g serves queries
+        ``[cuts[g], cuts[g+1])``."""
+        r = self.replicas
+        return [b * g // r for g in range(r + 1)]
+
+    def _share_slices(self, v: torch.Tensor, i: torch.Tensor, cuts):
+        """On a replicated global mesh each rank answered the batch
+        slices of its own groups (axis -2 of ``(..., B, k)`` scores and
+        int64 slots): the ranks all-gather those rows, padded to the
+        largest rank's, so that every rank returns every row. A rank
+        with no rows (B=1 over two groups) still joins. Elsewhere the
+        answers are whole already."""
+        if not self.mesh.is_global or self._spans:
+            return v, i
+        per, world = len(self._groups), self.mesh.world
+        bounds = [(cuts[r * per], cuts[(r + 1) * per]) for r in range(world)]
+        width = max(hi - lo for lo, hi in bounds)
+        kk = v.shape[-1]
+        packed = torch.cat([v.contiguous().view(torch.int32),
+                            i.to(torch.int32)], -1)
+        lo, hi = bounds[self.mesh.rank]
+        mine = torch.zeros(packed.shape[:-2] + (width, 2 * kk),
+                           dtype=torch.int32, device=packed.device)
+        mine[..., :hi - lo, :] = packed[..., lo:hi, :]
+        every = collective.all_gather(mine)
+        for r, (lo, hi) in enumerate(bounds):
+            packed[..., lo:hi, :] = every[r][..., :hi - lo, :]
+        return (packed[..., :kk].contiguous().view(torch.float32),
+                packed[..., kk:].to(torch.int64))
 
     @staticmethod
     def _finish_sharded(scores: np.ndarray, slots: np.ndarray, k: int):
@@ -589,17 +825,18 @@ class ShardedFlatIndex(FlatIndex):
         out = np.zeros((len(slots), self.dim), np.float32)
         with self._mu.read():
             for s, at, rows in self._route(torch.as_tensor(slots)):
-                if s not in self._local:
+                p = self._read_pos(s)
+                if p not in self._local:
                     continue
-                r = rows.to(self._slabs[s].device)
-                got = self._slabs[s][r]
+                r = rows.to(self._slabs[p].device)
+                got = self._slabs[p][r]
                 if self._is_int4:
                     got = unpack_int4(got)
                 got = got.to(torch.float32)
                 if self._is_quantized:
-                    got = got * self._row_scales[s][r][:, None]
+                    got = got * self._row_scales[p][r][:, None]
                 out[at.numpy()] = got.cpu().numpy()
-        if self.mesh.is_global:
+        if self._spans:
             # every rank filled its own shards' rows: take each row from
             # the rank owning its shard
             every = collective.all_gather(torch.from_numpy(out)).numpy()

@@ -26,9 +26,30 @@ lower index): batches pad to a power of two with zero queries, whose
 probes take quota slots on the padded batch exactly as in JAX.
 
 Replica groups are not used by this engine (JAX's ``ShardedIVFIndex``
-takes no ``replicas``): the tables live on the first group's positions.
+takes no ``replicas``): the tables live on the first group's positions,
+and a replicated global mesh is refused (``ValueError``).
 A checkpoint whose nlist does not split over this mesh's shards loads
 untrained and rebuilds on the next search.
+
+Global mesh (``ShardedFlatIndex``'s module docstring): the tables of a
+shard live on the rank holding it (``None`` at the others'). A build
+reads the training sample from its owners onto rank 0, which trains and
+broadcasts the centroids (as ``ShardedClusteredIndex`` does); each rank
+takes the top-``n_choices`` buckets of the live rows it holds and the
+ranks exchange them, so the capped placement, the slot tables and the
+residual list are computed alike on every rank on the host; the rows
+then fill their buckets' tables ``_CHUNK`` at a time, a rank sending
+only rows bound for another rank's shards (``collective.all_to_all``).
+A search selects probes and compacts each shard's quota on identical
+inputs on every rank, scans the rank's own shards' buckets and fresh
+slots, merges them to ``(B, k)`` and merges once more across the ranks
+(``ShardedFlatIndex._merge_ranks``, the same ``torch.topk`` rule): the
+one merge's sets, except at ties. The filtered and fallback routes are
+``ShardedFlatIndex.search``'s. Checkpoints keep JAX's ``.ivf.npz``: its
+tables gather on rank 0 (npz backend), or each rank writes its shards'
+bucket rows into its own per-position files, the gathered slot and
+validity tables staying in the ``.ivf.npz`` (``persist_backend=
+"orbax"``).
 """
 
 from __future__ import annotations
@@ -56,12 +77,20 @@ from wdbx_tpu_torch.index.ivf import (
     _scores_of,
 )
 from wdbx_tpu_torch.ops.exact_search import f32_scores, true_f32
-from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
 from wdbx_tpu_torch.parallel import collective
-from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+from wdbx_tpu_torch.parallel.sharded_flat import _CHUNK, ShardedFlatIndex
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
+
+
+def _topk_merge(pv: torch.Tensor, pi: torch.Tensor, k: int):
+    """``(B, parts, k')`` scores and slots -> the sorted ``(B, k)`` of
+    their union (``torch.topk``, as the single-process merge)."""
+    b = pv.shape[0]
+    v, i = pv.reshape(b, -1), pi.reshape(b, -1)
+    top, pos = torch.topk(v, min(k, v.shape[1]), dim=1)
+    return top, torch.gather(i, 1, pos).to(torch.int64)
 
 
 class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
@@ -84,8 +113,9 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
             self, dim, metric=metric, dtype=dtype, capacity=capacity,
             mesh=mesh, axis=axis, device=device,
         )
-        if self.mesh.is_global:
-            raise collective.not_ported("ShardedIVFIndex")
+        if self.mesh.is_global and self.replicas > 1:
+            raise ValueError("ShardedIVFIndex takes no replica axis on a "
+                             "mesh spanning ranks")
         self.nlist = nlist
         self.nprobe = nprobe
         self.assignments = 1
@@ -101,9 +131,19 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         self._filter_boosts: dict[int, int] = {}
         self._reset_overlay()
 
+    def _any_table(self) -> torch.Tensor:
+        """A slot table held here (every shard's has one shape)."""
+        return next(t for t in self._bucket_slot if t is not None)
+
     @property
     def _local_nlist(self) -> int:
-        return int(self._bucket_slot[0].shape[0])
+        return int(self._any_table().shape[0])
+
+    def _shard_held(self, make) -> list:
+        """``make(s, device)`` for each shard whose tables this process
+        holds (the first group's positions), None at the others."""
+        return [make(s, d) if s in self._local else None
+                for s, d in enumerate(self.mesh.devices[:self.n_devices])]
 
     # -- topology -------------------------------------------------------------
     def adopt_mesh(self, mesh) -> None:
@@ -128,34 +168,11 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         with self._mu.write():
             self._sharded_build_locked()
 
-    def _gather_raw(self, slots: np.ndarray):
-        """Stored rows (raw codes) and scales of slots, on the first
-        position's device, in the order of ``slots``."""
-        idx = torch.as_tensor(np.asarray(slots, np.int64))
-        rows = torch.empty((len(idx), self._row_width), dtype=self._dtype,
-                           device=self.device)
-        scales = (torch.empty((len(idx),), dtype=torch.float32,
-                              device=self.device)
-                  if self._is_quantized else None)
-        for s, at, r in self._route(idx):
-            at = at.to(self.device)
-            r = r.to(self._slabs[s].device)
-            rows[at] = self._slabs[s][r].to(self.device)
-            if scales is not None:
-                scales[at] = self._row_scales[s][r].to(self.device)
-        return rows, scales
-
     def _gather_unit(self, slots: np.ndarray) -> torch.Tensor:
-        """Float32 rows of slots (dequantized; unit norm for cosine)."""
-        rows, scales = self._gather_raw(slots)
-        rows = rows.to(torch.float32)
-        if scales is not None:
-            rows = rows * scales[:, None]
-        if self.metric == "cosine":
-            rows = rows / torch.clamp_min(
-                torch.linalg.norm(rows, dim=-1, keepdim=True), 1e-12
-            )
-        return rows
+        """Float32 rows of slots held here (dequantized; unit norm for
+        cosine)."""
+        return self._unit(*self._gather_raw_of(
+            self._slabs, self._row_scales, slots, self.n_devices))
 
     def _sharded_build_locked(self) -> None:
         hwm = self._next_slot
@@ -175,21 +192,10 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
                 n_live, self.train_sample, replace=False
             )
             sample = live_slots[np.sort(sel)]
-        train = self._gather_unit(sample)
-        centroids, _ = kmeans(train, num_clusters=nlist,
-                              iters=self.kmeans_iters)
-        del train
-
-        n_choices = min(4, nlist)
-        chunk = 131_072
-        assign_multi = np.empty((n_live, n_choices), np.int32)
-        for i in range(0, n_live, chunk):
-            end = min(i + chunk, n_live)
-            rows = self._gather_unit(live_slots[i:end])
-            assign_multi[i:end] = torch.topk(
-                f32_scores(rows, centroids), n_choices, dim=-1
-            ).indices.to(torch.int32).cpu().numpy()
-            del rows
+        centroids = self._train_centroids(self._slabs, self._row_scales,
+                                          sample, nlist)
+        assign_multi = self._assign_choices(live_slots, centroids,
+                                            min(4, nlist))
 
         placed, cap_b = _capped_placement(assign_multi, nlist)
         keep = placed >= 0
@@ -211,30 +217,14 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         # tables: int8 slabs keep raw codes + a scale table, float slabs
         # store bf16; each shard's buckets on its position's device
         local_n = nlist // n_dev
-        devs = self.mesh.devices[:n_dev]
         table_dtype = torch.int8 if self._is_int8 else torch.bfloat16
-        rows_t = [torch.zeros((local_n, cap_b, self.dim), dtype=table_dtype,
-                              device=d) for d in devs]
-        scale_t = ([torch.zeros((local_n, cap_b), dtype=torch.float32,
-                                device=d) for d in devs]
-                   if self._is_int8 else None)
-        for i in range(0, n_entries, chunk):
-            end = min(i + chunk, n_entries)
-            raw, sc = self._gather_raw(slot_sorted[i:end])
-            c = torch.as_tensor(sorted_assign[i:end].astype(np.int64))
-            p = torch.as_tensor(pos_within[i:end].astype(np.int64))
-            owner = c // local_n
-            for s, dev in enumerate(devs):
-                at = (owner == s).nonzero().flatten()
-                if not at.numel():
-                    continue
-                cs, ps = (c[at] - s * local_n).to(dev), p[at].to(dev)
-                at = at.to(raw.device)
-                rows_t[s][cs, ps] = raw[at].to(table_dtype).to(dev)
-                if scale_t is not None:
-                    scale_t[s][cs, ps] = sc[at].to(dev)
-        self._bucket_rows = rows_t
-        self._bucket_scale = scale_t
+        self._bucket_rows = self._shard_held(lambda s, d: torch.zeros(
+            (local_n, cap_b, self.dim), dtype=table_dtype, device=d))
+        self._bucket_scale = (self._shard_held(lambda s, d: torch.zeros(
+            (local_n, cap_b), dtype=torch.float32, device=d))
+            if self._is_int8 else None)
+        self._fill_tables(slot_sorted, sorted_assign.astype(np.int64),
+                          pos_within.astype(np.int64), local_n)
         self._centroids = centroids.to(self.device)
         self._split_tables(bucket_slot, bucket_valid)
         self._slot_bucket_c, self._slot_bucket_p = _pack_slot_positions(
@@ -247,18 +237,57 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         self._quarantine = []
         self._built_size = self._size
 
+    def _assign_choices(self, live_slots, centroids, n_choices):
+        """``(n_live, n_choices)`` int32: each live row's best buckets."""
+        mine = self._build_rows(live_slots)
+        out = np.empty((len(mine), n_choices), np.int32)
+        for i in range(0, len(mine), _CHUNK):
+            rows = self._gather_unit(mine[i:i + _CHUNK])
+            out[i:i + _CHUNK] = torch.topk(
+                f32_scores(rows, centroids), n_choices, dim=-1
+            ).indices.to(torch.int32).cpu().numpy()
+            del rows
+        return self._share_by_owner(live_slots, out)
+
+    def _fill_tables(self, slots, buckets, within, local_n) -> None:
+        """Copy each placed slot's stored row into its bucket's table,
+        ``_CHUNK`` entries at a time (``_move_rows``: across ranks, a
+        row travels to the rank holding its bucket)."""
+        owners = np.asarray(self.mesh.owners, np.int64)
+        for i in range(0, len(slots), _CHUNK):
+            c, p = buckets[i:i + _CHUNK], within[i:i + _CHUNK]
+            self._move_rows(
+                self._slabs, self._row_scales, slots[i:i + _CHUNK],
+                owners[c // local_n],
+                lambda at, rows, sc, c=c, p=p: self._put_entries(
+                    c[at], p[at], rows, sc, local_n))
+
+    def _put_entries(self, buckets, within, raw, sc, local_n) -> None:
+        """Write stored rows (and scales) at (global bucket, position)
+        entries into the tables of the shards held here."""
+        owner = buckets // local_n
+        for s, table in enumerate(self._bucket_rows):
+            m = owner == s
+            if table is None or not m.any():
+                continue
+            dev = table.device
+            cs = torch.as_tensor(buckets[m] - s * local_n, device=dev)
+            ps = torch.as_tensor(within[m], device=dev)
+            at = torch.as_tensor(np.nonzero(m)[0], device=raw.device)
+            table[cs, ps] = raw[at].to(table.dtype).to(dev)
+            if self._bucket_scale is not None:
+                self._bucket_scale[s][cs, ps] = sc[at].to(dev)
+
     def _split_tables(self, bucket_slot: np.ndarray,
                       bucket_valid: np.ndarray) -> None:
         """Global host slot / validity tables -> one block a shard."""
-        n_dev = self.n_devices
-        local_n = bucket_slot.shape[0] // n_dev
-        devs = self.mesh.devices[:n_dev]
-        self._bucket_slot = [torch.from_numpy(np.ascontiguousarray(
-            bucket_slot[s * local_n:(s + 1) * local_n])).to(d)
-            for s, d in enumerate(devs)]
-        self._bucket_valid = [torch.from_numpy(np.ascontiguousarray(
-            bucket_valid[s * local_n:(s + 1) * local_n])).to(d)
-            for s, d in enumerate(devs)]
+        local_n = bucket_slot.shape[0] // self.n_devices
+        self._bucket_slot = self._shard_held(
+            lambda s, d: torch.from_numpy(np.ascontiguousarray(
+                bucket_slot[s * local_n:(s + 1) * local_n])).to(d))
+        self._bucket_valid = self._shard_held(
+            lambda s, d: torch.from_numpy(np.ascontiguousarray(
+                bucket_valid[s * local_n:(s + 1) * local_n])).to(d))
 
     def _invalidate_bucket_entries(self, slots) -> None:
         cs, ps = self._take_bucket_positions(slots)
@@ -268,7 +297,7 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         cs, ps = cs.astype(np.int64), ps.astype(np.int64)
         for s, table in enumerate(self._bucket_valid):
             m = (cs // local_n) == s
-            if m.any():
+            if table is not None and m.any():
                 table[torch.as_tensor(cs[m] - s * local_n, device=table.device),
                       torch.as_tensor(ps[m], device=table.device)] = False
 
@@ -292,7 +321,7 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         b = len(queries)
         pad_b = _next_pow2(max(b, 1))
         nlist = self._local_nlist * self.n_devices
-        cap_b = int(self._bucket_slot[0].shape[1])
+        cap_b = int(self._any_table().shape[1])
         nprobe = min(self.nprobe, nlist)
         bucket_valid, valids = self._bucket_valid, self._valids
         if slot_mask is not None:
@@ -311,8 +340,8 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
             n = min(len(slot_mask), self._cap)
             mask[:n] = slot_mask[:n]
             bucket_valid = [
-                _mask_bucket_valid_body(bv, bs, torch.from_numpy(mask).to(
-                    bv.device))
+                None if bv is None else _mask_bucket_valid_body(
+                    bv, bs, torch.from_numpy(mask).to(bv.device))
                 for bv, bs in zip(self._bucket_valid, self._bucket_slot)
             ]
             valids = self._masked_valids(slot_mask)
@@ -330,10 +359,12 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
 
     def _ivf_query(self, q, k, nprobe, quota, bucket_valid, valids):
         """One batch ``q`` (B, d) through every shard: sorted ``(B, k')``
-        device scores and slots."""
+        device scores and slots. When the shards span ranks: through the
+        rank's shards, their merge to ``(B, k)`` (-inf / -1 past the
+        rank's candidates) and the cross-rank merge."""
         n_dev = self.n_devices
         local_n = self._local_nlist
-        cap_b = int(self._bucket_slot[0].shape[1])
+        cap_b = int(self._any_table().shape[1])
         k_bucket = min(k, cap_b)
         if self.metric == "cosine":
             q = l2_normalize(q)
@@ -352,6 +383,8 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         quant = self._is_quantized
         lv, ls = [], []
         for s in range(n_dev):
+            if self._bucket_rows[s] is None:
+                continue  # another rank's shard
             dev = self._bucket_rows[s].device
             # 2. quota compaction: this shard's probes first, in rank
             # order; past the quota the lowest-ranked probes drop
@@ -389,10 +422,15 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
             v, pos = torch.topk(cand_v, min(k, cand_v.shape[1]), dim=1)
             lv.append(v.to(self.device))
             ls.append(torch.gather(cand_s, 1, pos).to(self.device))
-        # 6. the merge across shards
-        all_v, all_s = torch.cat(lv, dim=1), torch.cat(ls, dim=1)
-        top, pos = torch.topk(all_v, min(k, all_v.shape[1]), dim=1)
-        return top, torch.gather(all_s, 1, pos)
+        # 6. the merge across shards (and ranks)
+        top, slots = _topk_merge(torch.cat(lv, dim=1)[:, None],
+                                 torch.cat(ls, dim=1)[:, None], k)
+        if not self._spans:
+            return top, slots
+        pad = k - top.shape[1]
+        top = torch.nn.functional.pad(top, (0, pad), value=float("-inf"))
+        slots = torch.nn.functional.pad(slots, (0, pad), value=-1)
+        return self._merge_ranks(top, slots, k, _topk_merge)
 
     def _scan_buckets(self, s, buckets, qrows, k_bucket, bucket_valid):
         """``(n, k_bucket)`` scores and slots of ``n`` (query row, local
@@ -458,22 +496,51 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
     # -- persistence ------------------------------------------------------------
     # IVFIndex.save / load: the slab through ShardedFlatIndex's npz or
     # per-position hooks, the overlay as the JAX package's global
-    # ``.ivf.npz`` tables (split again by shard at load).
-    def _overlay_host_arrays(self) -> dict[str, np.ndarray]:
-        def cat(parts):
-            return np.concatenate([t.cpu().numpy() for t in parts])
+    # ``.ivf.npz`` tables (split again by shard at load). With the
+    # per-position backend the bucket rows (and int8 scales) ride in each
+    # shard's own file instead, and the ``.ivf.npz`` keeps the rest.
+    def _shard_tables(self, parts) -> np.ndarray | None:
+        """One shard-major host table from one tensor a shard (bf16 as
+        uint16 bits), gathered on rank 0 when the shards span ranks
+        (None on the others)."""
+        held = [t.cpu() for t in parts if t is not None]
+        mine = torch.stack(held)
+        if self._spans:
+            mine = collective.gather(mine)
+            if mine is None:
+                return None
+        return slab_to_numpy(mine.reshape((-1,) + tuple(held[0].shape[1:])))
 
-        arrays = dict(
-            centroids=self._centroids.cpu().numpy(),
-            bucket_slot=cat(self._bucket_slot),
-            bucket_valid=cat(self._bucket_valid),
-            bucket_rows=np.concatenate(
-                [slab_to_numpy(t) for t in self._bucket_rows]),
-            residual=np.asarray(self._residual, np.int32),
-        )
-        if self._bucket_scale is not None:
-            arrays["bucket_scale"] = cat(self._bucket_scale)
+    def _overlay_host_arrays(self) -> dict[str, np.ndarray] | None:
+        tables = {"bucket_slot": self._bucket_slot,
+                  "bucket_valid": self._bucket_valid}
+        if self.persist_backend != "orbax":
+            tables["bucket_rows"] = self._bucket_rows
+            if self._bucket_scale is not None:
+                tables["bucket_scale"] = self._bucket_scale
+        arrays = {name: self._shard_tables(parts)
+                  for name, parts in tables.items()}
+        if not self._is_lead():
+            return None
+        arrays.update(centroids=self._centroids.cpu().numpy(),
+                      residual=np.asarray(self._residual, np.int32))
         return arrays
+
+    def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
+        arrays = ShardedFlatIndex._position_arrays(self)
+        if self.is_trained:
+            own = self._positions_held()[0]
+            arrays["bucket_rows"] = [self._bucket_rows[s] for s in own]
+            if self._bucket_scale is not None:
+                arrays["bucket_scale"] = [self._bucket_scale[s] for s in own]
+        return arrays
+
+    def _install_positions(self, arrays: dict[str, list]) -> None:
+        # the bucket rows wait for the overlay's install in load()
+        self._loaded_rows = {name: arrays.pop(name)
+                             for name in ("bucket_rows", "bucket_scale")
+                             if name in arrays}
+        ShardedFlatIndex._install_positions(self, arrays)
 
     def _install_tables(self, arrays: dict) -> None:
         bs = np.array(arrays["bucket_slot"], np.int32)
@@ -485,19 +552,27 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
                 "overlay rebuilds", nlist, n_dev)
             return
         local_n = nlist // n_dev
-        devs = self.mesh.devices[:n_dev]
-        rows = arrays["bucket_rows"]
+        own = self._own_shards()
+        loaded = getattr(self, "_loaded_rows", None) or {}
+        self._loaded_rows = None
+
+        def split(name, dtype):
+            if name in loaded:  # this rank's shards' own files
+                at = dict(zip(own, loaded[name]))
+                return self._shard_held(lambda s, d: at[s].to(d))
+            if name not in arrays:
+                return None
+            host = arrays[name]
+            return self._shard_held(lambda s, d: slab_from_numpy(
+                host[s * local_n:(s + 1) * local_n], dtype).to(d))
+
         table_dtype = {"uint16": torch.bfloat16, "bfloat16": torch.bfloat16,
                        "int8": torch.int8, "float32": torch.float32}
-        dt = table_dtype[rows.dtype.name]
-        self._bucket_rows = [
-            slab_from_numpy(rows[s * local_n:(s + 1) * local_n], dt).to(d)
-            for s, d in enumerate(devs)]
-        if "bucket_scale" in arrays:
-            sc = np.array(arrays["bucket_scale"], np.float32)
-            self._bucket_scale = [
-                torch.from_numpy(sc[s * local_n:(s + 1) * local_n].copy()).to(d)
-                for s, d in enumerate(devs)]
+        rows = arrays.get("bucket_rows")
+        self._bucket_rows = split(
+            "bucket_rows",
+            None if rows is None else table_dtype[rows.dtype.name])
+        self._bucket_scale = split("bucket_scale", torch.float32)
         bv = np.array(arrays["bucket_valid"], bool)
         self._split_tables(bs, bv)
         self._centroids = torch.from_numpy(

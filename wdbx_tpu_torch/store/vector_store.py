@@ -478,9 +478,9 @@ class VectorStore:
                     self._lock.release()
                     held = False
                 pool = self._fanout_pool
-                # indexes on a mesh spanning ranks search one after
-                # another: every rank must issue their collectives in the
-                # same order
+                # indexes on a mesh spanning ranks (replicated or not)
+                # search one after another: every rank must issue their
+                # collectives in the same order
                 spread = any(getattr(getattr(ix, "mesh", None), "is_global",
                                      False) for ix in indices)
                 if len(indices) > 1 and pool is not None and not spread:
