@@ -170,9 +170,30 @@ Phases (each prints JSON lines; any failure exits non-zero):
              here one process's 8-position index loaded from the ranks'
              npz replays the calls and must answer alike, every score is
              rescored from the slab, and recall@10 is gated at 0.95
-             unfiltered and at both filters (paths
+             unfiltered and at both filters. Then recovery across the
+             ranks, with a fault injected into rank 1's probe of
+             position 7 that the real health check gathers to both
+             ranks: the flat point remeshed live to the degraded 7
+             positions (4 + 3; rows cross through the all-to-all), B=128,
+             B=1 and pipelined searches against the plain version over
+             one process's 7-position index of the ranks' npz, the
+             slots as before the remesh and recall@10 0.9938, the remesh
+             back to 8, adopt_mesh + the npz reload; the
+             production_serving deployment's heal(allow_remesh=True)
+             (live remesh and rebuild on 7 shards, re-tuned to 0.97,
+             recall@10 0.95 unfiltered and at 10% / 1%, replayed by one
+             process's 7-position index) and the walkthrough's
+             checkpoint heal (store.save, clear, heal: the same hits);
+             the sharded clustered index's build_background in a thread
+             of each rank while its main thread searches (K3), adds,
+             updates, removes and filters (K2), the swap at the same
+             foreground call on both ranks, every write found and every
+             removal gone after it, recall@10 0.95 (also at the 1%
+             filter) against the float32 oracle over the written corpus,
+             then a remesh to 7 with the clustered rebuild (paths
              multiprocess_replicated, multiprocess_replicated_clustered,
-             multiprocess_ivf)
+             multiprocess_ivf, multiprocess_remesh, multiprocess_heal,
+             multiprocess_background)
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -3142,6 +3163,7 @@ def _rank_main(rank, world, port, tmp, seed):
     torch.cuda.empty_cache()
     rep["replicated"] = _rank_replicated(x, qs, removed, ans, counts, errs,
                                          tmp, seed)
+    rep["remesh"] = _rank_remesh(engine, x, qs, ans, counts, errs, tmp)
     del x
 
     # sharded clustered at benchmarks/filtered.py's sharded point
@@ -3240,7 +3262,10 @@ def _rank_main(rank, world, port, tmp, seed):
         "split_b64": c_split, "search_collectives": clu_coll,
         "npz_save_s": c_save_s, "npz_load_s": c_load_s,
         "max_abs_err_vs_plain": err3}
-    del c, calls, k3_stage1
+    del calls, k3_stage1
+    rep["background"] = _rank_background(c, engine, mix, q64, pick, ans,
+                                         counts, errs, seed)
+    del c
     torch.cuda.empty_cache()
     rep["replicated_clustered"] = _rank_replicated_clustered(
         chunks, q64, qstack_c, pick, ans, counts, errs, tmp)
@@ -3254,6 +3279,350 @@ def _rank_main(rank, world, port, tmp, seed):
     collective.barrier()
     asyncio.run(engine.shutdown())
     print(f"rank {rank} done", flush=True)
+
+
+MP_DOWN = "cuda:0#7"  # the position whose probe fails, on rank 1
+
+
+def _inject_fault(engine):
+    """On rank 1, make this engine's probe of ``MP_DOWN`` fail: the real
+    ``health_check`` then gathers the fault to every rank."""
+    from wdbx_tpu_torch.parallel import ShardEngine
+
+    if engine.mesh.rank != 1:
+        return
+
+    def probe(name, device):
+        if name == MP_DOWN:
+            return "error: injected"
+        return ShardEngine._probe(engine, name, device)
+
+    engine._probe = probe
+
+
+def _degraded7(engine):
+    """The degraded mesh of the fault: positions 0-6, rank 0 owning 4 and
+    rank 1 3, the survivors' names kept."""
+    _inject_fault(engine)
+    try:
+        health = engine.health_check()
+    finally:
+        engine.__dict__.pop("_probe", None)
+    mesh = engine.degraded_mesh(health)
+    if health["healthy"] or health["devices"][MP_DOWN] == "ok" or \
+            mesh.names != engine.mesh.names[:7] or \
+            mesh.owners != (0, 0, 0, 0, 1, 1, 1):
+        fail(f"rank {engine.mesh.rank}: degraded mesh {mesh.names} "
+             f"{mesh.owners} of {health}")
+    return mesh
+
+
+def _rank_remesh(engine, x, qs, ans, counts, errs, tmp):
+    """``ShardedFlatIndex`` bf16 at bench.py's point, live-remeshed from
+    8 positions to the degraded 7 (4 + 3): B=128, B=1 and pipelined
+    searches (K1 on the rank's 4 or 3 shards, 2 merges), each launch
+    against its plain version; the npz the parent reads; the remesh back
+    to 8; ``adopt_mesh`` onto 7 and the npz reload. Returns the rank's
+    report: remesh seconds and the bytes the all-to-all sent."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import ShardedFlatIndex, collective
+
+    label, k = "multiprocess_remesh", 10
+    key = "fused_topk_partial[bfloat16]"
+    mesh8 = engine.mesh
+    m7 = _degraded7(engine)
+    own7 = len(m7.local_positions)
+    idx = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS,
+                           mesh=mesh8)
+    idx.add_batch(x)
+    ans["remesh_before"] = idx.search(qs[0], k)
+    qstack = torch.as_tensor(qs, device="cuda")
+    body = want_body("bfloat16", "bfloat16", 384, 128, k)
+    body1 = want_body("bfloat16", "bfloat16", 384, 1, k)
+
+    def remesh(mesh):
+        before = collective.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.remesh(mesh)
+        torch.cuda.synchronize()
+        coll = _coll_since(before).get("all_to_all", {})
+        return {"s": time.perf_counter() - t0,
+                "all_to_all_mb": coll.get("bytes", 0) / 1e6,
+                "all_to_all_calls": coll.get("calls", 0),
+                **idx.last_remesh}
+
+    out = {"to7": remesh(m7)}
+    with _K1Recorder() as k1:
+        ans["remesh_search"] = _mp_call(
+            k1, label, lambda: idx.search(qs[0], k), counts, own7, 2, body,
+            key)
+        err = _check_k1_launches(f"{label}/search", k1.last, errs)
+        ans["remesh_b1"] = _mp_call(
+            k1, label, lambda: idx.search(qs[1][:1], k), counts, own7, 2,
+            body1, key)
+        err = max(err, _check_k1_launches(f"{label}/b1", k1.last, errs))
+        ans["remesh_pipelined"] = _mp_call(
+            k1, label, lambda: idx.search_pipelined(qstack, k), counts, own7,
+            2, body, key)
+        err = max(err, _check_k1_launches(f"{label}/pipelined", k1.last,
+                                          errs))
+    out["search_b128_ms"] = _wall_ms(lambda: idx.search(qs[0], k), reps=10,
+                                     warm=2)
+    path = os.path.join(tmp, "mp_remesh7")
+    idx.save(path)
+    out["to8"] = remesh(mesh8)
+    with _K1Recorder() as k1:
+        ans["remesh_back"] = _mp_call(
+            k1, label, lambda: idx.search(qs[0], k), counts, MP_POSITIONS, 2,
+            body, key)
+        err = max(err, _check_k1_launches(f"{label}/back to 8", k1.last,
+                                          errs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.adopt_mesh(m7)
+    if idx.count() or not idx.load(path):
+        fail(f"{label}: adopt_mesh + the npz reload")
+    out["adopt_reload_s"] = time.perf_counter() - t0
+    with _K1Recorder() as k1:
+        ans["remesh_reload"] = _mp_call(
+            k1, label, lambda: idx.search(qs[0], k), counts, own7, 2, body,
+            key)
+        err = max(err, _check_k1_launches(f"{label}/reload", k1.last, errs))
+    for name in ("remesh_back", "remesh_reload"):
+        ref = ans["remesh_before" if name == "remesh_back"
+                  else "remesh_search"]
+        if not np.array_equal(ans[name][1], ref[1]):
+            fail(f"{label}: {name} answers otherwise")
+    out["max_abs_err_vs_plain"] = err
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_heal(db, held_np, picks, ans, counts, errs, tmp):
+    """The production_serving deployment loses position 7 (a fault in
+    rank 1's probe): ``heal(allow_remesh=True)`` remeshes live to 7 and
+    rebuilds, then re-tunes to 0.97; the searches of ``_heal_calls`` (the
+    quota scan; the 1% filter's exact route, K1 on the rank's shards);
+    the npz the parent replays; then the walkthrough's checkpoint heal
+    (``store.save()``, ``clear()``, ``heal()``), which must give the
+    same hits back. Returns the rank's report."""
+    import numpy as np
+
+    label, k, d = "multiprocess_heal", 10, 384
+    engine = db.shard_engine
+    index = db.store.indices[0]
+    names = list(engine.mesh.names)
+    # ``_ivf_calls`` removed slots from the index alone: drop their ids
+    # (bulk-loaded as the slot numbers) from the store's registry too, so
+    # heal's integrity layer finds the two in step
+    for slot in ans["ivf_removed_slots"][0]:
+        if db.store.registries[0].remove(str(int(slot))) is None:
+            fail(f"{label}: id {slot} not in the registry")
+    _inject_fault(engine)
+    t0 = time.perf_counter()
+    report = db.heal(allow_remesh=True)
+    heal_s = time.perf_counter() - t0
+    engine.__dict__.pop("_probe", None)
+    if report["remeshed_to"] != names[:7] or \
+            report["rehost"] != {"0": "live"} or \
+            report["unrecovered_shards"] or index.n_devices != 7 or \
+            not index.is_trained or db.store.indices[0] is not index:
+        fail(f"{label}: heal {report}")
+    # 128 tuning queries: the recall of a 64-query sample varies by
+    # ~0.007 (k=10), as much as the margin between the tuner's 0.97 on
+    # the index's own scan and the 0.95 gate against the float32 oracle
+    t0 = time.perf_counter()
+    tuned = index.tune(held_np[:128], k=k, target_recall=DENSE_TUNE)
+    tune_s = time.perf_counter() - t0
+    own = len(index.mesh.local_positions)
+    flat_errs = []
+
+    def quota_call(run):
+        _reset()
+        got = run()
+        c = _counts()
+        _tally(counts, label, c)
+        if _nonzero(c):
+            fail(f"{label}: the quota route launched {_nonzero(c)}")
+        return got
+
+    body = want_body("bfloat16", "bfloat16", d, 128, k)
+    with _K1Recorder() as rec:
+        def flat_call(run):
+            got = _mp_call(rec, label, run, counts, own, 2, body,
+                           "fused_topk_partial[bfloat16]")
+            flat_errs.append(_check_k1_launches(f"{label}/flat route",
+                                                rec.last, errs))
+            return got
+
+        ans.update(_heal_calls(index, held_np, picks, quota_call, flat_call))
+    index.save(os.path.join(tmp, "mp_heal"))
+    t0 = time.perf_counter()
+    db.store.save()
+    save_s = time.perf_counter() - t0
+    index.clear()
+    t0 = time.perf_counter()
+    again = db.heal()
+    ckpt_s = time.perf_counter() - t0
+    if again["recovered_shards"] != [0] or again["remeshed_to"] or \
+            not index.is_trained or index.n_devices != 7:
+        fail(f"{label}: the checkpoint heal {again}")
+    index.batch_flat_fallback = False
+    back = quota_call(lambda: index.search(held_np[:128], k))
+    if not (np.array_equal(back[1], ans["heal_search"][1][:128])
+            and np.array_equal(back[0], ans["heal_search"][0][:128])):
+        fail(f"{label}: the checkpoint heal answers otherwise")
+    return {"heal_s": heal_s, "rehost": report["rehost"],
+            "remeshed_to": report["remeshed_to"],
+            "nlist": int(index._centroids.shape[0]), "nprobe": index.nprobe,
+            "tuned_recall_vs_index_exact": tuned, "tune_s": tune_s,
+            "store_save_s": save_s, "checkpoint_heal_s": ckpt_s,
+            "search_b128_ms": _wall_ms(lambda: index.search(
+                held_np[:128], k), reps=5),
+            "max_abs_err_vs_plain": max(flat_errs)}
+
+
+def _heal_calls(index, held, picks, quota_call, flat_call):
+    """The healed IVF index's searches, which the parent replays: two
+    B=128 searches (the quota scan), the 10% filter (pushdown) and the 1%
+    one (exact masked, K1 a shard)."""
+    import numpy as np
+
+    k = 10
+    index.batch_flat_fallback = False
+    two = [quota_call(lambda i=i: index.search(held[i:i + 128], k))
+           for i in (0, 128)]
+    m10, m1 = (_slot_mask(index.capacity, p) for p in picks)
+    return {"heal_search": tuple(np.concatenate(z) for z in zip(*two)),
+            "heal_f10": quota_call(
+                lambda: index.search(held[:128], k, slot_mask=m10)),
+            "heal_f1": flat_call(
+                lambda: index.search(held[:128], k, slot_mask=m1))}
+
+
+def _bg_writes(n, mix, seed, first):
+    """The background window's writes: 64 updated slots, 320 new rows
+    (the first 64 the updates, the rest two adds of 128) and 1,024
+    removed slots (the first search's best hits among them), disjoint."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 37)
+    pool = rng.permutation(n)
+    pool = pool[~np.isin(pool, first)]
+    upd = np.sort(pool[:64])
+    removed = np.concatenate([first, pool[64:64 + MP_REMOVED - len(first)]])
+    return upd, removed.astype(np.int64), mix(7777, 320)
+
+
+def _rank_background(c, engine, mix, q64, pick, ans, counts, errs, seed):
+    """``build_background()`` on the sharded clustered index in a thread
+    of this rank, while this thread makes the same calls as the other
+    rank: B=64 searches (K3 on the rank's shards), two adds of 128, 64
+    updates, 1,024 removals, the 1% filter (K2), then searches until the
+    swap; every launch against its plain version. After the swap: every
+    written row is found, every removed one gone; then the remesh to 7
+    with the clustered rebuild. Returns the rank's report."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import collective
+
+    label, k, d, n = "multiprocess_background", 10, SC_D, SC_N
+    body3 = want_body("int8", "bfloat16", d, 64, k)
+    i8 = "fused_topk_partial[int8]"
+    own = MP_POSITIONS
+    mask = _slot_mask(c.capacity, pick)
+    first = np.unique(c.search(q64, k)[1][:, 0])
+    upd, removed, new = _bg_writes(n, mix, seed, first)
+    new_np = new.cpu().numpy()
+    box = []
+    thread = threading.Thread(
+        target=lambda: box.append(c.build_background()), daemon=True)
+    err = 0.0
+    with _K3Recorder() as rec, _K1Recorder() as k1:
+        def search(name, q=q64, k3=own):
+            nonlocal err
+            got = _sc_call(rec, label, lambda: c.search(q, k), counts, k3, 2,
+                           want_body("int8", "bfloat16", d, len(q), k))
+            err = max(err, _check_k3_launches(f"{label}/{name}", rec.last,
+                                              errs)[0])
+            return got
+
+        def filtered(name):
+            nonlocal err
+            got = _mp_call(k1, label, lambda: c.search(q64, k,
+                                                       slot_mask=mask),
+                           counts, own, 2, body3, i8)
+            err = max(err, _check_k1_launches(f"{label}/{name}", k1.last,
+                                              errs))
+            return got
+
+        group_before = collective.stats(by_group=True).get("background", {})
+        thread.start()
+        while c._bg_win is None and thread.is_alive():
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        ans["bg_s0"] = search("s0")
+        added = [np.asarray(c.add_batch(new_np[64:192]))]
+        c.update_slots(upd, new_np[:64])
+        added.append(np.asarray(c.add_batch(new_np[192:])))
+        c.remove_slots(removed)
+        ans["bg_s1"] = search("s1")
+        ans["bg_f1"] = filtered("f1")
+        extra = 0
+        while getattr(c, "last_background", None) is None:
+            search(f"extra{extra}")  # the foreground goes on to the swap
+            extra += 1
+        window_wall_s = time.perf_counter() - t0
+        thread.join(120)
+        if thread.is_alive() or box != [None]:
+            fail(f"{label}: the background build did not end well: {box}")
+        # step (2)'s traffic: the background group's collectives alone
+        group = {kind: {key: v - group_before.get(kind, {}).get(key, 0)
+                        for key, v in st.items()}
+                 for kind, st in collective.stats(by_group=True)[
+                     "background"].items()}
+        bg = dict(c.last_background)
+        if bg["outcome"] != "swap":
+            fail(f"{label}: the window ended in {bg}")
+        ans["bg_final"] = search("final")
+        ans["bg_final_f1"] = filtered("final f1")
+        written = np.concatenate([upd, *added])
+        ans["bg_written"] = search("written", new_np)
+        ans["bg_write_slots"] = (written, np.asarray(
+            [len(added[0]), len(added[1])]))
+        ans["bg_removed"] = (removed, upd)
+        if not np.array_equal(ans["bg_written"][1][:, 0], written):
+            fail(f"{label}: an acknowledged write is not found")
+        if any(np.isin(ans[key][1], removed).any() for key in (
+                "bg_final", "bg_final_f1", "bg_written")):
+            fail(f"{label}: a removed slot was returned")
+        # what one agreement costs: the 8-byte all-gather alone
+        one = torch.tensor([1], dtype=torch.int64)
+        agree_ms = _wall_ms(lambda: collective.all_gather(one), reps=50,
+                            warm=5)
+        m7 = _degraded7(engine)
+        before = collective.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.remesh(m7)
+        torch.cuda.synchronize()
+        remesh_s = time.perf_counter() - t0
+        coll = _coll_since(before)
+        ans["bg_remesh7"] = search("remesh7", k3=len(m7.local_positions))
+    return {**bg, "window_wall_s": window_wall_s, "extra_searches": extra,
+            "background_group": group,
+            "agreement_ms": agree_ms, "remesh7_s": remesh_s,
+            "remesh7_move": c.last_remesh,
+            "remesh7_all_to_all_mb": coll.get("all_to_all", {}).get(
+                "bytes", 0) / 1e6,
+            "max_abs_err_vs_plain": err}
 
 
 MP_IVF_CONFIG = {"INDEX_TYPE": "sharded_ivf", "INDEX_DTYPE": "bfloat16",
@@ -3695,6 +4064,7 @@ def _rank_ivf(tmp, seed, ans, counts, errs):
                           "final_merge_ms": final_ms},
            "checkpoints": saves,
            "max_abs_err_vs_plain": max(flat_errs)}
+    rep["heal"] = _rank_heal(db, held_np, picks, ans, counts, errs, tmp)
     # no db.shutdown(): its store save would write the whole index again
     del db, index
     torch.cuda.empty_cache()
@@ -3890,6 +4260,7 @@ def _check_mp_ivf(seed, reps, ans, paths, tmp):
         t = torch.topk(sc[:128].masked_fill(~keep, float("-inf")), k,
                        dim=1).indices.cpu().numpy()
         rec_f.append(_slot_sets_recall(ans[key][1], t))
+    _check_mp_heal(reps, ans, paths, tmp, held, sc, picks)
     del sc, xi
     iv = [r["ivf"] for r in reps]
     emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
@@ -3911,6 +4282,210 @@ def _check_mp_ivf(seed, reps, ans, paths, tmp):
         fail(f"{label}: recall@10 {rec} / {rec_f} < {DENSE_BAR}")
     del single
     torch.cuda.empty_cache()
+
+
+def _check_mp_remesh(reps, ans, qs, truth, paths, tmp):
+    """The remeshed flat index: one process's 7-position index of the
+    ranks' npz gives the slot-order view; every answer on 7 positions
+    against the plain version over it, the slots those of the same
+    index before the remesh (off ties), recall@10 at ``RECALL_BAR``."""
+    from wdbx_tpu_torch.parallel import ShardedFlatIndex, make_mesh
+
+    label, k = "multiprocess_remesh", 10
+    nb, b = qs.shape[0], qs.shape[1]
+    single = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS,
+                              mesh=make_mesh(7))
+    if not single.load(os.path.join(tmp, "mp_remesh7")):
+        fail(f"{label}: the ranks' npz did not load")
+    view = _slot_view(single)
+    err = _check_sharded(f"{label}/search", single, view, qs[0],
+                         ans["remesh_search"])
+    err = max(err, _check_sharded(f"{label}/b1", single, view, qs[1][:1],
+                                  ans["remesh_b1"]))
+    for i in range(nb):
+        err = max(err, _check_sharded(
+            f"{label}/pipelined batch{i}", single, view, qs[i],
+            (ans["remesh_pipelined"][0][i], ans["remesh_pipelined"][1][i])))
+    err = max(err, _same_answers(f"{label}/as before the remesh",
+                                 ans["remesh_before"], ans["remesh_search"]))
+    recall = _recall_slots(ans["remesh_pipelined"][1].reshape(nb * b, k),
+                           truth)
+    del single, view
+    rr = [r["remesh"] for r in reps]
+    emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
+          "dtype": "bfloat16", "n": N_ROWS, "positions": "8 -> 7 (4 + 3)",
+          "b": b, "k": k, "nb": nb,
+          **{f"{key}_{to}": [r[to][key] for r in rr]
+             for to in ("to7", "to8")
+             for key in ("s", "all_to_all_mb", "rows_sent", "bytes_sent",
+                         "all_to_all_calls")},
+          "adopt_reload_s": [r["adopt_reload_s"] for r in rr],
+          "search_b128_ms": [r["search_b128_ms"] for r in rr],
+          "on_8_search_b128_ms": [r["flat"]["search_b128_ms"] for r in reps],
+          "recall_at_10_raw": recall, "bar": RECALL_BAR,
+          "max_abs_err_vs_plain": max(err, *(r["max_abs_err_vs_plain"]
+                                             for r in rr)), "tol": ATOL,
+          "launches": _nonzero(paths[label]),
+          "launches_by_rank": [_nonzero(r["counts"][label]) for r in reps]})
+    if recall < RECALL_BAR:
+        fail(f"{label}: recall@10 {recall} < {RECALL_BAR}")
+
+
+def _check_mp_heal(reps, ans, paths, tmp, held, sc, picks):
+    """The healed production_serving deployment: one process's
+    7-position index of the ranks' npz (written after the heal and the
+    re-tuning) replays ``_heal_calls`` and must give the ranks' answers;
+    every returned score is q . row; recall@10 against the float32 oracle
+    ``sc`` (held x the corpus) without the removed slots, unfiltered and
+    at both filters, at ``DENSE_BAR``."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.ops.normalize import l2_normalize
+    from wdbx_tpu_torch.parallel import ShardedIVFIndex, make_mesh
+
+    label, k, d = "multiprocess_heal", 10, 384
+    n = sc.shape[1]
+    held_np = held.cpu().numpy()
+    single = ShardedIVFIndex(d, dtype="bfloat16", capacity=n,
+                             mesh=make_mesh(7), nlist=1024,
+                             train_threshold=1 << 62)
+    t0 = time.perf_counter()
+    if not single.load(os.path.join(tmp, "mp_heal")) or \
+            not single.is_trained:
+        fail(f"{label}: the ranks' npz did not load")
+    load_s = time.perf_counter() - t0
+    ref = _heal_calls(single, held_np, picks, lambda run: run(),
+                      lambda run: run())
+    err = 0.0
+    qn = l2_normalize(held).to(torch.bfloat16).float()
+    off = 0.0
+    for key, pair in ref.items():
+        err = max(err, _same_answers(f"{label}/{key}", pair, ans[key], ATOL))
+        scores, slots = (np.asarray(a).reshape(-1, k) for a in ans[key])
+        if (slots < 0).any():
+            fail(f"{label}/{key}: fewer than {k} hits")
+        rows = torch.as_tensor(single.get_vectors(slots.reshape(-1)),
+                               device="cuda").reshape(len(slots), k, d)
+        true = (qn[:len(slots)][:, None, :] * rows).sum(-1)
+        off = max(off, float(np.abs(true.cpu().numpy() - scores).max()))
+    if off > ATOL:
+        fail(f"{label}: a returned score is {off} off q . row")
+    removed = torch.as_tensor(ans["ivf_removed_slots"][0], device="cuda")
+    sc[:, removed] = float("-inf")
+    truth = torch.topk(sc, k, dim=1).indices.cpu().numpy()
+    rec = _slot_sets_recall(ans["heal_search"][1], truth)
+    rec_f = []
+    for pick, key in zip(picks, ("heal_f10", "heal_f1")):
+        keep = torch.zeros(n, dtype=torch.bool, device="cuda")
+        keep[torch.as_tensor(pick, device="cuda")] = True
+        t = torch.topk(sc[:128].masked_fill(~keep, float("-inf")), k,
+                       dim=1).indices.cpu().numpy()
+        rec_f.append(_slot_sets_recall(ans[key][1], t))
+    hv = [r["ivf"]["heal"] for r in reps]
+    emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
+          "dtype": "bfloat16", "n": n, "b": 128, "k": k,
+          **{key: hv[0][key] for key in (
+              "rehost", "remeshed_to", "nlist", "nprobe",
+              "tuned_recall_vs_index_exact")},
+          **{key: [h[key] for h in hv] for key in (
+              "heal_s", "tune_s", "store_save_s", "checkpoint_heal_s",
+              "search_b128_ms")},
+          "npz_load_single_process_s": load_s,
+          "recall_at_10": rec, "recall_at_10_filtered_10pct": rec_f[0],
+          "recall_at_10_filtered_1pct": rec_f[1], "bar": DENSE_BAR,
+          "rescore_max_off": off,
+          "max_abs_err_vs_plain": max(err, *(h["max_abs_err_vs_plain"]
+                                             for h in hv)), "tol": ATOL,
+          "launches": _nonzero(paths[label]),
+          "launches_by_rank": [_nonzero(r["counts"][label]) for r in reps]})
+    if min(rec, *rec_f) < DENSE_BAR:
+        fail(f"{label}: recall@10 {rec} / {rec_f} < {DENSE_BAR}")
+    del single
+
+
+def _bg_truth(chunks, q, k, src_mask, extra_rows, extra_slots):
+    """Float32 top-k slots of ``q`` over the regenerated corpus (source
+    row r is slot r) where ``src_mask`` keeps it, and the rows the window
+    wrote (``extra_rows`` at ``extra_slots``). A yardstick."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    best_v = torch.full((q.shape[0], k), float("-inf"), device="cuda")
+    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64,
+                        device="cuda")
+
+    def fold(s, ids):
+        nonlocal best_v, best_i
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        v = torch.cat([best_v, v], 1)
+        i = torch.cat([best_i, ids[i]], 1)
+        best_v, sel = torch.topk(v, k, dim=1)
+        best_i = torch.gather(i, 1, sel)
+
+    lo = 0
+    for x in chunks():
+        m = x.shape[0]
+        fold((q @ x.T).masked_fill(~src_mask[None, lo:lo + m],
+                                   float("-inf")),
+             torch.arange(lo, lo + m, device="cuda"))
+        lo += m
+    if len(extra_slots):
+        fold(q @ extra_rows.T, torch.as_tensor(extra_slots, device="cuda"))
+    return best_i.cpu()
+
+
+def _check_mp_background(reps, ans, chunks, mix, q64, paths):
+    """The background rebuild across the ranks: both swapped at the same
+    foreground call; recall@10 after the swap (and after the remesh to
+    7), unfiltered and at the 1% filter, against the float32 oracle over
+    the corpus as the window's writes left it."""
+    import numpy as np
+    import torch
+
+    label, k, n = "multiprocess_background", 10, SC_N
+    bgs = [r["background"] for r in reps]
+    if len({(b["open_call"], b["swap_call"], b["agreements"]) for b in bgs}) \
+            != 1:
+        fail(f"{label}: the ranks' windows differ: {bgs}")
+    removed, upd = (torch.as_tensor(a, device="cuda")
+                    for a in ans["bg_removed"])
+    written = ans["bg_write_slots"][0]
+    new = mix(7777, 320)
+    keep = torch.ones(n, dtype=torch.bool, device="cuda")
+    keep[removed] = False
+    keep[upd] = False
+    truth = _bg_truth(chunks, q64, k, keep, new, written)
+    pick = torch.as_tensor(ans["filter_pick"][0], device="cuda")
+    in_pick = torch.zeros(n, dtype=torch.bool, device="cuda")
+    in_pick[pick] = True
+    sel = np.isin(written, ans["filter_pick"][0])
+    truth_f = _bg_truth(chunks, q64, k, keep & in_pick,
+                        new[torch.as_tensor(sel, device="cuda")],
+                        written[sel])
+    rec = {key: _slot_recall(torch.as_tensor(ans[key][1]), t)
+           for key, t in (("bg_final", truth), ("bg_remesh7", truth),
+                          ("bg_final_f1", truth_f), ("bg_f1", truth_f),
+                          ("bg_s1", truth))}
+    emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
+          "n": n, "d": SC_D, "nlist": SC_NLIST, "nprobe": 4, "b": 64,
+          "k": k, "dtype": "int8",
+          **{key: bgs[0][key] for key in ("outcome", "open_call",
+                                          "swap_call", "agreements",
+                                          "extra_searches")},
+          **{key: [b[key] for b in bgs] for key in (
+              "window_s", "window_wall_s", "phase2_s", "agreement_ms",
+              "background_group", "remesh7_s", "remesh7_all_to_all_mb")},
+          "remesh7_rows_sent": [b["remesh7_move"]["rows_sent"] for b in bgs],
+          **{f"recall_at_10_{key[3:]}": v for key, v in rec.items()},
+          "bar": FACADE_BAR,
+          "max_abs_err_vs_plain": max(b["max_abs_err_vs_plain"]
+                                      for b in bgs), "tol": ATOL,
+          "launches": _nonzero(paths[label]),
+          "launches_by_rank": [_nonzero(r["counts"][label]) for r in reps]})
+    gated = ("bg_final", "bg_remesh7", "bg_final_f1")
+    if min(rec[key] for key in gated) < FACADE_BAR:
+        fail(f"{label}: recall@10 {rec} < {FACADE_BAR}")
 
 
 def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
@@ -3996,6 +4571,8 @@ def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
     _check_mp_replicated(seed, reps, ans, single, whole, qs, truth, paths,
                          tmp)
     del single, view, whole
+    torch.cuda.empty_cache()
+    _check_mp_remesh(reps, ans, qs, truth, paths, tmp)
     torch.cuda.empty_cache()
 
     # int8: the plain version on one process's index of the same rows
@@ -4093,6 +4670,7 @@ def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
              f"< {FACADE_BAR}")
     del single
     torch.cuda.empty_cache()
+    _check_mp_background(reps, ans, chunks, mix, q64, paths)
 
     # replicated clustered: the unreplicated ranks' layout loaded on the
     # replicated mesh answers as they did; the replicated build's recall

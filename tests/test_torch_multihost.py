@@ -29,12 +29,13 @@ devices), and 4 ranks x 2. Every worker asserts that neither ``jax`` nor
 * a 4-rank x 2-position run of the flat part.
 * refusals on a global mesh, one test each: replica groups spanning
   ranks (``make_mesh2(2)`` on the 4-rank run, where a group of 4 shards
-  spans two ranks of 2 positions), ``build_background``, ``remesh`` /
-  ``adopt_mesh``, the facade's ``heal()`` (each ``NotImplementedError``
-  naming its ``ROADMAP.md`` item); and ranks holding unequal position
-  counts (``ValueError``). ``ShardedIVFIndex`` and replica groups within
-  one rank serve on a global mesh: ``tests/test_torch_multihost_ivf.py``
-  and ``tests/test_torch_multihost_replicas.py``.
+  spans two ranks of 2 positions; a ``NotImplementedError`` naming its
+  ``ROADMAP.md`` item); and ranks holding unequal default position
+  counts (``ValueError``). ``ShardedIVFIndex``, replica groups within
+  one rank, and the remesh, heal and background rebuild serve on a
+  global mesh: ``tests/test_torch_multihost_ivf.py``,
+  ``tests/test_torch_multihost_replicas.py`` and
+  ``tests/test_torch_multihost_recovery.py``.
 
 Every run has a deadline: the parent kills every worker when one fails
 or time runs out, and each group's collectives time out after 60 s, so
@@ -199,20 +200,6 @@ for dtype in dtypes:
     np.testing.assert_array_equal(got_again[1],
                                   ans[f"{dtype}/clustered_fresh"][1])
     if dtype == dtypes[0]:
-        refusals = {}
-
-        def refused(name, fn):
-            try:
-                fn()
-            except (NotImplementedError, ValueError) as e:
-                refusals[name] = [type(e).__name__, str(e)]
-            else:
-                refusals[name] = ["none", ""]
-
-        refused("build_background", c.build_background)
-        refused("remesh", lambda: idx.remesh(mesh))
-        refused("adopt_mesh", lambda: idx.adopt_mesh(mesh))
-        refused("degraded_mesh", engine.degraded_mesh)
         # the facade joins before its store: its indexes are on the mesh,
         # and its two store shards search one after the other
         from wdbx_tpu_torch.core.wdbx import WDBX
@@ -228,9 +215,6 @@ for dtype in dtypes:
         assert hits[0][0] == "v3", hits
         ans["facade"] = (np.asarray([[h[1] for h in hits]], np.float32),
                          np.asarray([[int(h[0][1:]) for h in hits]]))
-        refused("heal", db.heal)
-        with open(os.path.join(out, f"refusals{rank}.json"), "w") as f:
-            json.dump(refusals, f)
 if flat_only:
     # 2 positions a rank: a replica group of 4 shards spans two ranks
     spanning = {}
@@ -479,38 +463,22 @@ def test_two_process_facade(two_ranks):
     assert r0["facade"][1][0, 0] == 3
 
 
+#: refusals of the 4-rank run: a replica group spanning ranks (the
+#: re-meshing operations serve across ranks:
+#: ``tests/test_torch_multihost_recovery.py``)
 REFUSALS = {
     "replicas": ("NotImplementedError", "replica groups spanning ranks"),
     "replicas_index": ("NotImplementedError",
                        "replica groups spanning ranks"),
-    "build_background": ("NotImplementedError",
-                         "build_background, remesh and heal across ranks"),
-    "remesh": ("NotImplementedError",
-               "build_background, remesh and heal across ranks"),
-    "adopt_mesh": ("NotImplementedError",
-                   "build_background, remesh and heal across ranks"),
-    "degraded_mesh": ("NotImplementedError",
-                      "build_background, remesh and heal across ranks"),
-    "heal": ("NotImplementedError",
-             "build_background, remesh and heal across ranks"),
 }
 
 
-#: refusals of the 4-rank run: a replica group spanning ranks
-SPANNING = {"replicas", "replicas_index"}
-
-
 @pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_global_mesh_refuses(request, name):
-    if name in SPANNING:
-        tmp, _ = request.getfixturevalue("four_ranks")
-        files, world = "spanning", 4
-    else:
-        tmp, _ = request.getfixturevalue("two_ranks")
-        files, world = "refusals", 2
+def test_global_mesh_refuses(four_ranks, name):
+    tmp, _ = four_ranks
     kind, item = REFUSALS[name]
-    for rank in range(world):
-        got = json.loads((tmp / f"{files}{rank}.json").read_text())[name]
+    for rank in range(4):
+        got = json.loads((tmp / f"spanning{rank}.json").read_text())[name]
         assert got[0] == kind, (rank, got)
         assert "ROADMAP.md" in got[1] and item in got[1], (rank, got)
 

@@ -120,9 +120,11 @@ class WDBX:
         tasks = [self.store.shutdown()]
         if self.plugin_manager:
             tasks.append(self.plugin_manager.shutdown_all())
-        if self.shard_engine:
-            tasks.append(self.shard_engine.shutdown())
         await asyncio.gather(*tasks)
+        # after the store's final save: on a mesh spanning ranks that
+        # save is collective, and the engine leaves the group
+        if self.shard_engine:
+            await self.shard_engine.shutdown()
         self._initialized = False
 
     # -- validation --------------------------------------------------------
@@ -215,10 +217,17 @@ class WDBX:
         to LIVE RE-MESHING when positions stay unhealthy: sharded indexes
         re-stripe onto a mesh of only the surviving positions (slot ids
         are mesh-independent, so the store's registries are untouched)
-        and serving continues degraded. Not ported on a global mesh
-        (``NotImplementedError``): a lost rank ends the group."""
-        if self.shard_engine is not None:
-            self.shard_engine.refuse_global()
+        and serving continues degraded.
+
+        On a global mesh every rank calls ``heal`` and every layer runs
+        on every rank in step: the integrity verdicts are agreed
+        (``store.verify``), the health map is gathered, so every rank
+        derives the same plan and degraded mesh, a live remesh raises on
+        every rank together or on none, and each rank then takes the
+        same branch (``rehost``: ``"live"`` or ``"cold"`` a store
+        shard). A mesh that would leave a rank without a position, and a
+        lost process, raise ``NotImplementedError`` (an elastic restart,
+        ``ROADMAP.md`` queue 1)."""
         # Layer 1: bookkeeping integrity — registry / index divergence
         # (state corruption with healthy devices) recovers per shard.
         integrity = self.store.verify()
@@ -245,6 +254,7 @@ class WDBX:
         if allow_remesh is None:
             allow_remesh = bool(self.config.get("MESH_AUTO_REMESH", False))
         remeshed_to: list[str] = []
+        rehost: dict[str, str] = {}
         # Layer 3 runs FIRST when positions are unreachable: re-hosting
         # onto the old mesh would write to the dead device. The re-mesh
         # moves live data when the "dead" position still answers, and
@@ -258,8 +268,13 @@ class WDBX:
                         continue
                     try:
                         index.remesh(degraded)
+                        rehost[str(shard)] = "live"
                     except Exception:
                         # old mesh unreachable: cold re-host from disk
+                        logger.warning("live remesh of shard %d failed; "
+                                       "re-hosting it cold", shard,
+                                       exc_info=True)
+                        rehost[str(shard)] = "cold"
                         try:
                             index.adopt_mesh(degraded)
                             if not self.store.recover(
@@ -293,6 +308,7 @@ class WDBX:
             "recovered_shards": recovered,
             "unrecovered_shards": unrecovered,
             "remeshed_to": remeshed_to,
+            "rehost": rehost,
         }
 
     # -- data surface (async) ------------------------------------------------

@@ -58,10 +58,12 @@ async def run(device: str | None) -> None:
     db.batch_store({f"doc-{i}": v for i, v in enumerate(vecs)})
     index = db.store.indices[0]
     index.build()
-    nlist = sum(int(t.shape[0]) for t in index._bucket_rows)
+    # the trained bucket count; on a mesh spanning ranks each rank holds
+    # only its own shards' tables
+    nlist = int(index._centroids.shape[0])
     print(f"corpus: {db.count_vectors()} vectors, "
           f"index: {index.kind}, nlist={nlist}, "
-          f"tables split over {len(index._bucket_rows)} '{index.axis}' "
+          f"tables split over {index.n_devices} '{index.axis}' "
           f"positions")
 
     # -- 2. tune nprobe to a recall target ------------------------------

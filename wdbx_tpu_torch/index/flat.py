@@ -532,7 +532,7 @@ class FlatIndex(VectorIndex):
             own, total = self._positions_held()
             if own:  # a replica rank may hold no file to write
                 persist.save_arrays(path, self._position_arrays(), own,
-                                    total)
+                                    total, lead=lead)
             skip_slab = False
         else:
             # skip_slab: valid derives on the host (allocated minus

@@ -27,13 +27,21 @@ ranks, as ``jax.devices()`` spans the processes of
 ``jax.distributed``. Each rank lays its own L positions (the count
 above, over its own devices), the ranks exchange their lists once, and
 rank r owns positions ``[r*L, (r+1)*L)``; every rank must hold the same
-L. ``make_mesh(n)`` takes n positions in all, n / world a rank;
-``make_mesh2(r)`` lays r replica groups over the same list, each group
-within one rank. Names stay ``"<device>#<global position>"``, unique
-across ranks. A rank holds tensors only for its own positions
-(``Mesh.local_positions``, ``Mesh.local_groups``); the data plane
-between ranks is ``parallel/collective.py``. A ``Mesh`` built directly
-is this process's own, whatever the group.
+L. ``make_mesh(n)`` takes n positions in all, split into contiguous
+blocks as evenly as it goes (7 on 2 ranks: 4 + 3, the lower ranks one
+more); ``make_mesh2(r)`` lays r replica groups over the same list, each
+group within one rank. Names stay ``"<device>#<global position>"``,
+unique across ranks. A mesh derived from a global one
+(``ShardEngine.degraded_mesh``) keeps its survivors' names and owners,
+so its ranks own unequal blocks (the degraded mesh of 7 on 2 ranks is
+4 + 3). The owners of a global mesh are contiguous, ordered blocks, one
+a rank of the group: a mesh that leaves a rank without a position is
+refused (``NotImplementedError``: the rank would drop out of every
+collective, which is an elastic restart, ``ROADMAP.md`` queue 1). A rank
+holds tensors only for its own positions (``Mesh.local_positions``,
+``Mesh.local_groups``); the data plane between ranks is
+``parallel/collective.py``. A ``Mesh`` built directly is this process's
+own, whatever the group.
 """
 
 from __future__ import annotations
@@ -97,6 +105,8 @@ class Mesh:
         if len(self.owners) != len(self.devices):
             raise ValueError(f"{len(self.owners)} owners for "
                              f"{len(self.devices)} positions")
+        if owners is not None:
+            _check_blocks(self.owners)
         #: the positions whose tensors live in this process
         self.local_positions = tuple(
             i for i, o in enumerate(self.owners) if o == self.rank)
@@ -121,6 +131,17 @@ class Mesh:
         in this process, in order."""
         shards = self.shape[self.axis_names[-1]]
         return tuple(sorted({p // shards for p in self.local_positions}))
+
+
+def _check_blocks(owners: tuple[int, ...]) -> None:
+    """The owners of a global mesh: contiguous, ordered blocks, one for
+    every rank of the group."""
+    world = collective.rank_world()[1]
+    if list(owners) != sorted(owners):
+        raise ValueError(f"a global mesh's ranks own contiguous, ordered "
+                         f"blocks: {owners}")
+    if world > 1 and set(owners) != set(range(world)):
+        raise collective.not_ported("elastic")
 
 
 def _base_devices(device: Any) -> list[torch.device]:
@@ -168,19 +189,19 @@ def make_mesh(
 
 def _global_positions(base: list[torch.device], n: int, total: bool):
     """The devices and owning ranks of a mesh over every rank of the
-    group: ``n`` positions a rank (``n`` in all when ``total``), this
-    rank's round-robin over its own devices, exchanged once; rank r owns
-    ``[r*L, (r+1)*L)``."""
-    _, world = collective.rank_world()
+    group: ``n`` positions a rank (``n`` in all when ``total``, the
+    lower ranks one more where they do not split evenly), this rank's
+    round-robin over its own devices, exchanged once; each rank owns the
+    next contiguous block."""
+    rank, world = collective.rank_world()
     if total:
-        if n % world:
-            raise ValueError(f"{n} positions do not split over {world} "
-                             "ranks")
-        n //= world
+        if n < world:
+            raise collective.not_ported("elastic")
+        n = n // world + (rank < n % world)
     mine = [str(d) for d in _round_robin(base, n)]
     lists = collective.all_gather_object(mine)
     counts = [len(x) for x in lists]
-    if len(set(counts)) != 1:
+    if not total and len(set(counts)) != 1:
         raise ValueError(
             f"every rank of a global mesh holds the same number of "
             f"positions; the ranks hold {counts} (set {MESH_SIZE_ENV} or "
@@ -222,8 +243,10 @@ def make_mesh2(
             devices, owners = _global_positions(base, replicas * shards,
                                                 True)
         per = len(devices) // world
-        if replicas > 1 and per % shards:
-            if shards % per == 0:
+        if replicas > 1 and any(
+                len(set(owners[g * shards:(g + 1) * shards])) > 1
+                for g in range(replicas)):
+            if len(devices) % world == 0 and shards % per == 0:
                 raise collective.not_ported("replicas")
             raise ValueError(f"{replicas} groups of {shards} shards do not "
                              f"lie on ranks of {per} positions")

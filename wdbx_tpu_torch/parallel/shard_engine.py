@@ -12,9 +12,13 @@ counterpart of ``jax.distributed.initialize``. The group is gloo. Once
 joined, the default mesh is global (``parallel/mesh.py``): it lists
 every rank's positions, a shard is local to the rank that owns its
 position, the health probe runs on a rank's own positions and the ranks
-exchange the statuses. A lost rank ends a gloo group, as a lost process
-ends ``jax.distributed``, so a global mesh is not re-meshed or healed
-here (``ROADMAP.md`` queue 1).
+exchange the statuses, so every rank holds the same map and derives
+the same degraded mesh from it: the survivors keep their names and
+owners, and the ranks own unequal blocks of it. A lost rank ends a gloo
+group, as a lost process ends ``jax.distributed``, and a mesh that
+leaves a rank without a position would drop that rank from every
+collective: both are an elastic restart (``NotImplementedError``,
+``ROADMAP.md`` queue 1).
 
 Every map here is keyed on the mesh's position names (``"cuda:0#3"``),
 never on ``str(device)``: positions of one card share their device.
@@ -86,6 +90,9 @@ class ShardEngine:
                 self._joined = True
             except Exception as e:
                 logger.warning("torch.distributed join failed: %s", e)
+        # the background rebuilds' group, made at the same point on
+        # every rank
+        collective.open_background_group(JOIN_TIMEOUT_S)
 
     async def initialize(self) -> None:
         if self._initialized:
@@ -101,18 +108,13 @@ class ShardEngine:
 
             if dist.is_initialized():
                 dist.destroy_process_group()
+            collective.forget_groups()
             self._joined = False
         self._initialized = False
 
     @staticmethod
     def _process() -> tuple[int, int]:
         return collective.rank_world()
-
-    def refuse_global(self) -> None:
-        """Raise on a global mesh: what calls this (re-meshing, healing)
-        is not ported across ranks."""
-        if self._mesh().is_global:
-            raise collective.not_ported("re-meshing")
 
     # -- placement metadata ------------------------------------------------
     def allocation(self) -> dict[str, Any]:
@@ -160,19 +162,9 @@ class ShardEngine:
         A rank probes its own positions; on a global mesh the ranks then
         exchange their statuses, so every rank holds the whole map."""
         mesh = self._mesh()
-        statuses = {}
-        for p in mesh.local_positions:
-            name, device = mesh.names[p], mesh.devices[p]
-            try:
-                out = torch.ones((8, 8), device=device) @ torch.ones(
-                    (8, 8), device=device)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                ok = float(out[0, 0]) == 8.0
-            except Exception as e:
-                statuses[name] = f"error: {e}"
-                continue
-            statuses[name] = "ok" if ok else "bad-result"
+        statuses = {mesh.names[p]: self._probe(mesh.names[p],
+                                               mesh.devices[p])
+                    for p in mesh.local_positions}
         if mesh.is_global:
             merged = {}
             for part in collective.all_gather_object(statuses):
@@ -180,6 +172,19 @@ class ShardEngine:
             statuses = {name: merged[name] for name in mesh.names}
         healthy = all(v == "ok" for v in statuses.values())
         return {"healthy": healthy, "devices": statuses}
+
+    def _probe(self, name: str, device: torch.device) -> str:
+        """Position ``name``'s status: ``"ok"``, ``"bad-result"`` or the
+        error its probe raised."""
+        try:
+            out = torch.ones((8, 8), device=device) @ torch.ones(
+                (8, 8), device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ok = float(out[0, 0]) == 8.0
+        except Exception as e:
+            return f"error: {e}"
+        return "ok" if ok else "bad-result"
 
     def plan_recovery(
         self, health: dict[str, Any] | None = None
@@ -206,8 +211,11 @@ class ShardEngine:
         """Mesh of only the healthy positions, which keep their names:
         the live re-meshing target when a device is gone. Returns the
         current mesh unchanged when everything is healthy. Replica axes
-        collapse: survival beats data-parallel fan-out."""
-        self.refuse_global()
+        collapse: survival beats data-parallel fan-out. On a global mesh
+        every rank holds the same health map (``health_check`` gathers
+        it), so every rank derives the same mesh: the survivors keep
+        their owners, in blocks of unequal size. A mesh that would leave
+        a rank without a position raises ``NotImplementedError``."""
         health = health or self.health_check()
         mesh = self._mesh()
         keep = [i for i, n in enumerate(mesh.names)
@@ -217,11 +225,12 @@ class ShardEngine:
         if len(keep) == mesh.size:
             return mesh
         return Mesh([mesh.devices[i] for i in keep], (self.axis,),
-                    names=[mesh.names[i] for i in keep])
+                    names=[mesh.names[i] for i in keep],
+                    owners=([mesh.owners[i] for i in keep]
+                            if mesh.is_global else None))
 
     def adopt_mesh(self, mesh: Mesh) -> None:
         """Install a new mesh (post-remesh) and persist the allocation."""
-        self.refuse_global()
         self.mesh = mesh
         self._persist_allocation()
 

@@ -58,15 +58,32 @@ mesh every rank holds whole copies: rank 0 still trains (and assigns,
 reading its own copy) and broadcasts, no row moves between ranks, and
 a search runs K3 on the shards of the rank's own groups and gathers
 the answered batch slices (``ShardedFlatIndex._share_slices``).
-``build_background`` is not ported on any global mesh: its collectives
-would interleave with the foreground's in another order on each rank.
+
+``build_background`` on a global mesh: every rank calls it in a thread
+of its own while its foreground goes on calling the index. The rows of
+the new layout cross on the background group (``collective``), whose
+lock is not the foreground's. The snapshot and the swap touch the
+index's state, so they fall at the same foreground call on every rank:
+each foreground call (search, write, tombstone) passes a gate that
+counts it; the background threads agree on the call of the snapshot,
+which the foreground takes at that gate; from then on each gate starts
+with one all-gather of every rank's step-(2) flag, and at the first
+where every flag is set every rank swaps (or takes the blocking build,
+or releases the window where a rank failed) before the call. The cost:
+one small all-gather a foreground call while a window is open. A
+remesh, clear or load in the window first waits for the background
+step to end, then abandons the snapshot, at the same call on every
+rank.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
+import threading
+import time
 
 import numpy as np
 import torch
@@ -96,6 +113,51 @@ from wdbx_tpu_torch.parallel import collective
 from wdbx_tpu_torch.parallel.sharded_flat import _CHUNK, ShardedFlatIndex
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
+
+
+#: a rank's background build, as its flag in the agreement all-gather:
+#: step (2) running, done, done but the striping overflows (the blocking
+#: build), failed
+_RUNNING, _READY, _OVERFLOW, _FAILED = 0, 1, 2, 3
+
+
+class _Window:
+    """One background build's window on a global mesh: the call its
+    snapshot falls before, the snapshot, this rank's step (2) and its
+    outcome."""
+
+    def __init__(self):
+        self.open_at: int | None = None
+        self.snap: dict | None = None
+        self.layout = None
+        self.flag = _RUNNING
+        self.error: BaseException | None = None
+        self.outcome: str | None = None
+        self.agreements = 0
+        self.t_open = 0.0
+        self.phase2_s = 0.0
+        self.opened = threading.Event()
+        self.phase2_done = threading.Event()
+        self.closed = threading.Event()
+
+
+def _gated(method):
+    """A foreground call of the index: on a global mesh the outermost
+    call of a thread passes the gate (``_fg_gate``) first."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        tl = self._fg_tl
+        if not self.mesh.is_global or getattr(tl, "inside", False):
+            return method(self, *args, **kwargs)
+        tl.inside = True
+        try:
+            self._fg_gate()
+            return method(self, *args, **kwargs)
+        finally:
+            tl.inside = False
+
+    return call
 
 
 def _striped_layout(assign, nlist, n_dev):
@@ -166,6 +228,12 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         self.background_rebuild = False
         self._filter_boosts: dict[int, int] = {}
         self._reset_overlay()
+        # the foreground gate of a global mesh (``_fg_gate``)
+        self._gate = threading.Condition()
+        self._fg_calls = 0
+        self._fg_freeze = False
+        self._bg_win: _Window | None = None
+        self._fg_tl = threading.local()
 
     # -- overlay state --------------------------------------------------------
     def _reset_overlay(self) -> None:
@@ -210,8 +278,14 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                 f"{self._c}-row blocks"
             )
 
+    # foreground calls: the gate of a global mesh first
+    add_batch = _gated(ClusteredSlotMixin.add_batch)
+    update_slots = _gated(ClusteredSlotMixin.update_slots)
+    remove_slots = _gated(ClusteredSlotMixin.remove_slots)
+
     def clear(self) -> None:
         with self._mu.write():
+            self._bg_quiesce()
             ShardedFlatIndex.clear(self)
             self._reset_overlay()
             # storage replaced wholesale: abandon any in-flight
@@ -314,23 +388,6 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         return (centroids.cpu().numpy(),
                 self._share_by_owner(live_pos, assign))
 
-    def _put_rows(self, slabs_n, valids_n, scales_n, dst, rows, sc):
-        """Write stored rows (and scales) at global positions ``dst`` of
-        the new per-position tensors, into every copy held here."""
-        n_dev = self.n_devices
-        dshard, drow = dst % n_dev, dst // n_dev
-        for s in np.unique(dshard).tolist():
-            at = torch.as_tensor(np.nonzero(dshard == s)[0],
-                                 device=rows.device)
-            r_np = drow[dshard == s]
-            for p in self._copies(s):
-                dev = self.mesh.devices[p]
-                r = torch.as_tensor(r_np, device=dev)
-                slabs_n[p][r] = rows[at].to(dev)
-                valids_n[p][r] = True
-                if sc is not None:
-                    scales_n[p][r] = sc[at].to(dev)
-
     def _permute_striped(self, slabs, scales, src_global, dest, cap, n_dev):
         """Move the live rows of the explicit (snapshot-safe) source
         lists into fresh per-position tensors at ``cap``, in striped
@@ -405,115 +462,277 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         would overflow rows_per_device (growth cannot happen off the
         lock). A ``remesh`` / ``clear`` / ``load`` in the window bumps
         ``_layout_gen`` and the snapshot is abandoned. Device peak: two
-        slabs (+ a clone per copy-on-write mutation batch). Not ported on
-        a global mesh (``NotImplementedError``)."""
+        slabs (+ a clone per copy-on-write mutation batch).
+
+        On a global mesh every rank calls it (in a thread of its own,
+        beside a foreground that keeps calling the index), and steps (1)
+        and (3) fall at the same foreground call on every rank
+        (``_build_background_global``); it returns once the swap has
+        happened."""
         if self.mesh.is_global:
-            raise collective.not_ported("re-meshing")
+            self._build_background_global()
+            return
         with self._mu.write():
             if self._cow_writes:
                 return  # already rebuilding
-            hwm = self._next_slot
-            if self._size == 0 or hwm == 0:
-                self._reset_overlay()
+            snap = self._bg_snapshot()
+            if snap is None:
                 return
-            self._cow_writes = True
-            self._bg_journal: dict[int, str] = {}
-            n_dev = self.n_devices
-            # list copies: copy-on-write replaces list entries, never the
-            # snapshot's tensors
-            snap_slabs, snap_scales = list(self._slabs), list(self._row_scales)
-            snap_valid_h = self._host_valid_np()[:hwm]
-            snap_slot_of = self._slot_of.copy()
-            snap_cap = self._cap
-            snap_gen = getattr(self, "_layout_gen", 0)
-        overflow = False
-        slabs_n = valids_n = scales_n = None
         try:
-            live_pos = np.nonzero(snap_valid_h)[0].astype(np.int64)
-            centroids, assign = self._plan_clusters(
-                snap_slabs, snap_scales, live_pos, n_dev
-            )
-            order, dest, local_counts, local_starts = _striped_layout(
-                assign, len(centroids), n_dev
-            )
-            src_global = live_pos[order]
-            need_local = (
-                int(local_starts[:, -1].max()) if len(live_pos) else 0
-            )
-            if need_local > snap_cap // n_dev:
-                overflow = True  # growth cannot happen off the lock
-                merged, staged, prep = {}, None, None
-            else:
-                slabs_n, valids_n, scales_n = self._permute_striped(
-                    snap_slabs, snap_scales, src_global, dest, snap_cap,
-                    n_dev,
-                )
+            layout = self._bg_layout(snap)
+            merged = staged = prep = None
+            if layout is not None:
                 # drain the window's journal off the lock and pre-build
                 # the post-swap slot maps: the swap pays only the delta
                 merged, staged = self._prestage_bg_journal(
                     lambda p: ShardedFlatIndex.get_vectors(self, p),
-                    snap_gen,
+                    snap["gen"],
                 )
                 prep = self._prepare_bg_swap(
-                    snap_slot_of, src_global, dest, merged, snap_cap
-                )
-        except BaseException:
+                    snap["slot_of"], layout[0], layout[1], merged,
+                    snap["cap"])
+        except Exception:
             # a concurrent remesh / clear / load can break the off-lock
             # gather or permute: that failure belongs to a dead
             # generation, abandoned quietly. A same-generation failure is
             # real: release this window (only this one) and raise.
             with self._mu.write():
-                stale = getattr(self, "_layout_gen", 0) != snap_gen
+                stale = getattr(self, "_layout_gen", 0) != snap["gen"]
                 if not stale:
                     self._cow_writes = False
             if stale:
                 return
             raise
         with self._mu.write():
-            try:
-                if getattr(self, "_layout_gen", 0) != snap_gen:
-                    return  # storage replaced in the window: abandon
-                if (self._cap != snap_cap or overflow
-                        or self.n_devices != n_dev):
-                    self._cow_writes = False
-                    self._build_locked()
-                    return
-                delta = self._bg_journal
-                self._bg_journal = {}
-                merged.update(delta)
-                new_slot_of, new_pos_of, pre_dead = prep
-                dirty, rows = self._bg_dirty_rows(
-                    merged,
-                    lambda p: ShardedFlatIndex.get_vectors(self, p),
-                    staged=staged, refetch=delta,
-                )
-                extra_dead = self._bg_delta_fixup(
-                    delta, new_slot_of, new_pos_of
-                )
-                dead_dest = (
-                    np.concatenate([pre_dead, extra_dead])
-                    if len(extra_dead) else pre_dead
-                )
-                if len(dead_dest):
-                    dshard, drow = dead_dest % n_dev, dead_dest // n_dev
-                    for p, v in enumerate(valids_n):
-                        r = drow[dshard == p % n_dev]
-                        if len(r):
-                            v[torch.as_tensor(r, device=v.device)] = False
+            self._bg_install(snap, layout, merged, staged, prep)
+
+    def _bg_snapshot(self) -> dict | None:
+        """Step (1) under the write lock: the snapshot, and the mutators
+        turned to copy-on-write (None, with the overlay reset, on an
+        empty index)."""
+        hwm = self._next_slot
+        if self._size == 0 or hwm == 0:
+            self._reset_overlay()
+            return None
+        self._cow_writes = True
+        self._bg_journal: dict[int, str] = {}
+        # list copies: copy-on-write replaces list entries, never the
+        # snapshot's tensors
+        return {"slabs": list(self._slabs), "scales": list(self._row_scales),
+                "valid": self._host_valid_np()[:hwm],
+                "slot_of": self._slot_of.copy(), "cap": self._cap,
+                "gen": getattr(self, "_layout_gen", 0),
+                "n_dev": self.n_devices}
+
+    def _bg_layout(self, snap: dict):
+        """Step (2), off the lock: the snapshot's new striped layout,
+        ``(src_global, dest, local_counts, local_starts, centroids,
+        slabs_n, valids_n, scales_n)``, or None when the striping would
+        overflow rows_per_device."""
+        n_dev = snap["n_dev"]
+        live_pos = np.nonzero(snap["valid"])[0].astype(np.int64)
+        centroids, assign = self._plan_clusters(
+            snap["slabs"], snap["scales"], live_pos, n_dev
+        )
+        order, dest, local_counts, local_starts = _striped_layout(
+            assign, len(centroids), n_dev
+        )
+        src_global = live_pos[order]
+        need_local = int(local_starts[:, -1].max()) if len(live_pos) else 0
+        if need_local > snap["cap"] // n_dev:
+            return None  # growth cannot happen off the lock
+        new = self._permute_striped(snap["slabs"], snap["scales"],
+                                    src_global, dest, snap["cap"], n_dev)
+        return (src_global, dest, local_counts, local_starts, centroids,
+                *new)
+
+    def _bg_install(self, snap, layout, merged, staged, prep) -> None:
+        """Step (3) under the write lock: abandon the snapshot (storage
+        replaced in the window), the blocking build (the capacity or
+        shard count changed, or the striping overflowed: ``layout`` is
+        None), or the swap of the new layout with the journaled slots
+        dropped and replayed. ``merged`` / ``staged`` / ``prep``: the
+        off-lock journal drain and slot maps (``prep`` None: build them
+        here from the whole journal)."""
+        try:
+            if getattr(self, "_layout_gen", 0) != snap["gen"]:
+                return  # storage replaced in the window: abandon
+            n_dev = snap["n_dev"]
+            if (self._cap != snap["cap"] or layout is None
+                    or self.n_devices != n_dev):
                 self._cow_writes = False
-                self._install_striped(
-                    src_global, dest, local_counts, local_starts,
-                    centroids, slabs_n, valids_n, scales_n,
-                    prebuilt=(new_slot_of, new_pos_of),
-                )
-                if rows is not None and len(dirty):
-                    self._replay_bg_dirty(dirty, rows)
-            finally:
-                # release only this window: on the abandon path the
-                # invalidation already closed it, and a new build may own
-                # the flag by now
-                if getattr(self, "_layout_gen", 0) == snap_gen:
+                self._build_locked()
+                return
+            (src_global, dest, local_counts, local_starts, centroids,
+             slabs_n, valids_n, scales_n) = layout
+            delta = self._bg_journal
+            self._bg_journal = {}
+            if prep is None:
+                merged = {}
+                prep = self._prepare_bg_swap(snap["slot_of"], src_global,
+                                             dest, delta, snap["cap"])
+            merged.update(delta)
+            new_slot_of, new_pos_of, pre_dead = prep
+            dirty, rows = self._bg_dirty_rows(
+                merged, lambda p: ShardedFlatIndex.get_vectors(self, p),
+                staged=staged, refetch=delta,
+            )
+            extra_dead = self._bg_delta_fixup(delta, new_slot_of, new_pos_of)
+            dead_dest = (np.concatenate([pre_dead, extra_dead])
+                         if len(extra_dead) else pre_dead)
+            if len(dead_dest):
+                dshard, drow = dead_dest % n_dev, dead_dest // n_dev
+                for p, v in enumerate(valids_n):
+                    r = drow[dshard == p % n_dev]
+                    if v is not None and len(r):
+                        v[torch.as_tensor(r, device=v.device)] = False
+            self._cow_writes = False
+            self._install_striped(
+                src_global, dest, local_counts, local_starts, centroids,
+                slabs_n, valids_n, scales_n,
+                prebuilt=(new_slot_of, new_pos_of),
+            )
+            if rows is not None and len(dirty):
+                self._replay_bg_dirty(dirty, rows)
+        finally:
+            # release only this window: on the abandon path the
+            # invalidation already closed it, and a new build may own the
+            # flag by now
+            if getattr(self, "_layout_gen", 0) == snap["gen"]:
+                self._cow_writes = False
+
+    # -- the background build across ranks -------------------------------
+    # A foreground call of the index (search, write, tombstone) passes the
+    # gate (``_gated``): a rank counts its calls there. The steps of a
+    # background build that touch the index's state fall at gates, so at
+    # the same call on every rank: the snapshot at the call the ranks'
+    # background threads agree on, the swap at the first call where every
+    # rank's step (2) is done, which every gate of the window asks with
+    # one small all-gather. Step (2) runs in the background thread on the
+    # background group (``collective.using``).
+
+    def _fg_gate(self) -> None:
+        """The gate of one foreground call on a global mesh: wait while
+        a background build agrees on its snapshot's call, count the
+        call, then take the snapshot or ask whether to swap."""
+        with self._gate:
+            while self._fg_freeze:
+                self._gate.wait()
+            call = self._fg_calls
+            self._fg_calls += 1
+            win = self._bg_win
+        if win is None:
+            return
+        if call == win.open_at:
+            self._bg_open(win, call)
+        elif win.snap is not None:
+            self._bg_agree(win, call)
+
+    def _build_background_global(self) -> None:
+        group = collective.background_group()
+        if group is None:
+            raise RuntimeError(
+                "build_background on a mesh spanning ranks needs the "
+                "background group (ShardEngine.join opens it on every "
+                "rank)")
+        win = _Window()
+        with self._gate:
+            if self._bg_win is not None:
+                return  # already rebuilding
+            # no call starts here until the ranks agree on the snapshot's
+            # call
+            self._fg_freeze = True
+            self._bg_win = win
+            mine = self._fg_calls
+        calls = None
+        try:
+            with collective.using(group):
+                calls = collective.all_gather(torch.tensor([mine]))
+        finally:
+            with self._gate:
+                if calls is None:
+                    self._bg_win = None
+                else:
+                    win.open_at = int(calls.max())
+                self._fg_freeze = False
+                self._gate.notify_all()
+        win.opened.wait()
+        if win.snap is None:  # an empty index: nothing to rebuild
+            return
+        t0 = time.perf_counter()
+        try:
+            with collective.using(group):
+                win.layout = self._bg_layout(win.snap)
+            win.flag = _READY if win.layout is not None else _OVERFLOW
+        except Exception as e:
+            win.error = e
+            win.flag = _FAILED
+        finally:
+            win.phase2_s = time.perf_counter() - t0
+            win.phase2_done.set()
+        win.closed.wait()
+        if win.outcome == "failed":
+            if win.error is not None:
+                raise win.error
+            raise RuntimeError("build_background failed on another rank")
+
+    def _bg_open(self, win: "_Window", call: int) -> None:
+        """Step (1) at the agreed call, in the foreground."""
+        with self._mu.write():
+            snap = self._bg_snapshot()
+        win.snap = snap
+        win.t_open = time.perf_counter()
+        if snap is None:
+            self._bg_close(win, "empty", call)
+        win.opened.set()
+
+    def _bg_agree(self, win: "_Window", call: int) -> None:
+        """At each foreground call of the window: the ranks' step (2)
+        states in one all-gather; when every rank is done, every rank
+        swaps here, takes the blocking build (a striping overflow), or,
+        where a rank failed, releases the window."""
+        flags = collective.all_gather(
+            torch.tensor([win.flag], dtype=torch.int64)).flatten().tolist()
+        win.agreements += 1
+        if min(flags) == _RUNNING:
+            return
+        with self._mu.write():
+            if max(flags) == _FAILED:
+                outcome = "failed"
+                if getattr(self, "_layout_gen", 0) == win.snap["gen"]:
                     self._cow_writes = False
+            else:
+                outcome = ("swap" if max(flags) == _READY
+                           else "blocking build")
+                self._bg_install(win.snap, win.layout, None, None, None)
+        win.layout = None
+        self._bg_close(win, outcome, call)
+
+    def _bg_close(self, win: "_Window", outcome: str, call: int) -> None:
+        win.outcome = outcome
+        self.last_background = {
+            "outcome": outcome, "open_call": win.open_at,
+            "swap_call": call, "agreements": win.agreements,
+            "window_s": (time.perf_counter() - win.t_open
+                         if win.t_open else 0.0),
+            "phase2_s": win.phase2_s,
+        }
+        with self._gate:
+            if self._bg_win is win:
+                self._bg_win = None
+        win.closed.set()
+
+    def _bg_quiesce(self) -> None:
+        """Before a remesh / clear / load replaces storage (write lock
+        held): on a global mesh, wait until an open window's step (2)
+        has ended on this rank (it ends on every rank: it needs only the
+        other ranks' background threads), then close the window, which
+        the caller's invalidation abandons on every rank alike."""
+        win = self._bg_win if self.mesh.is_global else None
+        if win is not None and win.snap is not None:
+            win.phase2_done.wait()
+            win.layout = None
+            self._bg_close(win, "abandoned", self._fg_calls)
 
     def _install_layout(
         self, centroids: np.ndarray, local_counts: np.ndarray,
@@ -748,8 +967,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         kk = min(k, self._cap)
         if not self._spans:
             return merge_partials(part_v, part_i, kk)
-        v, i = merge_partials(part_v, part_i, min(kk, self._rank_rows()))
-        return self._merge_ranks(v, i, kk, merge_partials)
+        return self._rank_merge(part_v, part_i, kk, merge_partials)
 
     def _query(self, q, k, nprobe, pad_b, valids):
         """One batch ``q`` (B, d) through the route of a batch of (JAX)
@@ -787,6 +1005,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         pad_b = _next_pow2(max(b, 1))
         return -(-pad_b // self.replicas) * self.replicas
 
+    @_gated
     def search(self, queries, k, slot_mask=None):
         if self._needs_build():
             with self._mu.write():
@@ -821,6 +1040,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                 v.cpu().numpy(), i.cpu().numpy(), k)
         return self._map_pos_to_slots(scores, pos)
 
+    @_gated
     def search_pipelined(self, qstack, k, materialize: bool = True):
         """Serve a (NB, B, d) stack, batch by batch through the route of
         ``search`` (no filter, no flat fallback). ``materialize=False``
@@ -878,6 +1098,8 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
     def adopt_mesh(self, mesh) -> None:
         """Cold re-host: empty storage on the new topology (the caller
         reloads from a checkpoint); the cluster overlay resets with it."""
+        with self._mu.write():
+            self._bg_quiesce()
         ShardedFlatIndex.adopt_mesh(self, mesh)
         with self._mu.write():
             self._reset_overlay()
@@ -887,6 +1109,8 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         """Re-stripe onto a new mesh and rebuild the cluster layout there
         (the extents are per shard, so the topology invalidates them)."""
         was_trained = self.is_trained
+        with self._mu.write():
+            self._bg_quiesce()
         ShardedFlatIndex.remesh(self, mesh)
         with self._mu.write():
             # re-striping breaks an in-flight background build's position
@@ -950,6 +1174,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
 
     def load(self, path: str) -> bool:
         with self._mu.write():
+            self._bg_quiesce()
             if not ShardedFlatIndex._load_locked(self, path):
                 return False
             self._invalidate_bg_window()

@@ -30,17 +30,35 @@ between the packages), or one file a position with
 Global mesh (``make_mesh`` in a group of several ranks): every rank
 makes the same calls with the same arguments and holds tensors only for
 its own positions (``None`` at the others'), so a method that reaches a
-remote position fails instead of reading garbage. Slot routing is host
+remote position fails instead of reading garbage. The ranks own
+contiguous, ordered blocks of positions, of equal size or not (a
+degraded mesh of 7 on 2 ranks is 4 + 3). Slot routing is host
 arithmetic, identical on every rank; a write lands on the writer's own
 positions. A search runs stage 1 on the rank's shards, merges them to
-the rank's ``(B, k)``, all-gathers those over the ranks and merges once
-more (``parallel/collective.py``): JAX's local top-k, ``all_gather``
-and ``top_k``, ``B * k * 8`` bytes a rank. Host reads of the slab
-(checkpoints, ``get_vectors``, the validity) gather across ranks, as
-JAX's ``_host_replicated`` does. Checkpoints: each rank writes its own
-positions' files (``persist_backend="orbax"``), or rank 0 writes the
-gathered npz; rank 0 writes the shared metadata, and the ranks meet at
-a barrier.
+the rank's ``(B, k')`` and all-gathers those over the ranks and merges
+once more (``parallel/collective.py``): JAX's local top-k,
+``all_gather`` and ``top_k``, ``B * k' * 8`` bytes a rank. k' is the
+same on every rank, ``min(k, rows of the largest rank's shards)``, from
+the mesh and the capacity (host state every rank shares), with -inf /
+-1 past a rank's own candidates. Host reads of the slab (checkpoints,
+``get_vectors``, the validity) gather across ranks, padded to the
+largest rank's shard count, as JAX's ``_host_replicated`` does.
+Checkpoints: each rank writes its own positions' files
+(``persist_backend="orbax"``), or the gathered npz; the shared files
+(npz, metadata, sidecars) are written once a path: by rank 0 where the
+ranks share the path, by every rank where each has its own (its own
+data directory, as every JAX process writes its own copy); the ranks
+meet at a barrier.
+
+A live remesh moves rows, never a host copy of the slab: each rank reads
+the live rows of the old shards it holds, keeps those whose new shard
+it holds and sends the rest to their new ranks through
+``collective.all_to_all`` (``_CHUNK`` slots at a time, the slot id
+beside each row). The ranks first agree that every rank could read its
+old positions, so a dead device makes every rank raise together. A
+remesh between a global mesh and a single-process one is refused
+(``ValueError``); a mesh that leaves a rank without a position is an
+elastic restart (``NotImplementedError``).
 
 A replicated global mesh (``make_mesh2``) holds whole replica groups a
 rank: every rank holds every shard, one full copy a group it owns.
@@ -51,13 +69,15 @@ the rank, and the ranks all-gather the answered rows (padded to the
 largest rank's), so every rank returns the whole batch. Checkpoints:
 rank 0 writes its own copy (npz, or group 0's ``n_devices`` files), and
 every rank loads all of them into each group it holds. Replica groups
-spanning ranks and re-meshing a global mesh are not ported
-(``NotImplementedError``, ``ROADMAP.md`` queue 1).
+spanning ranks are not ported (``NotImplementedError``, ``ROADMAP.md``
+queue 1).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import time
 from typing import Any
 
 import numpy as np
@@ -137,13 +157,10 @@ class ShardedFlatIndex(FlatIndex):
             raise ValueError(f"the shard axis {self.axis!r} must be the "
                              f"mesh's last: {mesh.axis_names}")
         n_dev = int(mesh.shape[self.axis])
-        if mesh.is_global:
-            per = mesh.size // mesh.world
-            if mesh.size != n_dev and per % n_dev:
-                raise collective.not_ported("replicas")
-            if mesh.owners != tuple(p // per for p in range(mesh.size)):
-                raise ValueError("a global mesh's ranks must own equal, "
-                                 f"ordered blocks: {mesh.owners}")
+        if mesh.is_global and mesh.size != n_dev and any(
+                len(set(mesh.owners[g:g + n_dev])) > 1
+                for g in range(0, mesh.size, n_dev)):
+            raise collective.not_ported("replicas")
         self.mesh = mesh
         self.replica_axis = (
             "replica" if "replica" in mesh.axis_names else None
@@ -162,6 +179,12 @@ class ShardedFlatIndex(FlatIndex):
         #: merges across ranks. A replicated global mesh holds whole
         #: groups a rank, and its ranks gather answered batch slices.
         self._spans = len(self._own_shards()) < n_dev
+        #: read-group shards of each rank, in rank order (the blocks)
+        self._rank_shards = np.bincount(
+            np.asarray(mesh.owners[:n_dev]), minlength=mesh.world)
+        #: whether this rank writes a checkpoint's shared files, and how
+        #: many ranks do (``_choose_writer``)
+        self._lead, self._writers = mesh.rank == mesh.owners[0], 1
         #: queries, results and merges live on the first own position's
         #: device
         self.device = mesh.devices[mesh.local_positions[0]]
@@ -198,20 +221,36 @@ class ShardedFlatIndex(FlatIndex):
         return [s for s in range(self.n_devices)
                 if self._read_pos(s) in self._local]
 
-    def _rank_rows(self) -> int:
-        """Rows of the shards one rank holds (the same on every rank)."""
-        return len(self._own_shards()) * self.rows_per_device
+    def _rank_k(self, k: int) -> int:
+        """k' of a rank's merge on a mesh spanning ranks: the same on
+        every rank, from the mesh and the capacity."""
+        return min(k, int(self._rank_shards.max()) * self.rows_per_device)
+
+    def _rank_merge(self, part_v, part_i, k: int, merge):
+        """The two levels of a search on a mesh spanning ranks: the
+        rank's ``(B, parts, k'')`` partials merged to ``(B, k')`` (-inf /
+        -1 past its own candidates), then ``_merge_ranks``."""
+        kr = self._rank_k(k)
+        v, i = merge(part_v, part_i,
+                     min(kr, part_v.shape[1] * part_v.shape[2]))
+        pad = kr - v.shape[1]
+        if pad:
+            v = torch.nn.functional.pad(v, (0, pad), value=float("-inf"))
+            i = torch.nn.functional.pad(i, (0, pad), value=-1)
+        return self._merge_ranks(v, i, k, merge)
 
     # -- row reads --------------------------------------------------------------
     def _elsize(self) -> int:
         """Bytes of one stored element."""
         return torch.empty((), dtype=self._dtype).element_size()
 
-    def _gather_raw_of(self, slabs, scales, pos, n_dev):
+    def _gather_raw_of(self, slabs, scales, pos, n_dev, positions=None):
         """Stored rows (raw codes) and scales at global positions ``pos``
         of the explicit per-position lists (a snapshot in the background
-        build), read from the read group's copies, on the index's device
-        in the order of ``pos``."""
+        build, the old mesh's in a remesh), read from the read group's
+        copies (``positions``: shard -> the position to read, where the
+        lists are another mesh's), on the index's device in the order of
+        ``pos``."""
         pos = np.asarray(pos, np.int64)
         shard, row = pos % n_dev, pos // n_dev
         dev = self.device
@@ -220,7 +259,7 @@ class ShardedFlatIndex(FlatIndex):
         sc = (torch.empty((len(pos),), dtype=torch.float32, device=dev)
               if self._is_quantized else None)
         for s in np.unique(shard).tolist():
-            p = self._read_pos(s)
+            p = self._read_pos(s) if positions is None else positions[s]
             at = np.nonzero(shard == s)[0]
             r = torch.as_tensor(row[at], device=slabs[p].device)
             at_t = torch.as_tensor(at, device=dev)
@@ -494,7 +533,22 @@ class ShardedFlatIndex(FlatIndex):
             if scales_np is not None else None)
 
     def _is_lead(self) -> bool:
-        return not self.mesh.is_global or self.mesh.rank == 0
+        return self._lead
+
+    def _choose_writer(self, path: str) -> None:
+        """Decide which ranks write the shared files of a checkpoint at
+        ``path`` (every rank calls this as a save begins): each rank
+        whose path no lower rank shares. Rank 0 alone where the ranks
+        share the path; every rank where each has its own."""
+        if not self.mesh.is_global:
+            return
+        paths = collective.all_gather_object(os.path.abspath(path))
+        self._lead = paths.index(paths[self.mesh.rank]) == self.mesh.rank
+        self._writers = len(set(paths))
+
+    def _save_locked(self, path: str, skip_slab: bool = False) -> None:
+        self._choose_writer(path)
+        FlatIndex._save_locked(self, path, skip_slab=skip_slab)
 
     def _barrier(self) -> None:
         if self.mesh.is_global:
@@ -504,9 +558,10 @@ class ShardedFlatIndex(FlatIndex):
                         ) -> tuple[list[int], int]:
         """One file a shard, of ``n_devices``: the shards of the read
         group this process holds. On a replicated global mesh every rank
-        reads all of them, and only the rank of group 0 writes them."""
+        reads all of them, and only the ranks that write the shared
+        files write them (rank 0 on a shared path)."""
         own = self._own_shards()
-        if writing and not self._spans and self._read_group:
+        if writing and not self._spans and not self._lead:
             own = []
         return own, self.n_devices
 
@@ -545,14 +600,29 @@ class ShardedFlatIndex(FlatIndex):
         n_dev = self.n_devices
         parts = [parts[self._read_pos(s)] for s in self._own_shards()]
         if self._spans:
-            mine = torch.stack([t.cpu() for t in parts])
-            every = collective.all_gather(mine)
-            parts = list(every.reshape((n_dev,) + tuple(mine.shape[1:])))
+            parts = list(self._shard_stack(torch.stack([t.cpu()
+                                                        for t in parts])))
         host = [slab_to_numpy(t) for t in parts]
         out = np.empty((self._cap,) + host[0].shape[1:], host[0].dtype)
         for s, h in enumerate(host):
             out[s::n_dev] = h
         return out
+
+    def _shard_stack(self, mine: torch.Tensor, everywhere: bool = True):
+        """This rank's ``(own shards, ...)`` host stack -> every rank's,
+        ``(n_devices, ...)`` in shard order (the blocks lie in rank
+        order), on every rank, or on rank 0 only (None elsewhere). The
+        stacks cross padded to the largest rank's shard count."""
+        counts = self._rank_shards
+        most = int(counts.max())
+        if len(mine) < most:
+            mine = torch.cat([mine, mine.new_zeros(
+                (most - len(mine),) + tuple(mine.shape[1:]))])
+        every = (collective.all_gather(mine) if everywhere
+                 else collective.gather(mine))
+        if every is None:
+            return None
+        return torch.cat([every[r, :c] for r, c in enumerate(counts)])
 
     def _host_slot_view(self):
         """Slot-order host copies of the slab (checkpoint encoding), the
@@ -614,8 +684,7 @@ class ShardedFlatIndex(FlatIndex):
         merge = merge_partials if kernels else merge_partials_plain
         if not self._spans:
             return merge(part_v, part_i, k)
-        v, i = merge(part_v, part_i, min(k, self._rank_rows()))
-        return self._merge_ranks(v, i, k, merge)
+        return self._rank_merge(part_v, part_i, k, merge)
 
     @staticmethod
     def _merge_ranks(v: torch.Tensor, i: torch.Tensor, k: int, merge):
@@ -767,12 +836,24 @@ class ShardedFlatIndex(FlatIndex):
                                                 i.cpu().numpy(), k)
 
     # -- live re-meshing --------------------------------------------------------
+    def _check_topology(self, mesh: Mesh) -> None:
+        if self.axis not in mesh.axis_names:
+            raise ValueError(
+                f"new mesh lacks axis {self.axis!r}: {mesh.axis_names}"
+            )
+        if mesh.is_global != self.mesh.is_global:
+            raise ValueError(
+                "a remesh moves an index between two meshes spanning the "
+                "same ranks, or within one process: not from one to the "
+                "other")
+
     def adopt_mesh(self, mesh: Mesh) -> None:
         """Install a new topology with EMPTY storage (cold re-host): the
         old mesh may be unreachable, so nothing is read from it; the
-        caller reloads from a checkpoint (``load`` / ``store.recover``)."""
-        if self.mesh.is_global or mesh.is_global:
-            raise collective.not_ported("re-meshing")
+        caller reloads from a checkpoint (``load`` / ``store.recover``).
+        On a global mesh every rank calls it, and each then holds only
+        its own positions' empty tensors."""
+        self._check_topology(mesh)
         with self._mu.write():
             self._set_mesh(mesh)
             self._cap = self._round_cap(max(self._next_slot, 1024))
@@ -785,38 +866,123 @@ class ShardedFlatIndex(FlatIndex):
         """Re-host the index on another mesh IN PLACE (a lost device, or
         more devices). Slot ids are mesh-independent, so the store's
         registries survive; slot ``s`` moves from ``(s % n_old, s //
-        n_old)`` to ``(s % n_new, s // n_new)`` through the host
-        slot-order view. Reads every old position: a dead device makes
-        this raise (``WDBX.heal`` then cold re-hosts)."""
-        if self.mesh.is_global or mesh.is_global:
-            raise collective.not_ported("re-meshing")
+        n_old)`` to ``(s % n_new, s // n_new)``. Each rank reads the live
+        rows of the old shards it holds and keeps or sends each to the
+        rank of its new shard (``_move_to_mesh``). Reads every old
+        position held here: a dead device makes this raise, on every
+        rank of a global mesh together (``WDBX.heal`` then cold
+        re-hosts). ``last_remesh`` reports the seconds, and the rows and
+        bytes this rank sent to other ranks."""
+        self._check_topology(mesh)
         with self._mu.write():
-            if self.axis not in mesh.axis_names:
-                raise ValueError(
-                    f"new mesh lacks axis {self.axis!r}: {mesh.axis_names}"
-                )
-            hwm = self._next_slot
+            t0 = time.perf_counter()
+            self._check_readable()
             old_ndev = self.n_devices
-            slab_np, valid_np, scales_np = self._host_slot_view()
+            old = (self._slabs, self._valids, self._row_scales, old_ndev,
+                   {s: self._read_pos(s) for s in self._own_shards()},
+                   self._spans)
+            hwm = self._next_slot
             self._set_mesh(mesh)
-            new_cap = self._round_cap(max(hwm, 1024))
-
-            def fit(x, fill):
-                if x is None:
-                    return None
-                out = np.full((new_cap,) + x.shape[1:], fill, x.dtype)
-                n = min(new_cap, x.shape[0])
-                out[:n] = x[:n]
-                return out
-
-            self._cap = new_cap
-            self._place(fit(slab_np, 0), fit(valid_np, False),
-                        fit(scales_np, 1.0))
-            self._free = [s for s in self._free if s < new_cap]
+            self._cap = self._round_cap(max(hwm, 1024))
+            self._alloc(self._cap)
+            rows, sent = self._move_to_mesh(old, hwm)
+            self._free = [s for s in self._free if s < self._cap]
+            self.last_remesh = {
+                "seconds": time.perf_counter() - t0, "from": old_ndev,
+                "to": self.n_devices, "rows_sent": rows, "bytes_sent": sent}
             logger.info(
                 "remeshed %d -> %d shards (cap %d, %d live rows)",
-                old_ndev, self.n_devices, new_cap, self._size,
+                old_ndev, self.n_devices, self._cap, self._size,
             )
+
+    def _check_readable(self) -> None:
+        """Read every position held here (a dead device raises); on a
+        global mesh the ranks then agree, so all raise or none does."""
+        err = None
+        try:
+            for p in sorted(self._local):
+                float(self._valids[p][:1].sum())
+        except Exception as e:  # a lost device raises what CUDA raises
+            err = f"{type(e).__name__}: {e}"
+        errs = (collective.all_gather_object(err) if self.mesh.is_global
+                else [err])
+        bad = {r: e for r, e in enumerate(errs) if e is not None}
+        if bad:
+            raise RuntimeError(f"remesh: ranks cannot read their "
+                               f"positions: {bad}")
+
+    def _move_to_mesh(self, old, hwm: int) -> tuple[int, int]:
+        """Write the live rows of the old per-position lists ``old``
+        (slabs, validity, scales, shard count, the old shards this rank
+        reads -> their positions, whether those spanned ranks) below
+        ``hwm`` into every copy of their new shards held here, ``_CHUNK``
+        slots at a time. Where the old shards spanned ranks, the rows
+        bound for another rank cross in one ``all_to_all`` a chunk, each
+        with its slot id; otherwise every rank holds every row. Returns
+        the rows and bytes this rank sent."""
+        slabs, valids, scales, old_n, held, spans = old
+        n_new, rank = self.n_devices, self.mesh.rank
+        world = self.mesh.world if spans else 1
+        # has[r, s]: rank r holds a copy of new shard s
+        has = np.zeros((max(self.mesh.owners) + 1, n_new), bool)
+        has[np.asarray(self.mesh.owners), np.arange(self.mesh.size) % n_new] \
+            = True
+        rows_sent = bytes_sent = 0
+        for lo in range(0, hwm, _CHUNK):
+            hi = min(hwm, lo + _CHUNK)
+            slots = []
+            for s, p in held.items():
+                r_lo, r_hi = -(-(lo - s) // old_n), -(-(hi - s) // old_n)
+                live = torch.nonzero(valids[p][r_lo:r_hi]).flatten().cpu()
+                slots.append((live.numpy() + r_lo) * old_n + s)
+            slots = np.concatenate(slots) if slots else np.empty(0, np.int64)
+            raw, sc = self._gather_raw_of(slabs, scales, slots, old_n,
+                                          positions=held)
+            new_shard = slots % n_new
+            mine = has[rank, new_shard]
+            at = torch.as_tensor(np.nonzero(mine)[0], device=raw.device)
+            self._put_rows(self._slabs, self._valids, self._row_scales,
+                           slots[mine], raw[at], None if sc is None
+                           else sc[at])
+            if world == 1:
+                continue
+            packed = torch.cat([self._pack(raw, sc), torch.from_numpy(
+                slots).to(raw.device)[:, None].view(torch.uint8)], 1)
+            blocks = []
+            for r in range(world):
+                m = has[r, new_shard] if r != rank else np.zeros(
+                    len(slots), bool)
+                blocks.append(packed[torch.as_tensor(np.nonzero(m)[0],
+                                                     device=raw.device)])
+                if r != rank:
+                    rows_sent += int(m.sum())
+                    bytes_sent += int(m.sum()) * packed.shape[1]
+            for r, got in enumerate(collective.all_to_all(blocks)):
+                if r != rank and len(got):
+                    self._put_rows(
+                        self._slabs, self._valids, self._row_scales,
+                        got[:, -8:].contiguous().view(torch.int64)[:, 0]
+                        .cpu().numpy(), *self._unpack(got[:, :-8]))
+        return rows_sent, bytes_sent
+
+    def _put_rows(self, slabs_n, valids_n, scales_n, dst, rows, sc):
+        """Write stored rows (and scales) at global positions ``dst`` of
+        the per-position tensors ``slabs_n`` / ``valids_n`` /
+        ``scales_n`` (this mesh's), into every copy held here, marked
+        live."""
+        n_dev = self.n_devices
+        dshard, drow = dst % n_dev, dst // n_dev
+        for s in np.unique(dshard).tolist():
+            at = torch.as_tensor(np.nonzero(dshard == s)[0],
+                                 device=rows.device)
+            r_np = drow[dshard == s]
+            for p in self._copies(s):
+                dev = self.mesh.devices[p]
+                r = torch.as_tensor(r_np, device=dev)
+                slabs_n[p][r] = rows[at].to(dev)
+                valids_n[p][r] = True
+                if sc is not None:
+                    scales_n[p][r] = sc[at].to(dev)
 
     def get_vectors(self, slots: np.ndarray) -> np.ndarray:
         slots = np.asarray(slots, np.int64)

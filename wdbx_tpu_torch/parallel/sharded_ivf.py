@@ -501,15 +501,20 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
     # shard's own file instead, and the ``.ivf.npz`` keeps the rest.
     def _shard_tables(self, parts) -> np.ndarray | None:
         """One shard-major host table from one tensor a shard (bf16 as
-        uint16 bits), gathered on rank 0 when the shards span ranks
-        (None on the others)."""
+        uint16 bits), gathered when the shards span ranks: on rank 0
+        (None on the others), or on every rank where several write
+        (``_choose_writer``)."""
         held = [t.cpu() for t in parts if t is not None]
         mine = torch.stack(held)
         if self._spans:
-            mine = collective.gather(mine)
+            mine = self._shard_stack(mine, everywhere=self._writers > 1)
             if mine is None:
                 return None
         return slab_to_numpy(mine.reshape((-1,) + tuple(held[0].shape[1:])))
+
+    def save(self, path: str, skip_slab: bool = False) -> None:
+        self._choose_writer(path)
+        IVFIndex.save(self, path, skip_slab=skip_slab)
 
     def _overlay_host_arrays(self) -> dict[str, np.ndarray] | None:
         tables = {"bucket_slot": self._bucket_slot,

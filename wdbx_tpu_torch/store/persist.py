@@ -13,10 +13,12 @@ checkpoint, and a directory orbax wrote raises ``ValueError`` here. The
 npz checkpoint stays the format both packages read.
 
 On a mesh spanning ranks each rank writes and reads only its own
-positions' files (``positions`` of ``total``): rank 0 clears the
-directory, every rank writes its files, rank 0 writes the sidecar, with
-a barrier between the steps. The ranks share the checkpoint's
-directory, as JAX's multi-controller orbax checkpoints do.
+positions' files (``positions`` of ``total``): the lead rank clears the
+directory, every rank writes its files, the lead writes the sidecar,
+with a barrier between the steps. Where the ranks share the
+checkpoint's directory, as JAX's multi-controller orbax checkpoints do,
+rank 0 leads; where each rank has its own (its own data directory),
+each leads in its own.
 """
 
 from __future__ import annotations
@@ -41,12 +43,14 @@ def _dir(path: str) -> str:
 
 def save_arrays(path: str, arrays: dict[str, Sequence[torch.Tensor]],
                 positions: Sequence[int] | None = None,
-                total: int | None = None) -> None:
+                total: int | None = None, lead: bool | None = None
+                ) -> None:
     """Write ``arrays`` (name -> one tensor a position) as one file a
     position, each from its own device, plus the sidecar. ``positions``
     (default: all) numbers the given tensors among the checkpoint's
     ``total``; fewer than ``total`` means the other ranks write the
-    rest."""
+    rest. ``lead`` says whether this rank clears the directory and
+    writes the sidecar (default: rank 0, or the only writer)."""
     d = _dir(path)
     counts = {len(v) for v in arrays.values()}
     if len(counts) != 1:
@@ -57,7 +61,8 @@ def save_arrays(path: str, arrays: dict[str, Sequence[torch.Tensor]],
     if len(positions) != n:
         raise ValueError(f"{n} tensors for positions {positions}")
     split = total != n
-    lead = not split or collective.rank_world()[0] == 0
+    if lead is None:
+        lead = not split or collective.rank_world()[0] == 0
     if lead:
         if os.path.isdir(d):
             shutil.rmtree(d)

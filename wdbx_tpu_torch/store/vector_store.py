@@ -481,8 +481,7 @@ class VectorStore:
                 # indexes on a mesh spanning ranks (replicated or not)
                 # search one after another: every rank must issue their
                 # collectives in the same order
-                spread = any(getattr(getattr(ix, "mesh", None), "is_global",
-                                     False) for ix in indices)
+                spread = self._spans_ranks()
                 if len(indices) > 1 and pool is not None and not spread:
                     # fan shards out on threads: each search holds only
                     # its index's read lock, so dispatch+transfer round
@@ -1074,9 +1073,18 @@ class VectorStore:
     # no heartbeats, dead failover paths — SURVEY.md §5.3). Here recovery
     # is checkpoint-based: verify() detects registry/mask divergence and
     # recover() rebuilds a shard from its last persisted state.
+    def _spans_ranks(self) -> bool:
+        """Whether an index lies on a mesh spanning ranks (replicated or
+        not): every rank then makes its calls in the same order."""
+        return any(getattr(getattr(ix, "mesh", None), "is_global", False)
+                   for ix in self.indices)
+
     def verify(self) -> dict[str, Any]:
         """Cross-check host bookkeeping against device validity masks.
-        Returns a report; 'consistent' is False if any shard diverges."""
+        Returns a report; 'consistent' is False if any shard diverges.
+        On a mesh spanning ranks the ranks agree: a shard is ok only
+        where every rank found it so (one ``all_gather_object``), so
+        every rank takes the same decision at each layer of ``heal``."""
         report: dict[str, Any] = {"shards": [], "consistent": True}
         orphans = 0
         with self._lock:
@@ -1103,6 +1111,16 @@ class VectorStore:
                         (~np.isin(present, reg_slots)).sum()
                     )
             report["orphan_metadata"] = orphans
+        if self._spans_ranks():
+            from wdbx_tpu_torch.parallel import collective
+
+            verdicts = collective.all_gather_object(
+                [entry["ok"] for entry in report["shards"]])
+            for i, entry in enumerate(report["shards"]):
+                entry["failing_ranks"] = [r for r, v in enumerate(verdicts)
+                                          if not v[i]]
+                entry["ok"] = not entry["failing_ranks"]
+            report["consistent"] = all(e["ok"] for e in report["shards"])
         return report
 
     def recover(self, shard: int, clear_on_failure: bool = False) -> bool:
