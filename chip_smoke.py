@@ -182,8 +182,14 @@ Phases (each prints JSON lines; any failure exits non-zero):
              production_serving deployment's heal(allow_remesh=True)
              (live remesh and rebuild on 7 shards, re-tuned to 0.97,
              recall@10 0.95 unfiltered and at 10% / 1%, replayed by one
-             process's 7-position index) and the walkthrough's
-             checkpoint heal (store.save, clear, heal: the same hits);
+             process's 7-position index), the walkthrough's
+             checkpoint heal (store.save, clear, heal: the same hits),
+             then every position of rank 1 failing its probe: heal onto
+             rank 0's 4 positions (rank 1 holds none and keeps
+             answering) and, the probe passing again, back onto the 8,
+             each re-tuned, replayed by one process's index of the same
+             shard count and gated at recall@10 0.95 unfiltered and at
+             10% / 1%;
              the sharded clustered index's build_background in a thread
              of each rank while its main thread searches (K3), adds,
              updates, removes and filters (K2), the swap at the same
@@ -193,7 +199,28 @@ Phases (each prints JSON lines; any failure exits non-zero):
              then a remesh to 7 with the clustered rebuild (paths
              multiprocess_replicated, multiprocess_replicated_clustered,
              multiprocess_ivf, multiprocess_remesh, multiprocess_heal,
-             multiprocess_background)
+             multiprocess_background). A second spawn puts 4 ranks of 2
+             positions on the card, the same 8 positions in all:
+             make_mesh2(2) lays group 0 on ranks 0-1 and group 1 on
+             ranks 2-3, so each group spans two ranks. The flat point in
+             bf16 (B=128, B=1 where ranks 0-1 launch nothing, pipelined
+             NB=64), each search one gloo all-gather (collective.stats
+             must show it), its split (stage 1, the rank's merge, the
+             one all-gather and gloo alone, the merge of the group's
+             ranks), the same rows through WDBX(enable_distributed=True,
+             MESH_REPLICAS=2), and ShardedClusteredIndex at the sharded
+             clustered point (build, search, pipelined, the 1% filter);
+             here all four ranks' answers must be equal, match the plain
+             version over the whole slab and one process's index on
+             make_mesh2(2, 4) loaded from their npz, and reach recall@10
+             0.9938 (flat) and 0.95 (clustered, also filtered). Then
+             meshes that leave ranks without a position, at the flat
+             point: the index remeshed live onto make_mesh(3) (rank 3
+             holds none) and make_mesh2(2, 2) (ranks 2-3 hold none), and
+             the facade's deployment with every position of rank 3
+             failing its probe, healed onto ranks 0-2 and back; a B=128
+             search at each step against the plain version (paths
+             multiprocess_spanning, multiprocess_emptied)
   ivf_kernels
              K5, the IVF bucket scan, against its plain version: bf16 and
              float32 tables, d 384 and 100, C 128 and 1408, k in {1, 10,
@@ -2977,37 +3004,45 @@ def _wall_ms(fn, reps, warm=1) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def _mp_split(stage1, k, local_k) -> dict:
-    """Where a search's time goes on a rank: ``stage1()`` (the rank's
-    stage-1 launches, returning their partials), the merge of the rank's
-    partials, the gather of every rank's (B, k') (host staging and gloo;
-    also of a host copy, gloo alone), the final merge. Every rank times the same sequence, so the gathers
-    meet. Comparison launches: never counted."""
+def _mp_split(index, stage1, b, k) -> dict:
+    """Where a search's time goes on a rank of ``index``: ``stage1()``
+    (the rank's stage-1 launches for its group's slice of a batch of
+    ``b``, returning their partials), the rank's merge, the one
+    all-gather of every rank's (slice, k') block (host staging and gloo;
+    also of a host copy, gloo alone), the merge of the group's ranks,
+    and ``_serve`` around the rank's merged slice (pack, gather, merges).
+    Every rank times the same sequence, so the gathers meet. Comparison
+    launches: never counted."""
     import torch
 
     from wdbx_tpu_torch.kernels import fused_topk as tf
-    from wdbx_tpu_torch.parallel import ShardedFlatIndex, collective
+    from wdbx_tpu_torch.parallel import collective
 
+    g = index._groups[0]
     out = {"stage1_ms": cuda_ms(stage1, reps=5, warm=1)}
     pv, pi = stage1()
+    out["slice_rows"] = int(pv.shape[0])
     out["local_merge_ms"] = cuda_ms(
-        lambda: tf.topk_merge_partials(pv, pi, local_k), reps=10, warm=2)
-    v, i = tf.topk_merge_partials(pv, pi, local_k)
-    packed = torch.cat([v.view(torch.int32), i.to(torch.int32)], -1)
+        lambda: index._merge_own(pv, pi, k, tf.merge_partials), reps=10,
+        warm=2)
+    v, i = index._merge_own(pv, pi, k, tf.merge_partials)
+    kr = v.shape[1]
+    packed = torch.cat([v.contiguous().view(torch.int32),
+                        i.to(torch.int32)], -1)
     out["gather_ms"] = _wall_ms(lambda: collective.all_gather(packed),
                                 reps=20, warm=2)
     host = packed.cpu()  # the same gather without the device copies
     out["gather_gloo_only_ms"] = _wall_ms(
         lambda: collective.all_gather(host), reps=20, warm=2)
     every = collective.all_gather(packed)
-    gv = every[..., :local_k].contiguous().view(torch.float32)
-    gv = gv.transpose(0, 1).contiguous()
-    gi = every[..., local_k:].transpose(0, 1).contiguous()
+    part = torch.stack([every[r] for r in range(index.mesh.world)
+                        if index._group_shards[r, g]], 1)
+    gv = part[..., :kr].contiguous().view(torch.float32)
+    gi = part[..., kr:].contiguous()
     out["final_merge_ms"] = cuda_ms(
         lambda: tf.topk_merge_partials(gv, gi, k), reps=10, warm=2)
-    out["call_ms"] = _wall_ms(
-        lambda: ShardedFlatIndex._merge_ranks(v, i, k, tf.merge_partials),
-        reps=5)
+    out["call_ms"] = _wall_ms(lambda: index._serve(
+        b, k, lambda g_, lo, hi: (v, i), tf.merge_partials), reps=5)
     out["gather_bytes_per_rank"] = int(packed.numel() * 4)
     return out
 
@@ -3109,7 +3144,7 @@ def _rank_main(rank, world, port, tmp, seed):
     pipe_ms = _wall_ms(lambda: idx.search_pipelined(qstack, k), reps=3) / nb
     qk = l2_normalize(torch.as_tensor(qs[0], device="cuda"))
     split = _mp_split(
-        lambda: idx._shard_parts(0, qk, k, idx._valids, True), k, k)
+        idx, lambda: idx._shard_parts(0, qk, k, idx._valids, True), b, k)
     # orbax (one file a position, each rank its own) and the npz for the
     # parent
     idx.persist_backend = "orbax"
@@ -3235,7 +3270,7 @@ def _rank_main(rank, world, port, tmp, seed):
         return (torch.cat([p[0] for p in parts], 1),
                 torch.cat([p[1] for p in parts], 1))
 
-    c_split = _mp_split(k3_stage1, k, k)
+    c_split = _mp_split(c, k3_stage1, bc, k)
     c_split["live_blocks_per_shard"] = [int(cl["ok"].sum()) for cl in calls]
     t0 = time.perf_counter()
     c.save(os.path.join(tmp, "mp_clu"))
@@ -3284,16 +3319,17 @@ def _rank_main(rank, world, port, tmp, seed):
 MP_DOWN = "cuda:0#7"  # the position whose probe fails, on rank 1
 
 
-def _inject_fault(engine):
-    """On rank 1, make this engine's probe of ``MP_DOWN`` fail: the real
-    ``health_check`` then gathers the fault to every rank."""
+def _inject_fault(engine, rank=1, every=False):
+    """On ``rank``, make this engine's probe of ``MP_DOWN`` (``every``:
+    of every position the rank holds) fail: the real ``health_check``
+    then gathers the fault to every rank."""
     from wdbx_tpu_torch.parallel import ShardEngine
 
-    if engine.mesh.rank != 1:
+    if engine.mesh.rank != rank:
         return
 
     def probe(name, device):
-        if name == MP_DOWN:
+        if every or name == MP_DOWN:
             return "error: injected"
         return ShardEngine._probe(engine, name, device)
 
@@ -3409,7 +3445,10 @@ def _rank_heal(db, held_np, picks, ans, counts, errs, tmp):
     quota scan; the 1% filter's exact route, K1 on the rank's shards);
     the npz the parent replays; then the walkthrough's checkpoint heal
     (``store.save()``, ``clear()``, ``heal()``), which must give the
-    same hits back. Returns the rank's report."""
+    same hits back. Then every position of rank 1 fails its probe:
+    ``heal`` onto rank 0's 4 positions, and, the probe passing again,
+    back onto the 8, each re-tuned, with ``_heal_calls`` and an npz for
+    the parent. Returns the rank's report."""
     import numpy as np
 
     label, k, d = "multiprocess_heal", 10, 384
@@ -3476,14 +3515,57 @@ def _rank_heal(db, held_np, picks, ans, counts, errs, tmp):
     if not (np.array_equal(back[1], ans["heal_search"][1][:128])
             and np.array_equal(back[0], ans["heal_search"][0][:128])):
         fail(f"{label}: the checkpoint heal answers otherwise")
-    return {"heal_s": heal_s, "rehost": report["rehost"],
-            "remeshed_to": report["remeshed_to"],
-            "nlist": int(index._centroids.shape[0]), "nprobe": index.nprobe,
-            "tuned_recall_vs_index_exact": tuned, "tune_s": tune_s,
-            "store_save_s": save_s, "checkpoint_heal_s": ckpt_s,
-            "search_b128_ms": _wall_ms(lambda: index.search(
-                held_np[:128], k), reps=5),
-            "max_abs_err_vs_plain": max(flat_errs)}
+    out = {"heal_s": heal_s, "rehost": report["rehost"],
+           "remeshed_to": report["remeshed_to"],
+           "nlist": int(index._centroids.shape[0]), "nprobe": index.nprobe,
+           "tuned_recall_vs_index_exact": tuned, "tune_s": tune_s,
+           "store_save_s": save_s, "checkpoint_heal_s": ckpt_s,
+           "search_b128_ms": _wall_ms(lambda: index.search(
+               held_np[:128], k), reps=5)}
+    # every position of rank 1 fails its probe: heal onto rank 0 alone
+    # (rank 1 holds none and keeps answering), then, the probe passing
+    # again, back onto the 8 positions the engine started on
+    one_rank = {}
+    for step, want in (("heal_one", names[:4]), ("heal_back", names)):
+        if step == "heal_one":
+            _inject_fault(engine, every=True)
+        t0 = time.perf_counter()
+        got = db.heal(allow_remesh=True)
+        step_s = time.perf_counter() - t0
+        engine.__dict__.pop("_probe", None)
+        mine = len(index.mesh.local_positions)
+        if got["remeshed_to"] != want or got["rehost"] != {"0": "live"} \
+                or got["unrecovered_shards"] or \
+                index.n_devices != len(want) or not index.is_trained or \
+                mine != (4 if step == "heal_back" or engine.mesh.rank == 0
+                         else 0):
+            fail(f"{label}/{step}: heal {got}, {mine} positions here")
+        t0 = time.perf_counter()
+        tuned1 = index.tune(held_np[:128], k=k, target_recall=DENSE_TUNE)
+        tune1_s = time.perf_counter() - t0
+        with _K1Recorder() as rec:
+            def flat_call(run):
+                own1 = len(index.mesh.local_positions)
+                spread = len(set(index.mesh.owners)) > 1
+                got1 = _mp_call(rec, label, run, counts, own1,
+                                int(own1 > 0) + int(spread), body,
+                                "fused_topk_partial[bfloat16]")
+                flat_errs.append(_check_k1_launches(
+                    f"{label}/{step}/flat route", rec.last, errs))
+                return got1
+
+            calls = _heal_calls(index, held_np, picks, quota_call, flat_call)
+        ans.update({f"{step}/{key}": v for key, v in calls.items()})
+        index.save(os.path.join(tmp, f"mp_{step}"))
+        one_rank[step] = {
+            "heal_s": step_s, "remeshed_to": got["remeshed_to"],
+            "local_positions": mine, "nlist": int(index._centroids.shape[0]),
+            "nprobe": index.nprobe, "tuned_recall_vs_index_exact": tuned1,
+            "tune_s": tune1_s, "search_b128_ms": _wall_ms(
+                lambda: index.search(held_np[:128], k), reps=5),
+            "remesh": index.last_remesh}
+    return dict(out, one_rank=one_rank,
+                max_abs_err_vs_plain=max(flat_errs))
 
 
 def _heal_calls(index, held, picks, quota_call, flat_call):
@@ -3651,6 +3733,7 @@ def _rank_replicated(x, qs, removed, ans, counts, errs, tmp, seed):
     import numpy as np
     import torch
 
+    from wdbx_tpu_torch.kernels import fused_topk as tf
     from wdbx_tpu_torch.parallel import ShardedFlatIndex, collective
     from wdbx_tpu_torch.parallel.mesh import make_mesh2
 
@@ -3709,8 +3792,9 @@ def _rank_replicated(x, qs, removed, ans, counts, errs, tmp, seed):
                            reps=3) / nb
         v = torch.zeros((b, k), device="cuda")
         i = torch.zeros((b, k), dtype=torch.int64, device="cuda")
-        share_ms = _wall_ms(lambda: idx._share_slices(v, i, idx._cuts(b)),
-                            reps=20, warm=2)
+        share_ms = _wall_ms(lambda: idx._serve(
+            b, k, lambda g, lo, hi: (v[lo:hi], i[lo:hi]),
+            tf.merge_partials), reps=20, warm=2)
         # writes both copies take: 32 updates and 32 adds, read back from
         # this rank's own copy; each group searches all 64
         new = _written_rows(seed)
@@ -3921,6 +4005,7 @@ def _rank_ivf(tmp, seed, ans, counts, errs):
     import torch
 
     from wdbx_tpu_torch.core.wdbx import WDBX
+    from wdbx_tpu_torch.ops.normalize import l2_normalize
     from wdbx_tpu_torch.parallel import ShardedIVFIndex, collective
     from wdbx_tpu_torch.parallel.sharded_ivf import _topk_merge
 
@@ -3998,15 +4083,11 @@ def _rank_ivf(tmp, seed, ans, counts, errs):
     q = torch.as_tensor(held_np[:128], device="cuda")
     nprobe = index.nprobe
     quota = index._quota(128 * nprobe)
-    index._spans = False  # the rank's shards alone, for the timing
-    try:
-        local_ms = _wall_ms(lambda: index._ivf_query(
-            q, k, nprobe, quota, index._bucket_valid, index._valids),
-            reps=5)
-        v, i = index._ivf_query(q, k, nprobe, quota, index._bucket_valid,
-                                index._valids)
-    finally:
-        index._spans = True
+    qn = l2_normalize(q)  # the rank's shards alone, for the timing
+    local_ms = _wall_ms(lambda: index._ivf_shards(
+        qn, k, nprobe, quota, index._bucket_valid, index._valids), reps=5)
+    v, i = index._ivf_shards(qn, k, nprobe, quota, index._bucket_valid,
+                             index._valids)
     pv = torch.randn((128, 1, MP_POSITIONS * k), device="cuda")
     pi = torch.zeros((128, 1, MP_POSITIONS * k), dtype=torch.int64,
                      device="cuda")
@@ -4049,7 +4130,7 @@ def _rank_ivf(tmp, seed, ans, counts, errs):
     ans["ivf_count"] = (np.asarray([index.count(), index.valid_count()]),
                         np.asarray([stats["size"], stats["nprobe"]]))
     rep = {"n": n, "nlist": int(index._centroids.shape[0]),
-           "cap_b": int(index._any_table().shape[1]),
+           "cap_b": index._table_shape[1],
            "bulk_load_s": load_s, "build_s": build_s,
            "build_collectives": build_coll,
            "build_all_to_all_bytes": build_coll.get(
@@ -4071,13 +4152,481 @@ def _rank_ivf(tmp, seed, ans, counts, errs):
     return rep
 
 
-def _mp_load(tmp, rank):
+MP_SPAN_RANKS = 4  # processes of the spanning spawn, sharing the card
+MP_SPAN_POSITIONS = 2  # positions a rank there: the same 8 in all
+#: B=128 ms a rank of earlier runs (PR 14's final run, H100 80GB HBM3,
+#: 700 W): make_mesh2(2) on 2 ranks of 4 (a copy a rank), and the
+#: unreplicated 8 positions on the same 2 ranks
+EARLIER_B128_MS = {"replicated_within_rank_pr14": [3.93, 3.90],
+                   "unreplicated_pr14": [4.69, 4.71]}
+
+
+def _span_expect(index, b):
+    """The launches one rank makes for a batch of ``b`` (or a flat
+    pipelined stack of such batches: one launch a shard over all of
+    them) on ``index``'s mesh: ``(stage-1 launches, merges)``. Stage 1
+    a shard held of each group with queries, one merge of the rank's
+    shards of each such group, and one merge a group whose shards lie on
+    several ranks."""
+    cuts = index._cuts(b)
+    held = index._group_shards
+    me = held[index._me]
+    stage1 = merges = 0
+    for g in range(index.replicas):
+        if cuts[g + 1] == cuts[g]:
+            continue
+        if me[g]:
+            stage1 += int(me[g])
+            merges += 1
+        merges += int((held[:, g] > 0).sum() > 1)
+    return stage1, merges
+
+
+def _span_call(rec, label, index, run, counts, errs, b, nb=1, key=None,
+               dtype="bfloat16"):
+    """``run()`` on ``index`` through ``_mp_call`` with the launches
+    ``_span_expect`` gives for batches of ``b`` (``nb`` of them in one
+    flat pipelined stack); every recorded K1 launch against its plain
+    version. Returns the answer and the largest error."""
+    stage1, merges = _span_expect(index, b)
+    per = -(-b // index.replicas) * nb
+    out = _mp_call(rec, label, run, counts, stage1, merges,
+                   want_body(dtype, "bfloat16", index.dim, per, 10),
+                   key or f"fused_topk_partial[{dtype}]")
+    return out, _check_k1_launches(label, rec.last, errs)
+
+
+def _span_main(rank, world, port, tmp, seed):
+    """One rank of the ``multiprocess`` phase's second spawn:
+    ``MP_SPAN_RANKS`` ranks of ``MP_SPAN_POSITIONS`` positions on the one
+    card, the same 8 positions in all. ``make_mesh2(2)`` lays group 0 on
+    ranks 0-1 and group 1 on ranks 2-3 (``_span_flat``,
+    ``_span_clustered``); then meshes that leave ranks without a
+    position (``_span_emptied``). Writes the rank's report and answers
+    to ``tmp`` for the parent."""
+    os.environ.update(WDBX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      WDBX_NUM_PROCESSES=str(world),
+                      WDBX_PROCESS_ID=str(rank),
+                      WDBX_TORCH_MESH_SIZE=str(MP_SPAN_POSITIONS))
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.core.config import WDBXConfig
+    from wdbx_tpu_torch.parallel import ShardEngine, collective
+
+    engine = ShardEngine(WDBXConfig(
+        {"DATA_DIR": os.path.join(tmp, f"sp_engine{rank}")}))
+    asyncio.run(engine.initialize())
+    counts: dict[str, dict] = {}
+    errs: dict[str, float] = {}
+    rep = {"rank": rank, "counts": counts, "errs": errs}
+    ans = {}
+    x, qs = _data(N_ROWS, seed)
+    rep["spanning"], idx, db = _span_flat(x, qs, ans, counts, errs, tmp)
+    del x
+    rep["emptied"] = _span_emptied(idx, db, qs, ans, counts, errs)
+    del idx, db
+    torch.cuda.empty_cache()
+    rep["spanning_clustered"] = _span_clustered(seed, ans, counts, errs,
+                                                tmp)
+    rep["collectives"] = collective.stats()
+    np.savez(os.path.join(tmp, f"sp_ans{rank}.npz"),
+             **{f"{key}|{j}": np.asarray(v) for key, pair in ans.items()
+                for j, v in enumerate(pair)})
+    with open(os.path.join(tmp, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    collective.barrier()
+    asyncio.run(engine.shutdown())
+    print(f"rank {rank} done", flush=True)
+
+
+def _span_flat(x, qs, ans, counts, errs, tmp):
+    """``ShardedFlatIndex`` bf16 at bench.py's point on ``make_mesh2(2)``
+    over 4 ranks of 2 positions: each group's 4 shards on two ranks.
+    B=128, B=1 (group 0's slice is empty: ranks 0-1 launch nothing and
+    still join the gather) and pipelined searches, each launch against
+    its plain version, the gloo calls of a search, the split, the npz
+    the parent reads; then the same rows through
+    ``WDBX(enable_distributed=True, MESH_REPLICAS=2)``. Returns the
+    rank's report, the index and the facade."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.core.wdbx import WDBX
+    from wdbx_tpu_torch.ops.normalize import l2_normalize
+    from wdbx_tpu_torch.parallel import ShardedFlatIndex, collective
+    from wdbx_tpu_torch.parallel.mesh import make_mesh2
+
+    label, k = "multiprocess_spanning", 10
+    nb, b = qs.shape[0], qs.shape[1]
+    mesh = make_mesh2(2)
+    rank = mesh.rank
+    if mesh.shape != {"replica": 2, "shard": 4} or \
+            mesh.owners != (0, 0, 1, 1, 2, 2, 3, 3) or \
+            mesh.local_groups != (rank // 2,):
+        fail(f"{label}: rank {rank} mesh {mesh.shape} {mesh.owners} "
+             f"{mesh.local_groups}")
+    idx = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS, mesh=mesh)
+    t0 = time.perf_counter()
+    idx.add_batch(x)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    qstack = torch.as_tensor(qs, device="cuda")
+    g = rank // 2
+    lo, hi = idx._cuts(b)[g:g + 2]
+    qk = l2_normalize(torch.as_tensor(qs[0][lo:hi], device="cuda"))
+    err = 0.0
+    with _K1Recorder() as k1:
+        before = collective.stats()
+        ans["span_search"], e = _span_call(k1, label, idx,
+                                           lambda: idx.search(qs[0], k),
+                                           counts, errs, b)
+        search_coll = _coll_since(before)
+        err = max(err, e)
+        before = collective.stats()
+        ans["span_b1"], e = _span_call(k1, label, idx,
+                                       lambda: idx.search(qs[1][:1], k),
+                                       counts, errs, 1)
+        b1_coll = _coll_since(before)
+        err = max(err, e)
+        before = collective.stats()
+        ans["span_pipelined"], e = _span_call(
+            k1, label, idx, lambda: idx.search_pipelined(qstack, k), counts,
+            errs, b, nb)
+        pipe_coll = _coll_since(before)
+        err = max(err, e)
+    for name, got in (("search", search_coll), ("b1", b1_coll),
+                      ("pipelined", pipe_coll)):
+        if {kind: c["calls"] for kind, c in got.items()} != \
+                {"all_gather": 1}:
+            fail(f"{label}/{name}: collectives {got}, not one all-gather")
+    out = {"add_s": add_s,
+           "search_b128_ms": _wall_ms(lambda: idx.search(qs[0], k), reps=10,
+                                      warm=2),
+           "search_b1_ms": _wall_ms(lambda: idx.search(qs[1][:1], k),
+                                    reps=10, warm=2),
+           "pipelined_ms_per_batch": _wall_ms(
+               lambda: idx.search_pipelined(qstack, k), reps=3) / nb,
+           "split_b128": _mp_split(idx, lambda: idx._shard_parts(
+               g, qk, k, idx._valids, True), b, k),
+           "search_collectives": search_coll, "b1_collectives": b1_coll,
+           "pipelined_collectives": pipe_coll}
+    t0 = time.perf_counter()
+    idx.save(os.path.join(tmp, "sp_flat"))
+    out["npz_save_s"] = time.perf_counter() - t0
+    # the facade on the same layout: MESH_REPLICAS=2 over 4 ranks of 2
+    db = WDBX(vector_dimension=384, enable_plugins=False,
+              enable_distributed=True,
+              data_dir=os.path.join(tmp, f"sp_db{rank}"),
+              config={"INDEX_TYPE": "sharded_flat", "MESH_REPLICAS": 2,
+                      "INDEX_DTYPE": "bfloat16",
+                      "VECTOR_STORE_AUTOSAVE_INTERVAL": 0})
+    asyncio.run(db.initialize())
+    t0 = time.perf_counter()
+    db.store.bulk_load([str(i) for i in range(N_ROWS)], x)
+    torch.cuda.synchronize()
+    out["facade_bulk_load_s"] = time.perf_counter() - t0
+    fx = db.store.indices[0]
+    if fx.mesh.owners != mesh.owners or fx.replicas != 2 or \
+            fx.count() != N_ROWS:
+        fail(f"{label}/facade: index on {fx.mesh.owners}, {fx.count()} rows")
+    with _K1Recorder() as k1:
+        hits, e = _span_call(
+            k1, label, fx, lambda: db.vector_search_batch(qs[0], limit=k),
+            counts, errs, b)
+    err = max(err, e)
+    ans["span_facade"] = (
+        np.asarray([[h[1] for h in row] for row in hits], np.float32),
+        np.asarray([[int(h[0]) for h in row] for row in hits]))
+    out["facade_search_b128_ms"] = _wall_ms(
+        lambda: db.vector_search_batch(qs[0], limit=k), reps=5, warm=1)
+    out["max_abs_err_vs_plain"] = err
+    return out, idx, db
+
+
+def _span_emptied(idx, db, qs, ans, counts, errs):
+    """Meshes that leave ranks without a position, at the flat point:
+    the spanning index remeshed live onto ``make_mesh(3)`` (rank 3 holds
+    nothing) and onto ``make_mesh2(2, 2)`` (ranks 2-3 hold nothing); then
+    the facade's deployment with every position of rank 3 failing its
+    probe: ``heal`` re-stripes onto ranks 0-2, and, the probe passing
+    again, back onto the 8. A B=128 search at each step, each launch
+    against its plain version. Returns the rank's report: the remesh
+    seconds and bytes sent, the heal seconds."""
+    from wdbx_tpu_torch.parallel.mesh import make_mesh, make_mesh2
+
+    label, k = "multiprocess_emptied", 10
+    rank = idx.mesh.rank
+    out = {}
+    err = 0.0
+    with _K1Recorder() as k1:
+        for step, make in (("mesh3", lambda: make_mesh(3)),
+                           ("mesh2x2", lambda: make_mesh2(2, 2))):
+            mesh = make()
+            idx.remesh(mesh)
+            ans[f"emptied_{step}"], e = _span_call(
+                k1, label, idx, lambda: idx.search(qs[0], k), counts, errs,
+                qs.shape[1])
+            err = max(err, e)
+            out[step] = {"owners": list(mesh.owners),
+                         "local_positions": len(mesh.local_positions),
+                         "remesh": idx.last_remesh,
+                         "search_b128_ms": _wall_ms(
+                             lambda: idx.search(qs[0], k), reps=5, warm=1)}
+        engine, fx = db.shard_engine, db.store.indices[0]
+        for step in ("heal_down", "heal_back"):
+            if step == "heal_down":
+                _inject_fault(engine, rank=MP_SPAN_RANKS - 1, every=True)
+            t0 = time.perf_counter()
+            got = db.heal(allow_remesh=True)
+            heal_s = time.perf_counter() - t0
+            engine.__dict__.pop("_probe", None)
+            want = 6 if step == "heal_down" else 8
+            if len(got["remeshed_to"]) != want or \
+                    got["rehost"] != {"0": "live"} or fx.n_devices != want:
+                fail(f"{label}/{step}: heal {got}")
+            ans[f"emptied_{step}"], e = _span_call(
+                k1, label, fx, lambda: fx.search(qs[0], k), counts, errs,
+                qs.shape[1])
+            err = max(err, e)
+            out[step] = {"owners": list(fx.mesh.owners),
+                         "local_positions": len(fx.mesh.local_positions),
+                         "heal_s": heal_s, "remesh": fx.last_remesh,
+                         "search_b128_ms": _wall_ms(
+                             lambda: fx.search(qs[0], k), reps=5, warm=1)}
+    if out["mesh3"]["local_positions"] != (0 if rank == 3 else 1) or \
+            out["heal_down"]["local_positions"] != (0 if rank == 3 else 2):
+        fail(f"{label}: rank {rank} holds {out}")
+    out["max_abs_err_vs_plain"] = err
+    return out
+
+
+def _span_clustered(seed, ans, counts, errs, tmp):
+    """``ShardedClusteredIndex`` on ``make_mesh2(2)`` over 4 ranks of 2
+    positions at the sharded clustered point (2M x 768 int8, nlist 2048,
+    nprobe 4, B=64): the build (rank 0 trains; rows travel to both
+    copies of their shard), search and search_pipelined (K3 on the
+    rank's 2 shards of its group's 32 queries a batch, each launch
+    against its plain version), the 1% filter (the exact masked route,
+    K2 on the rank's shards), the npz the parent reads. Returns the
+    rank's report."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import ShardedClusteredIndex, collective
+    from wdbx_tpu_torch.parallel.mesh import make_mesh2
+
+    label, k = "multiprocess_spanning", 10
+    n, d, nlist, bc, nbc = SC_N, SC_D, SC_NLIST, 64, 8
+    mix = _mixture(4096, d, seed + 17)
+
+    def chunks():
+        for i, lo in enumerate(range(0, n, SC_STEP)):
+            yield mix(5000 + i, min(SC_STEP, n - lo))
+
+    c = ShardedClusteredIndex(d, dtype="int8", capacity=n, mesh=make_mesh2(2),
+                              nlist=nlist, nprobe=4, train_threshold=1 << 62)
+    before = collective.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slots = c.build_from(chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_coll = _coll_since(before)
+    if not np.array_equal(slots, np.arange(n)) or not c.is_trained:
+        fail(f"{label}/clustered: the build")
+    c.batch_flat_fallback = False
+    q_all = mix(9999, nbc * bc)
+    qstack_c = q_all.reshape(nbc, bc, d)
+    q64 = q_all[:bc]
+    stage1, merges = _span_expect(c, bc)
+    body3 = want_body("int8", "bfloat16", d, bc // 2, k)
+    with _K3Recorder() as rec:
+        before = collective.stats()
+        ans["span_clustered"] = _sc_call(rec, label, lambda: c.search(q64, k),
+                                         counts, stage1, merges, body3)
+        search_coll = _coll_since(before)
+        err, _ = _check_k3_launches(f"{label}/clustered", rec.last, errs)
+        ans["span_clustered_pipelined"] = _sc_call(
+            rec, label, lambda: c.search_pipelined(qstack_c, k), counts,
+            stage1 * nbc, merges * nbc, body3)
+        e, _ = _check_k3_launches(f"{label}/clustered pipelined", rec.last,
+                                  errs)
+        err = max(err, e)
+    if {kind: s["calls"] for kind, s in search_coll.items()} != \
+            {"all_gather": 1}:
+        fail(f"{label}/clustered: collectives {search_coll}")
+    pick = np.random.default_rng(seed).choice(n, n // 100, replace=False)
+    mask = np.zeros(c.capacity, bool)
+    mask[pick] = True
+    if not c._filter_plan(mask, 4, nlist)[2]:
+        fail(f"{label}/clustered: the 1% filter did not take the exact route")
+    with _K1Recorder() as k1:
+        ans["span_clustered_filtered"], e = _span_call(
+            k1, label, c, lambda: c.search(q64, k, slot_mask=mask), counts,
+            errs, bc, dtype="int8")
+        err = max(err, e)
+    ans["span_filter_pick"] = (pick, pick)
+    out = {"n": n, "d": d, "nlist": nlist, "b": bc, "k": k, "nprobe": 4,
+           "build_s": build_s, "build_collectives": build_coll,
+           "search_collectives": search_coll,
+           "search_b64_ms": _wall_ms(lambda: c.search(q64, k), reps=10,
+                                     warm=3),
+           "pipelined_ms_per_batch": _wall_ms(
+               lambda: c.search_pipelined(qstack_c, k), reps=3) / nbc,
+           "filtered_1pct_ms": _wall_ms(
+               lambda: c.search(q64, k, slot_mask=mask), reps=5, warm=1)}
+    t0 = time.perf_counter()
+    c.save(os.path.join(tmp, "sp_clu"))
+    out["npz_save_s"] = time.perf_counter() - t0
+    out["max_abs_err_vs_plain"] = err
+    del c
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_mp_spanning(reps, ans, qs, truth, q_all, truth_src, t_src,
+                       paths, errs, tmp):
+    """The 4-rank spawn: one process's 8-position index on the same
+    layout (``make_mesh2(2, 4)``) loaded from the ranks' npz; every
+    flat answer (spanning, facade, each emptied step) against the plain
+    version over the whole slab and against that index; the clustered
+    answers against it (its launches against their plain version) and
+    the 1% filter against K2's plain version; recall@10 of the pipelined
+    answers against the float32 oracles."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.parallel import (
+        ShardedClusteredIndex,
+        ShardedFlatIndex,
+    )
+    from wdbx_tpu_torch.parallel.mesh import make_mesh2
+
+    label, k = "multiprocess_spanning", 10
+    nb, b = qs.shape[0], qs.shape[1]
+    single = ShardedFlatIndex(384, dtype="bfloat16", capacity=N_ROWS,
+                              mesh=make_mesh2(2, 4))
+    t0 = time.perf_counter()
+    if not single.load(os.path.join(tmp, "sp_flat")):
+        fail(f"{label}: the ranks' npz did not load")
+    load_s = time.perf_counter() - t0
+    view = _slot_view(single)
+    err = _check_sharded(f"{label}/search", single, view, qs[0],
+                         ans["span_search"])
+    err = max(err, _check_sharded(f"{label}/b1", single, view, qs[1][:1],
+                                  ans["span_b1"]))
+    for i in range(nb):
+        err = max(err, _check_sharded(
+            f"{label}/pipelined batch{i}", single, view, qs[i],
+            (ans["span_pipelined"][0][i], ans["span_pipelined"][1][i])))
+    err = max(err, _same_answers(f"{label}/single process",
+                                 single.search(qs[0], k), ans["span_search"]))
+    err = max(err, _same_answers(f"{label}/facade", ans["span_search"],
+                                 ans["span_facade"]))
+    recall = _recall_slots(ans["span_pipelined"][1].reshape(nb * b, k), truth)
+    e_err = 0.0
+    for step in ("mesh3", "mesh2x2", "heal_down", "heal_back"):
+        got = ans[f"emptied_{step}"]
+        e_err = max(e_err, _check_sharded(f"multiprocess_emptied/{step}",
+                                          single, view, qs[0], got))
+        e_err = max(e_err, _same_answers(
+            f"multiprocess_emptied/{step} as spanning", ans["span_search"],
+            got))
+    del single, view
+    torch.cuda.empty_cache()
+    csingle = ShardedClusteredIndex(SC_D, dtype="int8", capacity=SC_N,
+                                    mesh=make_mesh2(2, 4), nlist=SC_NLIST,
+                                    nprobe=4, train_threshold=1 << 62)
+    if not csingle.load(os.path.join(tmp, "sp_clu")):
+        fail(f"{label}: the ranks' clustered npz did not load")
+    csingle.batch_flat_fallback = False
+    q64 = q_all[:64]
+    with _K3Recorder() as rec:
+        ref = csingle.search(q64, k)
+        c_err = _check_sc_calls(f"{label}/clustered single", csingle,
+                                rec.take(), ref, errs)
+        refp = csingle.search_pipelined(q_all.reshape(-1, 64, SC_D), k)
+        c_err = max(c_err, _check_sc_calls(
+            f"{label}/clustered single pipelined", csingle, rec.take(), refp,
+            errs))
+    c_err = max(c_err, _same_answers(f"{label}/clustered", ref,
+                                     ans["span_clustered"]))
+    c_err = max(c_err, _same_answers(f"{label}/clustered pipelined", refp,
+                                     ans["span_clustered_pipelined"]))
+    pick = ans["span_filter_pick"][0]
+    mask = np.zeros(csingle.capacity, bool)
+    mask[pick] = True
+    pm = csingle._filter_plan(mask, 4, SC_NLIST)[0]
+    c_err = max(c_err, _check_sc_flat(f"{label}/clustered filtered 1%",
+                                      csingle, q64, pm,
+                                      ans["span_clustered_filtered"], errs))
+    del csingle
+    torch.cuda.empty_cache()
+    recall_c = _slot_recall(torch.as_tensor(
+        ans["span_clustered_pipelined"][1].reshape(-1, k)), truth_src.cpu())
+    recall_f = _slot_recall(torch.as_tensor(
+        ans["span_clustered_filtered"][1]), t_src.cpu())
+    sp = [r["spanning"] for r in reps]
+    sc = [r["spanning_clustered"] for r in reps]
+    emit({"phase": "multiprocess", "path": label, "ranks": MP_SPAN_RANKS,
+          "positions_per_rank": MP_SPAN_POSITIONS, "replicas": 2,
+          "shards": 4, "owners": [0, 0, 1, 1, 2, 2, 3, 3],
+          "dtype": "bfloat16", "n": N_ROWS, "b": b, "k": k, "nb": nb,
+          **{key: [r[key] for r in sp] for key in (
+              "add_s", "search_b128_ms", "search_b1_ms",
+              "pipelined_ms_per_batch", "split_b128", "search_collectives",
+              "b1_collectives", "pipelined_collectives", "npz_save_s",
+              "facade_bulk_load_s", "facade_search_b128_ms")},
+          "earlier_runs_b128_ms": EARLIER_B128_MS,
+          "npz_load_single_process_s": load_s,
+          "recall_at_10_raw": recall, "bar": RECALL_BAR,
+          "clustered": {
+              **{key: sc[0][key] for key in ("n", "d", "nlist", "b", "k",
+                                             "nprobe")},
+              **{key: [r[key] for r in sc] for key in (
+                  "build_s", "build_collectives", "search_collectives",
+                  "search_b64_ms", "pipelined_ms_per_batch",
+                  "filtered_1pct_ms", "npz_save_s")},
+              "recall_at_10_nprobe4": recall_c,
+              "recall_at_10_filtered_1pct": recall_f, "bar": FACADE_BAR},
+          "collectives": [r["collectives"] for r in reps],
+          "max_abs_err_vs_plain": max(err, c_err, *(
+              r["max_abs_err_vs_plain"] for r in sp + sc)), "tol": ATOL,
+          "launches": _nonzero(paths[label]),
+          "launches_by_rank": [_nonzero(r["counts"][label]) for r in reps]})
+    em = [r["emptied"] for r in reps]
+    emit({"phase": "multiprocess", "path": "multiprocess_emptied",
+          "ranks": MP_SPAN_RANKS, "dtype": "bfloat16", "n": N_ROWS, "b": b,
+          "k": k, **{step: {
+              "owners": em[0][step]["owners"],
+              **{key: [r[step][key] for r in em] for key in (
+                  "local_positions", "search_b128_ms", "remesh") +
+                 (("heal_s",) if step.startswith("heal") else ())}}
+              for step in ("mesh3", "mesh2x2", "heal_down", "heal_back")},
+          "max_abs_err_vs_plain": max(e_err, *(r["max_abs_err_vs_plain"]
+                                               for r in em)), "tol": ATOL,
+          "launches": _nonzero(paths["multiprocess_emptied"]),
+          "launches_by_rank": [_nonzero(r["counts"]["multiprocess_emptied"])
+                               for r in reps]})
+    if recall < RECALL_BAR:
+        fail(f"{label}: recall@10 {recall} < {RECALL_BAR}")
+    if recall_c < FACADE_BAR or recall_f < FACADE_BAR:
+        fail(f"{label}: clustered recall@10 {recall_c} / {recall_f} < "
+             f"{FACADE_BAR}")
+
+
+def _mp_load(tmp, rank, prefix="mp"):
     import numpy as np
 
-    with open(os.path.join(tmp, f"mp_rank{rank}.json")) as f:
+    with open(os.path.join(tmp, f"{prefix}_rank{rank}.json")) as f:
         rep = json.load(f)
     ans = {}
-    with np.load(os.path.join(tmp, f"mp_ans{rank}.npz")) as data:
+    with np.load(os.path.join(tmp, f"{prefix}_ans{rank}.npz")) as data:
         for name in data.files:
             key, j = name.split("|")
             ans.setdefault(key, [None, None])[int(j)] = data[name]
@@ -4100,24 +4649,25 @@ def _same_answers(name, ref, got, tol=MATCH_TOL) -> float:
     return err
 
 
-def _run_mp_ranks(tmp, seed):
-    """Start the ranks, each ``_rank_main`` in its own interpreter on the
+def _run_mp_ranks(tmp, seed, world=MP_RANKS, entry="_rank_main",
+                  prefix="mp"):
+    """Start ``world`` ranks, each ``entry`` in its own interpreter on the
     card; when one fails or the deadline passes, stop them all and fail.
     Returns the seconds they took."""
     port = _free_port()
     here = os.path.dirname(os.path.abspath(__file__))
     procs, logs = [], []
     t0 = time.perf_counter()
-    for rank in range(MP_RANKS):
-        log = open(os.path.join(tmp, f"mp_rank{rank}.log"), "w")
+    for rank in range(world):
+        log = open(os.path.join(tmp, f"{prefix}_rank{rank}.log"), "w")
         logs.append(log)
         env = dict(os.environ, PYTHONPATH=here,
                    CUDA_VISIBLE_DEVICES=os.environ.get(
                        "CUDA_VISIBLE_DEVICES", "0"))
         procs.append(subprocess.Popen(
             [sys.executable, "-c",
-             f"import chip_smoke; chip_smoke._rank_main({rank}, "
-             f"{MP_RANKS}, {port}, {tmp!r}, {seed})"],
+             f"import chip_smoke; chip_smoke.{entry}({rank}, "
+             f"{world}, {port}, {tmp!r}, {seed})"],
             cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
     end = time.monotonic() + MP_DEADLINE_S
     try:
@@ -4134,12 +4684,12 @@ def _run_mp_ranks(tmp, seed):
         for log in logs:
             log.close()
     if any(rcs):
-        for rank in range(MP_RANKS):
-            with open(os.path.join(tmp, f"mp_rank{rank}.log")) as f:
+        for rank in range(world):
+            with open(os.path.join(tmp, f"{prefix}_rank{rank}.log")) as f:
                 tail = f.read()[-3000:]
-            print(f"--- rank {rank} (rc {rcs[rank]}) ---\n{tail}",
+            print(f"--- {entry} rank {rank} (rc {rcs[rank]}) ---\n{tail}",
                   file=sys.stderr, flush=True)
-        fail(f"multiprocess: ranks exited {rcs}")
+        fail(f"multiprocess: {entry} ranks exited {rcs}")
     return time.perf_counter() - t0
 
 
@@ -4337,7 +4887,9 @@ def _check_mp_heal(reps, ans, paths, tmp, held, sc, picks):
     re-tuning) replays ``_heal_calls`` and must give the ranks' answers;
     every returned score is q . row; recall@10 against the float32 oracle
     ``sc`` (held x the corpus) without the removed slots, unfiltered and
-    at both filters, at ``DENSE_BAR``."""
+    at both filters, at ``DENSE_BAR``. The same for the heal onto rank 0
+    alone (one process's 4-position index replays it) and the heal back
+    onto the 8 positions (one process's 8-position index)."""
     import numpy as np
     import torch
 
@@ -4347,42 +4899,56 @@ def _check_mp_heal(reps, ans, paths, tmp, held, sc, picks):
     label, k, d = "multiprocess_heal", 10, 384
     n = sc.shape[1]
     held_np = held.cpu().numpy()
-    single = ShardedIVFIndex(d, dtype="bfloat16", capacity=n,
-                             mesh=make_mesh(7), nlist=1024,
-                             train_threshold=1 << 62)
-    t0 = time.perf_counter()
-    if not single.load(os.path.join(tmp, "mp_heal")) or \
-            not single.is_trained:
-        fail(f"{label}: the ranks' npz did not load")
-    load_s = time.perf_counter() - t0
-    ref = _heal_calls(single, held_np, picks, lambda run: run(),
-                      lambda run: run())
-    err = 0.0
     qn = l2_normalize(held).to(torch.bfloat16).float()
-    off = 0.0
-    for key, pair in ref.items():
-        err = max(err, _same_answers(f"{label}/{key}", pair, ans[key], ATOL))
-        scores, slots = (np.asarray(a).reshape(-1, k) for a in ans[key])
-        if (slots < 0).any():
-            fail(f"{label}/{key}: fewer than {k} hits")
-        rows = torch.as_tensor(single.get_vectors(slots.reshape(-1)),
-                               device="cuda").reshape(len(slots), k, d)
-        true = (qn[:len(slots)][:, None, :] * rows).sum(-1)
-        off = max(off, float(np.abs(true.cpu().numpy() - scores).max()))
-    if off > ATOL:
-        fail(f"{label}: a returned score is {off} off q . row")
     removed = torch.as_tensor(ans["ivf_removed_slots"][0], device="cuda")
     sc[:, removed] = float("-inf")
     truth = torch.topk(sc, k, dim=1).indices.cpu().numpy()
-    rec = _slot_sets_recall(ans["heal_search"][1], truth)
-    rec_f = []
-    for pick, key in zip(picks, ("heal_f10", "heal_f1")):
+    truth_f = []
+    for pick in picks:
         keep = torch.zeros(n, dtype=torch.bool, device="cuda")
         keep[torch.as_tensor(pick, device="cuda")] = True
-        t = torch.topk(sc[:128].masked_fill(~keep, float("-inf")), k,
-                       dim=1).indices.cpu().numpy()
-        rec_f.append(_slot_sets_recall(ans[key][1], t))
+        truth_f.append(torch.topk(sc[:128].masked_fill(~keep, float("-inf")),
+                                  k, dim=1).indices.cpu().numpy())
+    err = off = 0.0
+    out = {}
+    for step, shards, path in (("", 7, "mp_heal"),
+                               ("heal_one/", 4, "mp_heal_one"),
+                               ("heal_back/", 8, "mp_heal_back")):
+        single = ShardedIVFIndex(d, dtype="bfloat16", capacity=n,
+                                 mesh=make_mesh(shards), nlist=1024,
+                                 train_threshold=1 << 62)
+        t0 = time.perf_counter()
+        if not single.load(os.path.join(tmp, path)) or \
+                not single.is_trained:
+            fail(f"{label}/{step}: the ranks' npz did not load")
+        load_s = time.perf_counter() - t0
+        ref = _heal_calls(single, held_np, picks, lambda run: run(),
+                          lambda run: run())
+        for key, pair in ref.items():
+            got = ans[step + key]
+            err = max(err, _same_answers(f"{label}/{step}{key}", pair, got,
+                                         ATOL))
+            scores, slots = (np.asarray(a).reshape(-1, k) for a in got)
+            if (slots < 0).any():
+                fail(f"{label}/{step}{key}: fewer than {k} hits")
+            rows = torch.as_tensor(single.get_vectors(slots.reshape(-1)),
+                                   device="cuda").reshape(len(slots), k, d)
+            true = (qn[:len(slots)][:, None, :] * rows).sum(-1)
+            off = max(off, float(np.abs(true.cpu().numpy() - scores).max()))
+        rec = _slot_sets_recall(ans[step + "heal_search"][1], truth)
+        rec_f = [_slot_sets_recall(ans[step + key][1], t)
+                 for key, t in zip(("heal_f10", "heal_f1"), truth_f)]
+        out[step or "heal_7/"] = {
+            "shards": shards, "npz_load_single_process_s": load_s,
+            "recall_at_10": rec, "recall_at_10_filtered_10pct": rec_f[0],
+            "recall_at_10_filtered_1pct": rec_f[1]}
+        if min(rec, *rec_f) < DENSE_BAR:
+            fail(f"{label}/{step}: recall@10 {rec} / {rec_f} < {DENSE_BAR}")
+        del single
+    if off > ATOL:
+        fail(f"{label}: a returned score is {off} off q . row")
     hv = [r["ivf"]["heal"] for r in reps]
+    first = out.pop("heal_7/")
     emit({"phase": "multiprocess", "path": label, "ranks": MP_RANKS,
           "dtype": "bfloat16", "n": n, "b": 128, "k": k,
           **{key: hv[0][key] for key in (
@@ -4391,17 +4957,18 @@ def _check_mp_heal(reps, ans, paths, tmp, held, sc, picks):
           **{key: [h[key] for h in hv] for key in (
               "heal_s", "tune_s", "store_save_s", "checkpoint_heal_s",
               "search_b128_ms")},
-          "npz_load_single_process_s": load_s,
-          "recall_at_10": rec, "recall_at_10_filtered_10pct": rec_f[0],
-          "recall_at_10_filtered_1pct": rec_f[1], "bar": DENSE_BAR,
-          "rescore_max_off": off,
+          **first,
+          "one_rank": {step[:-1]: dict(out[step], **{
+              key: [h["one_rank"][step[:-1]][key] for h in hv]
+              for key in ("heal_s", "local_positions", "nlist", "nprobe",
+                          "tuned_recall_vs_index_exact", "tune_s",
+                          "search_b128_ms", "remesh")})
+              for step in out},
+          "bar": DENSE_BAR, "rescore_max_off": off,
           "max_abs_err_vs_plain": max(err, *(h["max_abs_err_vs_plain"]
                                              for h in hv)), "tol": ATOL,
           "launches": _nonzero(paths[label]),
           "launches_by_rank": [_nonzero(r["counts"][label]) for r in reps]})
-    if min(rec, *rec_f) < DENSE_BAR:
-        fail(f"{label}: recall@10 {rec} / {rec_f} < {DENSE_BAR}")
-    del single
 
 
 def _bg_truth(chunks, q, k, src_mask, extra_rows, extra_slots):
@@ -4506,18 +5073,23 @@ def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ranks_s = _run_mp_ranks(tmp, seed)
-    reps, answers = zip(*(_mp_load(tmp, r) for r in range(MP_RANKS)))
-    for key, pair in answers[0].items():
-        other = answers[1][key]
-        if not (np.array_equal(pair[0], other[0])
-                and np.array_equal(pair[1], other[1])):
-            fail(f"multiprocess: the ranks answer {key} otherwise")
-    for rep in reps:
-        for label, c in rep["counts"].items():
-            _tally(paths, label, c)
-        for key, e in rep["errs"].items():
-            errs[key] = max(errs.get(key, 0.0), e)
-    ans = answers[0]
+    span_s = _run_mp_ranks(tmp, seed, MP_SPAN_RANKS, "_span_main", "sp")
+    runs = {}
+    for prefix, world in (("mp", MP_RANKS), ("sp", MP_SPAN_RANKS)):
+        reps, answers = zip(*(_mp_load(tmp, r, prefix)
+                              for r in range(world)))
+        for other in answers[1:]:
+            for key, pair in answers[0].items():
+                if not (np.array_equal(pair[0], other[key][0])
+                        and np.array_equal(pair[1], other[key][1])):
+                    fail(f"multiprocess: the ranks answer {key} otherwise")
+        for rep in reps:
+            for label, c in rep["counts"].items():
+                _tally(paths, label, c)
+            for key, e in rep["errs"].items():
+                errs[key] = max(errs.get(key, 0.0), e)
+        runs[prefix] = (reps, answers[0])
+    reps, ans = runs["mp"]
     x, qs = _data(N_ROWS, seed)
     nb, b, k = qs.shape[0], qs.shape[1], 10
 
@@ -4701,6 +5273,11 @@ def phase_multiprocess(seed, truth, paths, timings, errs, tmp):
           "launches": _nonzero(paths[label])})
     if recall_rc < FACADE_BAR or recall_rf < FACADE_BAR:
         fail(f"{label}: recall@10 {recall_rc} / {recall_rf} < {FACADE_BAR}")
+    sp_reps, sp_ans = runs["sp"]
+    _check_mp_spanning(sp_reps, sp_ans, qs, truth, q_all, truth_src, t_src,
+                       paths, errs, tmp)
+    emit({"phase": "multiprocess", "ranks_s": ranks_s,
+          "spanning_ranks_s": span_s})
     del truth_src, t_src
     torch.cuda.empty_cache()
     _check_mp_ivf(seed, reps, ans, paths, tmp)

@@ -27,14 +27,17 @@ devices), and 4 ranks x 2. Every worker asserts that neither ``jax`` nor
 * npz checkpoints: the ranks' npz loads into a single-process port index
   and into JAX's ``ShardedFlatIndex``; a JAX npz loads onto the ranks.
 * a 4-rank x 2-position run of the flat part.
-* refusals on a global mesh, one test each: replica groups spanning
-  ranks (``make_mesh2(2)`` on the 4-rank run, where a group of 4 shards
-  spans two ranks of 2 positions; a ``NotImplementedError`` naming its
-  ``ROADMAP.md`` item); and ranks holding unequal default position
-  counts (``ValueError``). ``ShardedIVFIndex``, replica groups within
-  one rank, and the remesh, heal and background rebuild serve on a
+* the layouts a global mesh once refused, served now
+  (``test_global_mesh_refuses``, one case each): replica groups
+  spanning ranks (``make_mesh2(2)`` on the 4-rank run, where a group of
+  4 shards spans two ranks of 2 positions: the mesh's layout, and a
+  ``replicas=2`` index answering as the single process); and the
+  refusal that stays: ranks holding unequal default position counts
+  (``ValueError``). ``ShardedIVFIndex``, replica groups, ranks without
+  a position, and the remesh, heal and background rebuild serve on a
   global mesh: ``tests/test_torch_multihost_ivf.py``,
-  ``tests/test_torch_multihost_replicas.py`` and
+  ``tests/test_torch_multihost_replicas.py``,
+  ``tests/test_torch_multihost_spanning.py`` and
   ``tests/test_torch_multihost_recovery.py``.
 
 Every run has a deadline: the parent kills every worker when one fails
@@ -61,6 +64,7 @@ from wdbx_tpu_torch.parallel import (
     ShardedClusteredIndex,
     ShardedFlatIndex,
     make_mesh,
+    make_mesh2,
 )
 
 torch.set_num_threads(2)
@@ -217,17 +221,14 @@ for dtype in dtypes:
                          np.asarray([[int(h[0][1:]) for h in hits]]))
 if flat_only:
     # 2 positions a rank: a replica group of 4 shards spans two ranks
-    spanning = {}
-    for name, fn in (
-            ("replicas", lambda: make_mesh2(2, device="cpu")),
-            ("replicas_index", lambda: ShardedFlatIndex(
-                dim=16, replicas=2, device="cpu"))):
-        try:
-            fn()
-        except (NotImplementedError, ValueError) as e:
-            spanning[name] = [type(e).__name__, str(e)]
-        else:
-            spanning[name] = ["none", ""]
+    m2 = make_mesh2(2, device="cpu")
+    spanning = {"replicas": [m2.shape, list(m2.owners),
+                             list(m2.local_groups)]}
+    rix = ShardedFlatIndex(dim=16, replicas=2, device="cpu")
+    rix.add_batch(vecs)
+    ans["replicas_index"] = rix.search(vecs[:8], k=3)
+    spanning["replicas_index"] = [rix.replicas, rix.n_devices,
+                                  list(rix.mesh.owners)]
     with open(os.path.join(out, f"spanning{rank}.json"), "w") as f:
         json.dump(spanning, f)
 no_jax()
@@ -463,24 +464,34 @@ def test_two_process_facade(two_ranks):
     assert r0["facade"][1][0, 0] == 3
 
 
-#: refusals of the 4-rank run: a replica group spanning ranks (the
-#: re-meshing operations serve across ranks:
-#: ``tests/test_torch_multihost_recovery.py``)
-REFUSALS = {
-    "replicas": ("NotImplementedError", "replica groups spanning ranks"),
-    "replicas_index": ("NotImplementedError",
-                       "replica groups spanning ranks"),
+#: what the 4-rank run records of the layouts once refused, a replica
+#: group spanning ranks: the mesh (shape, owners, this rank's groups) and
+#: an index on it (replicas, shards, owners)
+SPANNING = {
+    "replicas": lambda rank: [{"replica": 2, "shard": 4},
+                              [0, 0, 1, 1, 2, 2, 3, 3], [rank // 2]],
+    "replicas_index": lambda rank: [2, 4, [0, 0, 1, 1, 2, 2, 3, 3]],
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSALS))
+@pytest.mark.parametrize("name", sorted(SPANNING))
 def test_global_mesh_refuses(four_ranks, name):
-    tmp, _ = four_ranks
-    kind, item = REFUSALS[name]
+    """``make_mesh2(2)`` on 4 ranks of 2 positions, once refused: every
+    rank lays the same mesh, group 0 on ranks 0-1 and group 1 on ranks
+    2-3, and a ``replicas=2`` index on it answers on every rank as the
+    single-process port on ``make_mesh2(2, 4)``."""
+    tmp, ranks = four_ranks
     for rank in range(4):
         got = json.loads((tmp / f"spanning{rank}.json").read_text())[name]
-        assert got[0] == kind, (rank, got)
-        assert "ROADMAP.md" in got[1] and item in got[1], (rank, got)
+        assert got == SPANNING[name](rank), (rank, got)
+    if name == "replicas_index":
+        single = ShardedFlatIndex(16, replicas=2, mesh=make_mesh2(
+            2, 4, device="cpu"))
+        vecs = np.random.default_rng(0).standard_normal((32, 16)).astype(
+            np.float32)
+        single.add_batch(vecs)
+        for got in ranks:
+            _same(single.search(vecs[:8], k=3), got["replicas_index"], 1e-6)
 
 
 def test_unequal_positions_refused(tmp_path):
@@ -496,7 +507,8 @@ def test_unequal_positions_refused(tmp_path):
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     """One 4-rank x 2-position run of the data worker's flat part
-    (float32, int8), which also records the spanning-group refusals."""
+    (float32, int8), which also records the spanning-group layout and
+    an index on it."""
     tmp = tmp_path_factory.mktemp("four_ranks")
     for dtype in ("float32", "int8"):
         j = JFlat(dim=16, capacity=8 * 16, dtype=dtype)

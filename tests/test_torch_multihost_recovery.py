@@ -30,10 +30,10 @@ One run of each does everything; the tests read its records:
   searches, adds, updates and removes: both ranks swap at the same
   foreground call, and every answer matches the single-process port and
   JAX fed the same calls around a blocking rebuild.
-* the refusals: a mesh that leaves a rank without a position, fewer
-  positions than ranks (``NotImplementedError`` naming the ROADMAP.md
-  item), a remesh or cold re-host between a global and a single-process
-  mesh (``ValueError``).
+* the meshes once refused, served now: a degraded mesh that leaves a
+  rank without a position, fewer positions than ranks (the rank past
+  them holds none); and the refusals that stay: a remesh or cold
+  re-host between a global and a single-process mesh (``ValueError``).
 * ``wdbx_tpu_torch/examples/production_serving.py`` as 2 ranks of 4
   positions: both exit 0 and print the same lines, heal included, and
   each rank's data directory holds the store its shutdown saved.
@@ -73,7 +73,6 @@ from wdbx_tpu_torch.parallel import (
 )
 
 DTYPES = ["float32", "bfloat16", "int8"]
-ITEM = "an elastic restart after a lost process or an emptied rank"
 
 #: the calls of each engine, shared by the ranks, the single-process
 #: port and JAX; ``meshes`` maps 8 / 7 / 6 to the package's meshes
@@ -250,11 +249,15 @@ def refused(name, fn):
         refusals[name] = ["none", ""]
 
 
-refused("empty_rank", lambda: engine.degraded_mesh({"devices": {
+def served(name, mesh):
+    refusals[name] = [list(mesh.names), list(mesh.owners),
+                      list(mesh.local_positions)]
+
+
+served("empty_rank", engine.degraded_mesh({"devices": {
     n: "error: down" if o == world - 1 else "ok"
     for n, o in zip(names, mesh8.owners)}}))
-refused("fewer_positions_than_ranks",
-        lambda: make_mesh(world - 1, device="cpu"))
+served("fewer_positions_than_ranks", make_mesh(world - 1, device="cpu"))
 one = Mesh([torch.device("cpu")] * 8)
 refused("single_process_remesh", lambda: idx.remesh(one))
 refused("single_process_adopt", lambda: idx.adopt_mesh(one))
@@ -684,22 +687,33 @@ def test_background_matches_blocking_rebuild(two_ranks, ref):
 # -- refusals ------------------------------------------------------------------------
 
 REFUSALS = {
-    "empty_rank": ("NotImplementedError", ITEM),
-    "fewer_positions_than_ranks": ("NotImplementedError", ITEM),
     "single_process_remesh": ("ValueError", "within one process"),
     "single_process_adopt": ("ValueError", "within one process"),
 }
+#: the meshes of the cases once refused, by rank: names, owners and the
+#: rank's positions (rank 1 holds none on either)
+SERVED = {
+    "empty_rank": lambda rank: [[f"cpu#{p}" for p in range(4)], [0] * 4,
+                                [0, 1, 2, 3] if rank == 0 else []],
+    "fewer_positions_than_ranks": lambda rank: [
+        ["cpu#0"], [0], [0] if rank == 0 else []],
+}
 
 
-@pytest.mark.parametrize("name", sorted(REFUSALS))
+@pytest.mark.parametrize("name", sorted(REFUSALS) + sorted(SERVED))
 def test_refusals(two_ranks, name):
+    """A remesh or re-host between a global and a single-process mesh
+    stays refused; a degraded mesh with every position of rank 1 down,
+    and ``make_mesh(1)`` on 2 ranks (once refused), give every rank the
+    same mesh, rank 1 holding no position."""
     _, _, facts = two_ranks
-    kind, text = REFUSALS[name]
-    for f in facts:
+    for rank, f in enumerate(facts):
         got = f["refusals"][name]
+        if name in SERVED:
+            assert got == SERVED[name](rank), (rank, got)
+            continue
+        kind, text = REFUSALS[name]
         assert got[0] == kind and text in got[1], got
-        if kind == "NotImplementedError":
-            assert "ROADMAP.md" in got[1]
 
 
 # -- the production_serving walkthrough on 2 ranks -----------------------------------

@@ -21,10 +21,13 @@ checkpoints move between replica counts and the unreplicated mesh, and
 per-position ones load on the same shard count in one process. The
 facade with ``MESH_REPLICAS=2`` serves on the replicated global mesh.
 
-4 ranks x 2 positions: ``make_mesh2(2)`` needs groups of 4 shards,
-which would span two ranks: refused (``NotImplementedError`` naming
-its ``ROADMAP.md`` item); ``make_mesh2(4)`` (one group of 2 shards a
-rank) serves the flat steps as the single process does.
+4 ranks x 2 positions: ``make_mesh2(2)`` lays groups of 4 shards, each
+spanning two ranks (once refused): its layout, and the flat steps of a
+``replicas=2`` index on it as the single process on
+``make_mesh2(2, 4)`` (the other such layouts:
+``tests/test_torch_multihost_spanning.py``); ``make_mesh2(4)`` (one
+group of 2 shards a rank) serves the flat steps as the single process
+does.
 """
 
 import json
@@ -201,20 +204,16 @@ print(f"proc{rank} REPLICAS OK", flush=True)
 SPAN_WORKER = PRELUDE + STEPS + r"""
 asyncio.run(engine.initialize())
 from wdbx_tpu_torch.parallel import ShardedFlatIndex, make_mesh2
-facts = {}
-for name, fn in (("mesh", lambda: make_mesh2(2, device="cpu")),
-                 ("index", lambda: ShardedFlatIndex(dim=16, replicas=2,
-                                                    device="cpu"))):
-    try:
-        fn()
-    except (NotImplementedError, ValueError) as e:
-        facts[name] = [type(e).__name__, str(e)]
-    else:
-        facts[name] = ["none", ""]
+# groups of 4 shards over ranks of 2 positions: each spans two ranks
+m2 = make_mesh2(2, device="cpu")
+facts = {"mesh": [m2.shape, list(m2.owners), list(m2.local_groups)]}
+span = ShardedFlatIndex(dim=16, capacity=64, replicas=2, device="cpu")
+facts["index"] = [span.replicas, span.n_devices, list(span.mesh.owners)]
+got = {f"span/{key}": pair for key, pair in flat_steps(span).items()}
 mesh = make_mesh2(4, device="cpu")  # one group of 2 shards a rank
 assert mesh.local_groups == (rank,), mesh.local_groups
 idx = ShardedFlatIndex(dim=16, capacity=64, mesh=mesh)
-got = flat_steps(idx)
+got.update(flat_steps(idx))
 no_jax()
 with open(os.path.join(out, f"facts{rank}.json"), "w") as f:
     json.dump(facts, f)
@@ -378,11 +377,22 @@ def span_ranks(tmp_path_factory):
 
 @pytest.mark.parametrize("name", ["mesh", "index"])
 def test_group_spanning_ranks_refused(span_ranks, name):
-    _, _, facts = span_ranks
-    for f in facts:
-        kind, msg = f[name]
-        assert kind == "NotImplementedError", f[name]
-        assert "ROADMAP.md" in msg and "replica groups spanning ranks" in msg
+    """Groups spanning ranks, once refused: every rank lays
+    ``make_mesh2(2)`` as JAX lays ``jax.devices()`` (group 0 on ranks
+    0-1, group 1 on ranks 2-3), and a ``replicas=2`` index on it answers
+    on every rank as the single process on ``make_mesh2(2, 4)``."""
+    _, ranks, facts = span_ranks
+    owners = [0, 0, 1, 1, 2, 2, 3, 3]
+    for rank, f in enumerate(facts):
+        want = ([{"replica": 2, "shard": 4}, owners, [rank // 2]]
+                if name == "mesh" else [2, 4, owners])
+        assert f[name] == want, (rank, f[name])
+    if name == "index":
+        single = ShardedFlatIndex(16, capacity=64, mesh=_mesh2(2))
+        ref = STEPS_NS["flat_steps"](single)
+        for got in ranks:
+            for key, pair in ref.items():
+                _same(pair, got[f"span/{key}"], 1e-6)
 
 
 def test_four_ranks_one_group_each(span_ranks):

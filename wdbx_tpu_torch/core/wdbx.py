@@ -21,7 +21,7 @@ Torch port of ``wdbx_tpu/core/wdbx.py``; plugins come from
 which ``heal()`` uses for liveness, recovery plans and re-meshing. With
 ``WDBX_COORDINATOR_ADDRESS`` set, the engine joins its group before the
 store is built, so a sharded store lays its index on the global mesh
-(every rank then makes the same calls); ``heal()`` is not ported there.
+(every rank then makes the same calls, ``heal()`` included).
 """
 
 from __future__ import annotations
@@ -217,7 +217,10 @@ class WDBX:
         to LIVE RE-MESHING when positions stay unhealthy: sharded indexes
         re-stripe onto a mesh of only the surviving positions (slot ids
         are mesh-independent, so the store's registries are untouched)
-        and serving continues degraded.
+        and serving continues degraded. Once every position of the mesh
+        the engine started on answers again, a later ``heal`` with
+        ``allow_remesh`` re-stripes back onto it
+        (``ShardEngine.restored_mesh``).
 
         On a global mesh every rank calls ``heal`` and every layer runs
         on every rank in step: the integrity verdicts are agreed
@@ -225,8 +228,10 @@ class WDBX:
         derives the same plan and degraded mesh, a live remesh raises on
         every rank together or on none, and each rank then takes the
         same branch (``rehost``: ``"live"`` or ``"cold"`` a store
-        shard). A mesh that would leave a rank without a position, and a
-        lost process, raise ``NotImplementedError`` (an elastic restart,
+        shard). A rank whose positions are all down is left without one
+        on the degraded mesh and keeps serving: it joins every
+        collective with empty blocks, and answers as the others do. A
+        lost process ends the group (an elastic restart, not ported:
         ``ROADMAP.md`` queue 1)."""
         # Layer 1: bookkeeping integrity — registry / index divergence
         # (state corruption with healthy devices) recovers per shard.
@@ -260,31 +265,35 @@ class WDBX:
         # moves live data when the "dead" position still answers, and
         # falls back to a cold re-host (empty tensors on the survivors +
         # checkpoint reload) when it does not.
-        if plan and allow_remesh:
-            degraded = self.shard_engine.degraded_mesh(health)
-            if degraded is not self.shard_engine.mesh:
-                for shard, index in enumerate(self.store.indices):
-                    if not hasattr(index, "remesh"):
-                        continue
+        target = None
+        if allow_remesh:
+            # down positions: the survivors; none: the way back, once the
+            # positions a degraded mesh left out answer again
+            target = (self.shard_engine.degraded_mesh(health) if plan
+                      else self.shard_engine.restored_mesh())
+        if target is not None and target is not self.shard_engine.mesh:
+            for shard, index in enumerate(self.store.indices):
+                if not hasattr(index, "remesh"):
+                    continue
+                try:
+                    index.remesh(target)
+                    rehost[str(shard)] = "live"
+                except Exception:
+                    # old mesh unreachable: cold re-host from disk
+                    logger.warning("live remesh of shard %d failed; "
+                                   "re-hosting it cold", shard,
+                                   exc_info=True)
+                    rehost[str(shard)] = "cold"
                     try:
-                        index.remesh(degraded)
-                        rehost[str(shard)] = "live"
-                    except Exception:
-                        # old mesh unreachable: cold re-host from disk
-                        logger.warning("live remesh of shard %d failed; "
-                                       "re-hosting it cold", shard,
-                                       exc_info=True)
-                        rehost[str(shard)] = "cold"
-                        try:
-                            index.adopt_mesh(degraded)
-                            if not self.store.recover(
-                                shard, clear_on_failure=False
-                            ):
-                                unrecovered.append(shard)
-                        except Exception:
+                        index.adopt_mesh(target)
+                        if not self.store.recover(
+                            shard, clear_on_failure=False
+                        ):
                             unrecovered.append(shard)
-                self.shard_engine.adopt_mesh(degraded)
-                remeshed_to = list(degraded.names)
+                    except Exception:
+                        unrecovered.append(shard)
+            self.shard_engine.adopt_mesh(target)
+            remeshed_to = list(target.names)
         if plan and not remeshed_to:
             for shard in range(len(self.store.indices)):
                 if shard in recovered:

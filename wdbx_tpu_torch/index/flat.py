@@ -530,9 +530,8 @@ class FlatIndex(VectorIndex):
             from wdbx_tpu_torch.store import persist
 
             own, total = self._positions_held()
-            if own:  # a replica rank may hold no file to write
-                persist.save_arrays(path, self._position_arrays(), own,
-                                    total, lead=lead)
+            persist.save_arrays(path, self._position_arrays(), own, total,
+                                lead=lead, split=self._split_positions())
             skip_slab = False
         else:
             # skip_slab: valid derives on the host (allocated minus
@@ -557,6 +556,12 @@ class FlatIndex(VectorIndex):
     def _barrier(self) -> None:
         """Wait for every rank holding this index (no one, outside a mesh
         spanning ranks)."""
+
+    def _split_positions(self) -> bool:
+        """Whether the ranks share the writing of a per-position
+        checkpoint (every rank then calls ``persist.save_arrays``, with
+        the files it writes, maybe none)."""
+        return False
 
     def _npz_arrays(self, hwm: int) -> dict[str, np.ndarray]:
         """The npz checkpoint's slot-order host arrays below ``hwm``."""

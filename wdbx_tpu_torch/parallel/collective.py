@@ -3,13 +3,15 @@
 
 A global mesh (``parallel/mesh.py``) spans the ranks of a group, and
 every rank issues the same calls with the same arguments: each writes,
-scans and saves only the positions it owns. What crosses ranks goes
-through this module: the ``(B, k)`` partials of a search and the
-answered batch slices of a replicated mesh (``all_gather``), the
-centroids of a build (``broadcast``), the rows a build or a remesh moves
-between ranks (``all_to_all`` of variable-length row blocks), the tables
-a checkpoint writes on rank 0 (``gather``), and the order of a
-checkpoint's writes (``barrier``).
+scans and saves only the positions it owns, and a rank that owns no
+position (or none of the part being computed) still joins every call
+with an empty block. What crosses ranks goes through this module: the
+``(B, k')`` partials of a search, one block a rank holding the slices
+of every replica group it serves (``all_gather``), the centroids of a
+build (``broadcast``), the rows a build or a remesh moves between ranks
+(``all_to_all`` of variable-length row blocks), the tables a checkpoint
+writes on rank 0 (``gather``), and the order of a checkpoint's writes
+(``barrier``).
 
 Two groups span the same ranks. The default group carries the
 foreground: searches, writes, checkpoints, blocking builds. The
@@ -59,21 +61,6 @@ _STATS: dict[str, dict[str, dict[str, float]]] = {}
 _BACKGROUND: Any = None
 #: the calling thread's group (``using``)
 _THREAD = threading.local()
-
-#: what a mesh spanning ranks does not port yet: its ROADMAP.md item
-NOT_PORTED = {
-    "replicas": "replica groups spanning ranks",
-    "elastic": "an elastic restart after a lost process or an emptied "
-               "rank",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error of an operation a mesh spanning ranks does not port."""
-    return NotImplementedError(
-        f"{what} on a mesh spanning ranks is not ported (ROADMAP.md queue "
-        f"1: {NOT_PORTED[what]})")
-
 
 def open_background_group(timeout_s: float) -> None:
     """Create the background group over every rank of the default group

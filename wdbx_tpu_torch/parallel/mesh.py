@@ -29,19 +29,23 @@ above, over its own devices), the ranks exchange their lists once, and
 rank r owns positions ``[r*L, (r+1)*L)``; every rank must hold the same
 L. ``make_mesh(n)`` takes n positions in all, split into contiguous
 blocks as evenly as it goes (7 on 2 ranks: 4 + 3, the lower ranks one
-more); ``make_mesh2(r)`` lays r replica groups over the same list, each
-group within one rank. Names stay ``"<device>#<global position>"``,
-unique across ranks. A mesh derived from a global one
-(``ShardEngine.degraded_mesh``) keeps its survivors' names and owners,
-so its ranks own unequal blocks (the degraded mesh of 7 on 2 ranks is
-4 + 3). The owners of a global mesh are contiguous, ordered blocks, one
-a rank of the group: a mesh that leaves a rank without a position is
-refused (``NotImplementedError``: the rank would drop out of every
-collective, which is an elastic restart, ``ROADMAP.md`` queue 1). A rank
-holds tensors only for its own positions (``Mesh.local_positions``,
-``Mesh.local_groups``); the data plane between ranks is
-``parallel/collective.py``. A ``Mesh`` built directly is this process's
-own, whatever the group.
+more; 3 on 4 ranks: one each for ranks 0-2, none for rank 3, as
+``jax.devices()[:3]`` leaves the last process without a device).
+``make_mesh2(r, s)`` lays r replica groups of s shards row-major over
+the first ``r * s`` positions of the global list, as JAX's lays
+``jax.devices()[:r*s]``: group g is positions ``[g*s, (g+1)*s)``,
+whoever owns them. A group may span ranks, a rank may hold positions of
+two groups, and the last ranks may hold none. Names stay
+``"<device>#<global position>"``, unique across ranks. A mesh derived
+from a global one (``ShardEngine.degraded_mesh``) keeps its survivors'
+names and owners, so its ranks own unequal blocks (the degraded mesh of
+7 on 2 ranks is 4 + 3), or none. The owners of a global mesh are
+contiguous, ordered blocks. A rank holds tensors only for its own
+positions (``Mesh.local_positions``, ``Mesh.local_groups``), possibly
+none; every rank of the group still takes part in every collective of
+the mesh (``Mesh.world``), a rank without a position with empty blocks.
+The data plane between ranks is ``parallel/collective.py``. A ``Mesh``
+built directly is this process's own, whatever the group.
 """
 
 from __future__ import annotations
@@ -99,7 +103,7 @@ class Mesh:
                              f"device: {self.names}")
         #: this process's rank, and the rank owning each position (all
         #: this process's unless ``owners`` says otherwise)
-        self.rank = collective.rank_world()[0]
+        self.rank, group = collective.rank_world()
         self.owners = (tuple(int(o) for o in owners) if owners is not None
                        else (self.rank,) * len(self.devices))
         if len(self.owners) != len(self.devices):
@@ -107,19 +111,19 @@ class Mesh:
                              f"{len(self.devices)} positions")
         if owners is not None:
             _check_blocks(self.owners)
-        #: the positions whose tensors live in this process
+        #: the positions whose tensors live in this process (maybe none)
         self.local_positions = tuple(
             i for i, o in enumerate(self.owners) if o == self.rank)
+        #: the ranks taking part in this mesh's collectives: every rank
+        #: of the group on a global mesh, whether it owns a position or
+        #: not; 1 on a mesh of this process's own
+        self.world = group if owners is not None and group > 1 else 1
 
     @property
     def is_global(self) -> bool:
-        """Whether other ranks own positions of this mesh."""
-        return len(self.local_positions) != len(self.devices)
-
-    @property
-    def world(self) -> int:
-        """Ranks holding positions of this mesh."""
-        return len(set(self.owners))
+        """Whether the mesh spans the ranks of a group (the same answer
+        on every rank, whatever it holds)."""
+        return self.world > 1
 
     @property
     def size(self) -> int:
@@ -134,14 +138,11 @@ class Mesh:
 
 
 def _check_blocks(owners: tuple[int, ...]) -> None:
-    """The owners of a global mesh: contiguous, ordered blocks, one for
-    every rank of the group."""
-    world = collective.rank_world()[1]
+    """The owners of a global mesh: contiguous, ordered blocks (a rank
+    may own none)."""
     if list(owners) != sorted(owners):
         raise ValueError(f"a global mesh's ranks own contiguous, ordered "
                          f"blocks: {owners}")
-    if world > 1 and set(owners) != set(range(world)):
-        raise collective.not_ported("elastic")
 
 
 def _base_devices(device: Any) -> list[torch.device]:
@@ -190,13 +191,12 @@ def make_mesh(
 def _global_positions(base: list[torch.device], n: int, total: bool):
     """The devices and owning ranks of a mesh over every rank of the
     group: ``n`` positions a rank (``n`` in all when ``total``, the
-    lower ranks one more where they do not split evenly), this rank's
+    lower ranks one more where they do not split evenly, none past the
+    n-th rank where n is below the rank count), this rank's
     round-robin over its own devices, exchanged once; each rank owns the
     next contiguous block."""
     rank, world = collective.rank_world()
     if total:
-        if n < world:
-            raise collective.not_ported("elastic")
         n = n // world + (rank < n % world)
     mine = [str(d) for d in _round_robin(base, n)]
     lists = collective.all_gather_object(mine)
@@ -221,42 +221,32 @@ def make_mesh2(
     ``axes[1]`` and replicates over ``axes[0]``; query batches split
     over ``axes[0]``. ``shards`` defaults to the mesh size (see
     ``make_mesh``) over ``replicas``. In a group of several ranks the
-    mesh is global, laid row-major over the ranks' positions as
-    ``jax.devices()`` lays it: group g is positions ``[g*shards,
-    (g+1)*shards)``. Each rank's L positions must hold whole groups
-    (``L % shards == 0``), so a rank holds ``L / shards`` full copies of
-    the corpus; a group spanning ranks is not ported (``replicas=1``,
-    the one group over every rank, excepted)."""
+    mesh is global, laid row-major over the first ``replicas * shards``
+    positions of the ranks' list as ``jax.devices()[:r*s]`` lays it:
+    group g is positions ``[g*shards, (g+1)*shards)``, whichever ranks
+    own them."""
     if replicas < 1 or (shards is not None and shards < 1):
         raise ValueError(f"a {replicas} x {shards} mesh is empty")
     base = _base_devices(device)
-    world = collective.rank_world()[1]
-    if world > 1:
+    if collective.rank_world()[1] == 1:
         if shards is None:
-            devices, owners = _global_positions(base, _pool_size(base),
-                                                False)
-            if len(devices) % replicas:
-                raise ValueError(f"{len(devices)} positions not divisible "
-                                 f"by {replicas} replicas")
-            shards = len(devices) // replicas
-        else:
-            devices, owners = _global_positions(base, replicas * shards,
-                                                True)
-        per = len(devices) // world
-        if replicas > 1 and any(
-                len(set(owners[g * shards:(g + 1) * shards])) > 1
-                for g in range(replicas)):
-            if len(devices) % world == 0 and shards % per == 0:
-                raise collective.not_ported("replicas")
-            raise ValueError(f"{replicas} groups of {shards} shards do not "
-                             f"lie on ranks of {per} positions")
-        return Mesh(devices, axes, shape=(replicas, shards), owners=owners)
+            total = _pool_size(base)
+            if total % replicas:
+                raise ValueError(
+                    f"{total} positions not divisible by {replicas} replicas"
+                )
+            shards = total // replicas
+        return Mesh(_round_robin(base, replicas * shards), axes,
+                    shape=(replicas, shards))
+    devices, owners = _global_positions(base, _pool_size(base), False)
+    total = len(devices)
     if shards is None:
-        total = _pool_size(base)
         if total % replicas:
-            raise ValueError(
-                f"{total} positions not divisible by {replicas} replicas"
-            )
+            raise ValueError(f"{total} positions not divisible by "
+                             f"{replicas} replicas")
         shards = total // replicas
-    return Mesh(_round_robin(base, replicas * shards), axes,
-                shape=(replicas, shards))
+    need = replicas * shards
+    if need > total:
+        raise ValueError(f"requested {need} positions, {total} visible")
+    return Mesh(devices[:need], axes, shape=(replicas, shards),
+                owners=owners[:need])

@@ -14,11 +14,12 @@ every rank's positions, a shard is local to the rank that owns its
 position, the health probe runs on a rank's own positions and the ranks
 exchange the statuses, so every rank holds the same map and derives
 the same degraded mesh from it: the survivors keep their names and
-owners, and the ranks own unequal blocks of it. A lost rank ends a gloo
-group, as a lost process ends ``jax.distributed``, and a mesh that
-leaves a rank without a position would drop that rank from every
-collective: both are an elastic restart (``NotImplementedError``,
-``ROADMAP.md`` queue 1).
+owners, and the ranks own unequal blocks of it, or none (a rank whose
+positions are all down keeps joining every collective with empty
+blocks). Once the positions answer again, ``restored_mesh`` gives the
+mesh the engine started on back. A lost rank ends a gloo group, as a
+lost process ends ``jax.distributed``: recovering from it is an
+elastic restart, not ported (``ROADMAP.md`` queue 1).
 
 Every map here is keyed on the mesh's position names (``"cuda:0#3"``),
 never on ``str(device)``: positions of one card share their device.
@@ -62,6 +63,8 @@ class ShardEngine:
         )
         self.node_id = f"{socket.gethostname()}_{int(time.time())}"
         self.mesh = mesh
+        #: the mesh the engine started on (``restored_mesh``)
+        self.home = mesh
         #: where ``make_mesh`` lays the default mesh (None: the CUDA devices)
         self.device = device
         self._initialized = False
@@ -70,6 +73,8 @@ class ShardEngine:
     def _mesh(self) -> Mesh:
         if self.mesh is None:
             self.mesh = make_mesh(axis=self.axis, device=self.device)
+        if self.home is None:
+            self.home = self.mesh
         return self.mesh
 
     def join(self) -> None:
@@ -155,13 +160,14 @@ class ShardEngine:
         mesh = self._mesh()
         return mesh.owners[shard % mesh.size] == mesh.rank
 
-    def health_check(self) -> dict[str, Any]:
-        """Per-position liveness: an 8x8 product on each position's
-        device, then a synchronization of that device, so an
-        asynchronous CUDA fault counts against the position that ran.
-        A rank probes its own positions; on a global mesh the ranks then
-        exchange their statuses, so every rank holds the whole map."""
-        mesh = self._mesh()
+    def health_check(self, mesh: Mesh | None = None) -> dict[str, Any]:
+        """Per-position liveness of ``mesh`` (default: the engine's): an
+        8x8 product on each position's device, then a synchronization of
+        that device, so an asynchronous CUDA fault counts against the
+        position that ran. A rank probes its own positions (maybe none);
+        on a global mesh the ranks then exchange their statuses, so
+        every rank holds the whole map."""
+        mesh = mesh or self._mesh()
         statuses = {mesh.names[p]: self._probe(mesh.names[p],
                                                mesh.devices[p])
                     for p in mesh.local_positions}
@@ -214,8 +220,8 @@ class ShardEngine:
         collapse: survival beats data-parallel fan-out. On a global mesh
         every rank holds the same health map (``health_check`` gathers
         it), so every rank derives the same mesh: the survivors keep
-        their owners, in blocks of unequal size. A mesh that would leave
-        a rank without a position raises ``NotImplementedError``."""
+        their owners, in blocks of unequal size; a rank whose positions
+        are all down owns none and joins the mesh's collectives empty."""
         health = health or self.health_check()
         mesh = self._mesh()
         keep = [i for i, n in enumerate(mesh.names)
@@ -228,6 +234,18 @@ class ShardEngine:
                     names=[mesh.names[i] for i in keep],
                     owners=([mesh.owners[i] for i in keep]
                             if mesh.is_global else None))
+
+    def restored_mesh(self) -> Mesh:
+        """The mesh the engine started on, once every position of it
+        answers its probe again (heal's way back from a degraded mesh);
+        the current mesh otherwise. Every rank probes its own positions
+        of that mesh and the ranks exchange the statuses, so every rank
+        takes the same answer."""
+        mesh = self._mesh()
+        if self.home is mesh:
+            return mesh
+        return self.home if self.health_check(self.home)["healthy"] \
+            else mesh
 
     def adopt_mesh(self, mesh: Mesh) -> None:
         """Install a new mesh (post-remesh) and persist the allocation."""

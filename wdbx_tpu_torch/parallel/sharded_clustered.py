@@ -49,15 +49,15 @@ CUDA, so centroids trained on each rank could differ in the last bits
 and the ranks would disagree on the layout); each rank assigns the rows
 it holds and the ranks all-gather the assignments, so the striped
 layout is computed alike everywhere; then the rows move to their new
-(shard, row) ``_CHUNK`` at a time, a rank sending only rows bound for
-another rank's shards (``collective.all_to_all``). A search runs K3 and
-the fresh rows on the rank's shards, merges them, all-gathers the
-``(B, k)`` of every rank and merges once more; the probe top-k and the
-block dedup stay per rank, on identical inputs. On a replicated global
-mesh every rank holds whole copies: rank 0 still trains (and assigns,
-reading its own copy) and broadcasts, no row moves between ranks, and
-a search runs K3 on the shards of the rank's own groups and gathers
-the answered batch slices (``ShardedFlatIndex._share_slices``).
+(shard, row) ``_CHUNK`` at a time, each to every rank holding a copy
+of its new shard (``collective.all_to_all``). A search runs K3 and the
+fresh rows on the rank's shards of each replica group it holds a
+position of, merges them, and the ranks' ``(B_g, k')`` cross in one
+``all_gather`` and merge once more for each group
+(``ShardedFlatIndex._serve``); the probe top-k and the block dedup stay
+per rank, on identical inputs. Where every rank holds whole copies
+(``make_mesh2(2)`` on 2 ranks), rank 0 still trains (and assigns,
+reading its own copy) and broadcasts, and no row moves between ranks.
 
 ``build_background`` on a global mesh: every rank calls it in a thread
 of its own while its foreground goes on calling the index. The rows of
@@ -406,7 +406,7 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
         for i in range(0, len(src_global), _CHUNK):
             dst = dest[i:i + _CHUNK]
             self._move_rows(
-                slabs, scales, src_global[i:i + _CHUNK], self._owner_of(dst),
+                slabs, scales, src_global[i:i + _CHUNK], dst % n_dev,
                 lambda at, rows, sc, dst=dst: self._put_rows(
                     slabs_n, valids_n, scales_n, dst[at], rows, sc))
         return slabs_n, valids_n, scales_n
@@ -931,12 +931,12 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
 
     def _group_topk_clustered(self, g, q, probe, k, nprobe, route, u, pad_g,
                               valids, res_rows):
-        """Sorted ``(B, k')`` scores and global positions of queries
-        ``q`` (normalized) over replica group ``g``: every shard's
-        partials on its position, local rows -> global positions (``row
-        * n_dev + shard``, -1 stays -1) on the device, one merge. On a
-        global mesh: the merge of the rank's shards, then the cross-rank
-        merge (``ShardedFlatIndex._merge_ranks``)."""
+        """Sorted scores and global positions of queries ``q``
+        (normalized) over the shards of replica group ``g`` this process
+        holds: every shard's partials on its position, local rows ->
+        global positions (``row * n_dev + shard``, -1 stays -1) on the
+        device, one merge (``_merge_own``: ``(B, k)``, or ``(B, k')`` on
+        a global mesh, which ``_serve`` gathers and merges)."""
         n_dev = self.n_devices
         on_dev = {}  # the queries (and the kernel's prep) once a device
         parts_v, parts_i = [], []
@@ -964,10 +964,8 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                 parts_v.append(pv.to(self.device))
                 parts_i.append(gi.to(torch.int32).to(self.device))
         part_v, part_i = torch.cat(parts_v, 1), torch.cat(parts_i, 1)
-        kk = min(k, self._cap)
-        if not self._spans:
-            return merge_partials(part_v, part_i, kk)
-        return self._rank_merge(part_v, part_i, kk, merge_partials)
+        return self._merge_own(part_v, part_i, min(k, self._cap),
+                               merge_partials)
 
     def _query(self, q, k, nprobe, pad_b, valids):
         """One batch ``q`` (B, d) through the route of a batch of (JAX)
@@ -981,22 +979,12 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
             probe = _probes(q, self._centroids, nprobe, self._precision)
             u = self._scan_u(pad_b, nprobe)
         res_rows = self._residual_rows()
-        r = self.replicas
-        pad_g = pad_b // r
+        pad_g = pad_b // self.replicas
         args = (k, nprobe, route, u, pad_g, valids, res_rows)
-        if r == 1:
-            return self._group_topk_clustered(0, q, probe, *args)
-        b, kk = q.shape[0], min(k, self._cap)
-        out_v = torch.full((b, kk), float("-inf"), device=self.device)
-        out_i = torch.full((b, kk), -1, dtype=torch.int64, device=self.device)
-        cuts = self._cuts(b)
-        for g in self._groups:
-            lo, hi = cuts[g], cuts[g + 1]
-            if hi > lo:
-                out_v[lo:hi], out_i[lo:hi] = self._group_topk_clustered(
-                    g, q[lo:hi], None if probe is None else probe[lo:hi],
-                    *args)
-        return self._share_slices(out_v, out_i, cuts)
+        return self._serve(q.shape[0], min(k, self._cap), lambda g, lo, hi:
+                           self._group_topk_clustered(
+                               g, q[lo:hi], None if probe is None
+                               else probe[lo:hi], *args), merge_partials)
 
     def _pad_b(self, b: int) -> int:
         """JAX's batch width: the next power of two, rounded up to a

@@ -27,50 +27,59 @@ layout of the JAX index (so checkpoints move between device counts and
 between the packages), or one file a position with
 ``persist_backend="orbax"`` (``store/persist.py``).
 
-Global mesh (``make_mesh`` in a group of several ranks): every rank
-makes the same calls with the same arguments and holds tensors only for
-its own positions (``None`` at the others'), so a method that reaches a
-remote position fails instead of reading garbage. The ranks own
-contiguous, ordered blocks of positions, of equal size or not (a
-degraded mesh of 7 on 2 ranks is 4 + 3). Slot routing is host
-arithmetic, identical on every rank; a write lands on the writer's own
-positions. A search runs stage 1 on the rank's shards, merges them to
-the rank's ``(B, k')`` and all-gathers those over the ranks and merges
-once more (``parallel/collective.py``): JAX's local top-k,
-``all_gather`` and ``top_k``, ``B * k' * 8`` bytes a rank. k' is the
-same on every rank, ``min(k, rows of the largest rank's shards)``, from
-the mesh and the capacity (host state every rank shares), with -inf /
--1 past a rank's own candidates. Host reads of the slab (checkpoints,
-``get_vectors``, the validity) gather across ranks, padded to the
-largest rank's shard count, as JAX's ``_host_replicated`` does.
-Checkpoints: each rank writes its own positions' files
-(``persist_backend="orbax"``), or the gathered npz; the shared files
-(npz, metadata, sidecars) are written once a path: by rank 0 where the
-ranks share the path, by every rank where each has its own (its own
-data directory, as every JAX process writes its own copy); the ranks
-meet at a barrier.
+Global mesh (``make_mesh`` / ``make_mesh2`` in a group of several
+ranks): every rank makes the same calls with the same arguments and
+holds tensors only for its own positions (``None`` at the others'), so
+a method that reaches a remote position fails instead of reading
+garbage. The ranks own contiguous, ordered blocks of positions, of equal
+size or not (a degraded mesh of 7 on 2 ranks is 4 + 3), or none (a rank
+left out of ``make_mesh(3)`` on 4 ranks, or whose positions all failed
+their probe): such a rank holds no tensor, runs no stage 1, keeps its
+queries and answers on its own device, and joins every collective with
+an empty block. Every branch that decides whether a rank takes part in
+a collective reads the mesh and the capacity, which every rank shares,
+never what the rank holds. Slot routing is host arithmetic, identical
+on every rank; a write lands on every copy the writer holds, and is a
+no-op on a rank holding none.
+
+A search splits the batch over the replica groups (``_cuts``). For each
+group it holds a position of, a rank runs stage 1 on its shards of that
+group for the group's slice and merges them to ``(B_g, k')``; ONE
+``all_gather`` then carries every rank's slices, and every rank merges,
+for each group, the blocks of that group's ranks (``_serve``): JAX's
+local top-k, ``all_gather`` and ``top_k``, ``B_g * k' * 8`` bytes a
+rank a group. k' is the same on every rank, ``min(k, rows of the most
+shards one rank holds of one group)``, from the mesh and the capacity,
+with -inf / -1 past a rank's own candidates. A group within one rank
+(``make_mesh2(2)`` on 2 ranks of 4) is taken as its rank sent it; a
+group spanning ranks (``make_mesh2(2)`` on 4 ranks of 2) merges the
+blocks of its ranks.
+
+Host reads of the slab (checkpoints, ``get_vectors``, the validity
+behind builds) read the copy of one replica group. Where every rank
+holds a whole copy, each reads its lowest whole group alone and nothing
+crosses; otherwise (``_spans``: the unreplicated global mesh, groups
+spanning ranks, a rank without a position) every rank reads group 0's
+copy, the ranks gathering their shards of it, padded to the largest
+rank's shard count, as JAX's ``_host_replicated`` does. A build's rows
+are read by group 0's owners and travel to every rank holding a copy of
+their new shard. Checkpoints: one file a shard (``persist_backend=
+"orbax"``), written by the lowest rank holding a copy among those that
+share the path (group 0's owners on a shared path), and read by every
+rank holding a copy, into each of its copies; or the gathered npz. The
+shared files (npz, metadata, sidecars) are written once a path: by rank
+0 where the ranks share the path, by every rank where each has its own
+(its own data directory, as every JAX process writes its own copy); the
+ranks meet at a barrier.
 
 A live remesh moves rows, never a host copy of the slab: each rank reads
-the live rows of the old shards it holds, keeps those whose new shard
-it holds and sends the rest to their new ranks through
-``collective.all_to_all`` (``_CHUNK`` slots at a time, the slot id
-beside each row). The ranks first agree that every rank could read its
-old positions, so a dead device makes every rank raise together. A
-remesh between a global mesh and a single-process one is refused
-(``ValueError``); a mesh that leaves a rank without a position is an
-elastic restart (``NotImplementedError``).
-
-A replicated global mesh (``make_mesh2``) holds whole replica groups a
-rank: every rank holds every shard, one full copy a group it owns.
-Host reads take the rank's lowest group's copies (the read group) and
-gather nothing; a write reaches every copy the rank holds. A search
-serves the batch slices of the rank's own groups, each group merged on
-the rank, and the ranks all-gather the answered rows (padded to the
-largest rank's), so every rank returns the whole batch. Checkpoints:
-rank 0 writes its own copy (npz, or group 0's ``n_devices`` files), and
-every rank loads all of them into each group it holds. Replica groups
-spanning ranks are not ported (``NotImplementedError``, ``ROADMAP.md``
-queue 1).
+the live rows of the old shards it reads for the others, keeps those
+whose new shard it holds and sends each other row to every rank holding
+a copy of its new shard through ``collective.all_to_all`` (``_CHUNK``
+slots at a time, the slot id beside each row). The ranks first agree
+that every rank could read its old positions, so a dead device makes
+every rank raise together. A remesh between a global mesh and a
+single-process one is refused (``ValueError``).
 """
 
 from __future__ import annotations
@@ -106,7 +115,12 @@ from wdbx_tpu_torch.kernels.quant import (
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
 from wdbx_tpu_torch.parallel import collective
-from wdbx_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh2
+from wdbx_tpu_torch.parallel.mesh import (
+    Mesh,
+    _canon,
+    make_mesh,
+    make_mesh2,
+)
 
 logger = logging.getLogger("wdbx_tpu_torch.parallel")
 
@@ -143,9 +157,12 @@ class ShardedFlatIndex(FlatIndex):
             mesh = (make_mesh2(replicas, axes=("replica", axis), device=device)
                     if replicas > 1 else make_mesh(axis=axis, device=device))
         self.axis = axis
+        #: the caller's device: where a rank holding no position keeps
+        #: its queries and answers
+        self._device_arg = device
         self._set_mesh(mesh)
         super().__init__(dim, metric=metric, dtype=dtype, capacity=capacity,
-                         device=mesh.devices[0])
+                         device=self.device)
 
     # -- topology -----------------------------------------------------------
     def _set_mesh(self, mesh: Mesh) -> None:
@@ -157,10 +174,6 @@ class ShardedFlatIndex(FlatIndex):
             raise ValueError(f"the shard axis {self.axis!r} must be the "
                              f"mesh's last: {mesh.axis_names}")
         n_dev = int(mesh.shape[self.axis])
-        if mesh.is_global and mesh.size != n_dev and any(
-                len(set(mesh.owners[g:g + n_dev])) > 1
-                for g in range(0, mesh.size, n_dev)):
-            raise collective.not_ported("replicas")
         self.mesh = mesh
         self.replica_axis = (
             "replica" if "replica" in mesh.axis_names else None
@@ -168,26 +181,50 @@ class ShardedFlatIndex(FlatIndex):
         #: number of corpus shards (slot striping runs over these)
         self.n_devices = n_dev
         self.replicas = mesh.size // self.n_devices
-        #: the positions this process holds tensors for
+        #: the positions this process holds tensors for, and the replica
+        #: groups with one of them
         self._local = frozenset(mesh.local_positions)
-        #: the replica groups this process holds, and the one whose
-        #: copies its host reads take (its lowest)
         self._groups = mesh.local_groups
-        self._read_group = self._groups[0]
-        #: whether the read group's shards lie on several ranks (the
-        #: unreplicated global mesh): host reads then gather and a search
-        #: merges across ranks. A replicated global mesh holds whole
-        #: groups a rank, and its ranks gather answered batch slices.
-        self._spans = len(self._own_shards()) < n_dev
-        #: read-group shards of each rank, in rank order (the blocks)
-        self._rank_shards = np.bincount(
-            np.asarray(mesh.owners[:n_dev]), minlength=mesh.world)
-        #: whether this rank writes a checkpoint's shared files, and how
-        #: many ranks do (``_choose_writer``)
+        #: this process's row in the tables below (0 outside a global
+        #: mesh)
+        self._me = mesh.rank if mesh.is_global else 0
+        ranks = (np.asarray(mesh.owners) if mesh.is_global
+                 else np.zeros(mesh.size, np.int64))
+        at = np.arange(mesh.size)
+        #: shards of each replica group on each rank, ``(world, replicas)``
+        self._group_shards = np.zeros((mesh.world, self.replicas), np.int64)
+        np.add.at(self._group_shards, (ranks, at // n_dev), 1)
+        #: whether each rank holds a copy of each shard, ``(world, n_dev)``
+        self._has = np.zeros((mesh.world, n_dev), bool)
+        self._has[ranks, at % n_dev] = True
+        whole = self._group_shards == n_dev
+        #: whether host reads gather across ranks: some rank (one
+        #: without a position, too) holds no whole copy of the corpus.
+        #: Reads then take group 0's copy wherever its shards lie;
+        #: otherwise each rank reads its lowest whole group alone.
+        self._spans = not whole.any(axis=1).all()
+        #: the replica group whose copies host reads take
+        self._read_group = (0 if self._spans
+                            else int(np.argmax(whole[self._me])))
+        #: group 0's shards of each rank, in rank order: the blocks host
+        #: reads gather where they span ranks
+        self._rank_shards = self._group_shards[:, 0]
+        #: whether this rank writes a checkpoint's shared files, how many
+        #: ranks do, and the ranks sharing its path (``_choose_writer``)
         self._lead, self._writers = mesh.rank == mesh.owners[0], 1
+        self._peers = [self._me]
         #: queries, results and merges live on the first own position's
-        #: device
-        self.device = mesh.devices[mesh.local_positions[0]]
+        #: device; a rank holding none keeps them on its own device
+        self.device = (mesh.devices[mesh.local_positions[0]]
+                       if mesh.local_positions else self._home())
+
+    def _home(self) -> torch.device:
+        """The device of a rank that holds no position: the caller's,
+        else this process's own device of the mesh's kind (its current
+        card on a CUDA mesh; the CPU only on a CPU mesh)."""
+        if self._device_arg is not None:
+            return _canon(self._device_arg)
+        return _canon(self.mesh.devices[0].type)
 
     # -- sharded storage ------------------------------------------------------
     def _round_cap(self, need: int) -> int:
@@ -217,19 +254,27 @@ class ShardedFlatIndex(FlatIndex):
 
     def _own_shards(self) -> list[int]:
         """The shards of the read group this process holds (every shard
-        outside the unreplicated global mesh)."""
+        where host reads gather nothing)."""
         return [s for s in range(self.n_devices)
                 if self._read_pos(s) in self._local]
 
-    def _rank_k(self, k: int) -> int:
-        """k' of a rank's merge on a mesh spanning ranks: the same on
-        every rank, from the mesh and the capacity."""
-        return min(k, int(self._rank_shards.max()) * self.rows_per_device)
+    def _first_copy(self, s: int) -> int:
+        """This process's lowest position holding shard ``s``."""
+        return min(p for p in range(s, self.mesh.size, self.n_devices)
+                   if p in self._local)
 
-    def _rank_merge(self, part_v, part_i, k: int, merge):
-        """The two levels of a search on a mesh spanning ranks: the
-        rank's ``(B, parts, k'')`` partials merged to ``(B, k')`` (-inf /
-        -1 past its own candidates), then ``_merge_ranks``."""
+    def _rank_k(self, k: int) -> int:
+        """k' of a rank's merge on a global mesh: the same on every
+        rank, from the mesh and the capacity (the most shards one rank
+        holds of one group, times their rows)."""
+        return min(k, int(self._group_shards.max()) * self.rows_per_device)
+
+    def _merge_own(self, part_v, part_i, k: int, merge):
+        """The rank's ``(B, parts, k'')`` partials of one group merged to
+        ``(B, k)``; on a global mesh to ``(B, k')`` (``_rank_k``), -inf
+        / -1 past the rank's own candidates."""
+        if not self.mesh.is_global:
+            return merge(part_v, part_i, k)
         kr = self._rank_k(k)
         v, i = merge(part_v, part_i,
                      min(kr, part_v.shape[1] * part_v.shape[2]))
@@ -237,7 +282,7 @@ class ShardedFlatIndex(FlatIndex):
         if pad:
             v = torch.nn.functional.pad(v, (0, pad), value=float("-inf"))
             i = torch.nn.functional.pad(i, (0, pad), value=-1)
-        return self._merge_ranks(v, i, k, merge)
+        return v, i
 
     # -- row reads --------------------------------------------------------------
     def _elsize(self) -> int:
@@ -375,36 +420,38 @@ class ShardedFlatIndex(FlatIndex):
             out[owner == r] = block.numpy()
         return out
 
-    def _move_rows(self, slabs, scales, src, to, put) -> None:
+    def _move_rows(self, slabs, scales, src, shard, put) -> None:
         """Deliver the stored rows at global positions ``src`` (read from
-        the explicit per-position lists) to ranks ``to``:
-        ``put(at, rows, scales)`` writes the rows of entries ``at``
-        (indices into ``src``) that land on this rank. When the shards
-        span ranks a rank reads only the rows it holds, keeps those bound
-        for itself and sends the rest through the all-to-all; otherwise
-        every row is here."""
+        the explicit per-position lists) to every rank holding a copy of
+        their new shards ``shard``: ``put(at, rows, scales)`` writes the
+        rows of entries ``at`` (indices into ``src``) that land on this
+        rank. Where host reads span ranks a rank reads only the rows of
+        group 0's shards it holds, keeps those bound for its own copies
+        and sends each other to every rank holding a copy through the
+        all-to-all; otherwise every row is here."""
         n_dev = self.n_devices
         if not self._spans:
             put(np.arange(len(src)), *self._gather_raw_of(slabs, scales, src,
                                                           n_dev))
             return
-        rank, world = self.mesh.rank, self.mesh.world
+        rank, world = self._me, self.mesh.world
         owner = self._owner_of(src)
         mine = np.nonzero(owner == rank)[0]
         rows, sc = self._gather_raw_of(slabs, scales, src[mine], n_dev)
-        dest = to[mine]
+        to = self._has[:, np.asarray(shard, np.int64)]  # (world, len(src))
 
         def pick(m):
             return torch.as_tensor(np.nonzero(m)[0], device=rows.device)
 
-        here = pick(dest == rank)
-        put(mine[dest == rank], rows[here], None if sc is None else sc[here])
+        here = pick(to[rank, mine])
+        put(mine[to[rank, mine]], rows[here],
+            None if sc is None else sc[here])
         packed = self._pack(rows, sc)
-        got = collective.all_to_all([packed[pick(dest == r)] if r != rank
+        got = collective.all_to_all([packed[pick(to[r, mine])] if r != rank
                                      else packed[:0] for r in range(world)])
         for r in range(world):
             if r != rank:
-                put(np.nonzero((owner == r) & (to == rank))[0],
+                put(np.nonzero((owner == r) & to[rank])[0],
                     *self._unpack(got[r]))
 
     def _alloc(self, cap: int) -> None:
@@ -543,7 +590,9 @@ class ShardedFlatIndex(FlatIndex):
         if not self.mesh.is_global:
             return
         paths = collective.all_gather_object(os.path.abspath(path))
-        self._lead = paths.index(paths[self.mesh.rank]) == self.mesh.rank
+        mine = paths[self.mesh.rank]
+        self._peers = [r for r, p in enumerate(paths) if p == mine]
+        self._lead = self._peers[0] == self.mesh.rank
         self._writers = len(set(paths))
 
     def _save_locked(self, path: str, skip_slab: bool = False) -> None:
@@ -554,19 +603,25 @@ class ShardedFlatIndex(FlatIndex):
         if self.mesh.is_global:
             collective.barrier()
 
+    def _split_positions(self) -> bool:
+        return self.mesh.is_global
+
     def _positions_held(self, writing: bool = True
                         ) -> tuple[list[int], int]:
-        """One file a shard, of ``n_devices``: the shards of the read
-        group this process holds. On a replicated global mesh every rank
-        reads all of them, and only the ranks that write the shared
-        files write them (rank 0 on a shared path)."""
-        own = self._own_shards()
-        if writing and not self._spans and not self._lead:
-            own = []
-        return own, self.n_devices
+        """One file a shard, of ``n_devices``. A rank reads the file of
+        every shard it holds a copy of, and writes each of those that no
+        lower rank sharing its path holds (``_choose_writer``): on a
+        shared path the owners of group 0's copies write every file
+        once; where each rank has its own path, each writes all it will
+        read. A rank without a position reads and writes none."""
+        held = [s for s in range(self.n_devices) if self._has[self._me, s]]
+        if writing:
+            lower = [r for r in self._peers if r < self._me]
+            held = [s for s in held if not self._has[lower, s].any()]
+        return held, self.n_devices
 
     def _position_arrays(self) -> dict[str, list[torch.Tensor]]:
-        at = [self._read_pos(s) for s in self._positions_held()[0]]
+        at = [self._first_copy(s) for s in self._positions_held()[0]]
         arrays = {"slab": [self._slabs[p] for p in at],
                   "valid": [self._valids[p] for p in at]}
         if self._is_quantized:
@@ -574,17 +629,17 @@ class ShardedFlatIndex(FlatIndex):
         return arrays
 
     def _position_devices(self) -> list[torch.device]:
-        return [self.mesh.devices[self._read_pos(s)]
-                for s in self._own_shards()]
+        return [self.mesh.devices[self._first_copy(s)]
+                for s in self._positions_held(writing=False)[0]]
 
     def _install_positions(self, arrays: dict[str, list]) -> None:
         n_dev, devs = self.n_devices, self.mesh.devices
-        own = self._own_shards()
+        read = self._positions_held(writing=False)[0]
 
         def spread(parts):
-            at = dict(zip(own, parts))
+            at = dict(zip(read, parts))
             return self._held(
-                lambda p, d: at[p % n_dev] if p == self._read_pos(p % n_dev)
+                lambda p, d: at[p % n_dev] if p == self._first_copy(p % n_dev)
                 else at[p % n_dev].to(d, copy=True))
 
         self._slabs = spread(arrays["slab"])
@@ -592,32 +647,40 @@ class ShardedFlatIndex(FlatIndex):
         self._row_scales = (spread(arrays["scales"]) if self._is_quantized
                             else [None] * len(devs))
 
-    def _interleave(self, parts: list[torch.Tensor]) -> np.ndarray:
-        """Slot-order host array from one tensor a position (checkpoint
-        encoding: bf16 as uint16 bits), read from the read group's
-        copies. When those span ranks the ranks gather their shards'
-        host copies."""
+    def _per_position(self, name: str):
+        """The per-position tensors ``name`` (``"slab"``, ``"valid"``,
+        ``"scales"``), with the shape and dtype of each."""
+        rpd = self.rows_per_device
+        return {"slab": (self._slabs, (rpd, self._row_width), self._dtype),
+                "valid": (self._valids, (rpd,), torch.bool),
+                "scales": (self._row_scales, (rpd,), torch.float32)}[name]
+
+    def _interleave(self, name: str) -> np.ndarray:
+        """Slot-order host array of the per-position tensors ``name``
+        (checkpoint encoding: bf16 as uint16 bits), read from the read
+        group's copies. When those span ranks the ranks gather their
+        shards' host copies."""
         n_dev = self.n_devices
-        parts = [parts[self._read_pos(s)] for s in self._own_shards()]
+        tensors, tail, dtype = self._per_position(name)
+        parts = [tensors[self._read_pos(s)].cpu() for s in self._own_shards()]
         if self._spans:
-            parts = list(self._shard_stack(torch.stack([t.cpu()
-                                                        for t in parts])))
+            parts = list(self._shard_stack(parts, tail, dtype))
         host = [slab_to_numpy(t) for t in parts]
         out = np.empty((self._cap,) + host[0].shape[1:], host[0].dtype)
         for s, h in enumerate(host):
             out[s::n_dev] = h
         return out
 
-    def _shard_stack(self, mine: torch.Tensor, everywhere: bool = True):
-        """This rank's ``(own shards, ...)`` host stack -> every rank's,
-        ``(n_devices, ...)`` in shard order (the blocks lie in rank
+    def _shard_stack(self, parts: list, tail, dtype, everywhere=True):
+        """This rank's host tensors of its read-group shards (each of
+        shape ``tail`` and ``dtype``, maybe none) -> every rank's,
+        ``(n_devices, *tail)`` in shard order (the blocks lie in rank
         order), on every rank, or on rank 0 only (None elsewhere). The
         stacks cross padded to the largest rank's shard count."""
         counts = self._rank_shards
-        most = int(counts.max())
-        if len(mine) < most:
-            mine = torch.cat([mine, mine.new_zeros(
-                (most - len(mine),) + tuple(mine.shape[1:]))])
+        mine = torch.zeros((int(counts.max()),) + tuple(tail), dtype=dtype)
+        if parts:
+            mine[:len(parts)] = torch.stack(parts)
         every = (collective.all_gather(mine) if everywhere
                  else collective.gather(mine))
         if every is None:
@@ -627,13 +690,13 @@ class ShardedFlatIndex(FlatIndex):
     def _host_slot_view(self):
         """Slot-order host copies of the slab (checkpoint encoding), the
         validity and the scales (None for float slabs)."""
-        scales = (self._interleave(self._row_scales)
+        scales = (self._interleave("scales")
                   if self._is_quantized else None)
-        return (self._interleave(self._slabs),
-                self._interleave(self._valids), scales)
+        return (self._interleave("slab"), self._interleave("valid"),
+                scales)
 
     def _host_valid_np(self) -> np.ndarray:
-        return self._interleave(self._valids)
+        return self._interleave("valid")
 
     def valid_count(self) -> int:
         mine = sum(int(self._valids[self._read_pos(s)].sum())
@@ -673,34 +736,17 @@ class ShardedFlatIndex(FlatIndex):
 
     def _group_topk(self, group: int, q: torch.Tensor, k: int, valids,
                     kernels: bool):
-        """Sorted ``(B, k)`` scores and int64 slots of queries ``q`` over
-        replica group ``group``: each shard's stage 1 on its position,
-        local rows -> slots (``row * n_dev + shard``, -1 stays -1) on the
-        device, then one merge over all shards' partials. On a global
-        mesh: the merge of the rank's shards, then ``_merge_ranks``."""
+        """Sorted scores and int64 slots of queries ``q`` over the shards
+        of replica group ``group`` this process holds: each shard's
+        stage 1 on its position, local rows -> slots (``row * n_dev +
+        shard``, -1 stays -1) on the device, then one merge over their
+        partials (``_merge_own``: ``(B, k)``, or ``(B, k')`` on a global
+        mesh)."""
         if self.metric == "cosine":
             q = l2_normalize(q)
         part_v, part_i = self._shard_parts(group, q, k, valids, kernels)
         merge = merge_partials if kernels else merge_partials_plain
-        if not self._spans:
-            return merge(part_v, part_i, k)
-        return self._rank_merge(part_v, part_i, k, merge)
-
-    @staticmethod
-    def _merge_ranks(v: torch.Tensor, i: torch.Tensor, k: int, merge):
-        """The cross-rank step of a search on a global mesh: every rank's
-        sorted ``(B, k')`` scores and slots, all-gathered as one int32
-        block (score bits beside slots) into ``(B, world, k')`` partials
-        and merged to ``(B, k)``. Ties keep each rank's merge order, then
-        the lower rank."""
-        kk = v.shape[1]
-        packed = torch.cat([v.contiguous().view(torch.int32),
-                            i.to(torch.int32)], -1)
-        every = collective.all_gather(packed)  # (world, B, 2k')
-        gv = every[..., :kk].contiguous().view(torch.float32)
-        gi = every[..., kk:]
-        return merge(gv.transpose(0, 1).contiguous(),
-                     gi.transpose(0, 1).contiguous(), k)
+        return self._merge_own(part_v, part_i, k, merge)
 
     def _shard_parts(self, group: int, q: torch.Tensor, k: int, valids,
                      kernels: bool):
@@ -735,23 +781,18 @@ class ShardedFlatIndex(FlatIndex):
     def _mesh_search(self, qstack: torch.Tensor, k: int, valids):
         """``(NB, B, min(k, cap))`` device scores and slots of a query
         stack: the batch axis splits over the replica groups, each group
-        serves its slice of every batch."""
+        serves its slice of every batch (``_serve``)."""
         nb, b, d = qstack.shape
         kk = min(k, self._cap)
-        out_v = torch.full((nb, b, kk), float("-inf"), device=self.device)
-        out_i = torch.full((nb, b, kk), -1, dtype=torch.int64,
-                           device=self.device)
         kernels = self._resolve_topk() == "fused"
-        cuts = self._cuts(b)
-        for g in self._groups:
-            lo, hi = cuts[g], cuts[g + 1]
-            if hi == lo:
-                continue
+
+        def run(g, lo, hi):
             q = qstack[:, lo:hi].reshape(-1, d)
             v, i = self._group_topk(g, q, kk, valids, kernels)
-            out_v[:, lo:hi] = v.reshape(nb, hi - lo, kk)
-            out_i[:, lo:hi] = i.reshape(nb, hi - lo, kk)
-        return self._share_slices(out_v, out_i, cuts)
+            return v.reshape(nb, hi - lo, -1), i.reshape(nb, hi - lo, -1)
+
+        return self._serve(b, kk, run, merge_partials if kernels
+                           else merge_partials_plain, lead=(nb,))
 
     def _cuts(self, b: int) -> list[int]:
         """Batch bounds of the replica groups: group g serves queries
@@ -759,30 +800,63 @@ class ShardedFlatIndex(FlatIndex):
         r = self.replicas
         return [b * g // r for g in range(r + 1)]
 
-    def _share_slices(self, v: torch.Tensor, i: torch.Tensor, cuts):
-        """On a replicated global mesh each rank answered the batch
-        slices of its own groups (axis -2 of ``(..., B, k)`` scores and
-        int64 slots): the ranks all-gather those rows, padded to the
-        largest rank's, so that every rank returns every row. A rank
-        with no rows (B=1 over two groups) still joins. Elsewhere the
-        answers are whole already."""
-        if not self.mesh.is_global or self._spans:
-            return v, i
-        per, world = len(self._groups), self.mesh.world
-        bounds = [(cuts[r * per], cuts[(r + 1) * per]) for r in range(world)]
-        width = max(hi - lo for lo, hi in bounds)
-        kk = v.shape[-1]
-        packed = torch.cat([v.contiguous().view(torch.int32),
-                            i.to(torch.int32)], -1)
-        lo, hi = bounds[self.mesh.rank]
-        mine = torch.zeros(packed.shape[:-2] + (width, 2 * kk),
-                           dtype=torch.int32, device=packed.device)
-        mine[..., :hi - lo, :] = packed[..., lo:hi, :]
-        every = collective.all_gather(mine)
-        for r, (lo, hi) in enumerate(bounds):
-            packed[..., lo:hi, :] = every[r][..., :hi - lo, :]
-        return (packed[..., :kk].contiguous().view(torch.float32),
-                packed[..., kk:].to(torch.int64))
+    def _serve(self, b: int, kk: int, run, merge, lead=()):
+        """The sorted ``(*lead, b, kk)`` scores and int64 slots of a
+        batch whose rows split over the replica groups (``_cuts``):
+        ``run(g, lo, hi)`` gives group g's slice, ``(*lead, hi - lo,
+        k')``, merged over this process's shards of g (``_merge_own``).
+
+        On a global mesh every rank packs the slices of the groups it
+        holds a position of into one int32 block (score bits beside
+        slots), padded to the widest rank's; ONE ``all_gather`` carries
+        every rank's block, and every rank merges, for each group, the
+        blocks of that group's ranks (in rank order; a group within one
+        rank is taken as it is). Every rank returns the whole batch. A
+        rank holding no rows (a B=1 batch over two groups, a rank
+        without a position) joins with an empty block: whether a rank
+        takes part never depends on what it holds."""
+        cuts = self._cuts(b)
+        dev = self.device
+        out_v = torch.full(lead + (b, kk), float("-inf"), device=dev)
+        out_i = torch.full(lead + (b, kk), -1, dtype=torch.int64, device=dev)
+        if not self.mesh.is_global:
+            for g in range(self.replicas):
+                lo, hi = cuts[g], cuts[g + 1]
+                if hi > lo:
+                    out_v[..., lo:hi, :], out_i[..., lo:hi, :] = run(g, lo, hi)
+            return out_v, out_i
+        kr = self._rank_k(kk)
+        # rows[r, g]: the rows rank r sends for group g; at: their offset
+        rows = (self._group_shards > 0) * np.diff(cuts)[None, :]
+        at = np.cumsum(rows, axis=1) - rows
+        mine = torch.zeros(lead + (int(rows.sum(axis=1).max()), 2 * kr),
+                           dtype=torch.int32, device=dev)
+        for g in range(self.replicas):
+            lo, hi, o = cuts[g], cuts[g + 1], int(at[self._me, g])
+            if rows[self._me, g]:
+                v, i = run(g, lo, hi)
+                mine[..., o:o + hi - lo, :kr] = v.contiguous().view(
+                    torch.int32)
+                mine[..., o:o + hi - lo, kr:] = i.to(torch.int32)
+        every = collective.all_gather(mine)  # (world, *lead, width, 2k')
+        for g in range(self.replicas):
+            lo, hi = cuts[g], cuts[g + 1]
+            ranks = np.nonzero(rows[:, g])[0]
+            if hi == lo:
+                continue
+            part = torch.stack([every[r][..., at[r, g]:at[r, g] + hi - lo, :]
+                                for r in ranks], -2)  # (*lead, n, ranks, 2k')
+            v = part[..., :kr].contiguous().view(torch.float32)
+            i = part[..., kr:].contiguous()
+            if len(ranks) == 1:  # the group lies within one rank: k' = kk
+                out_v[..., lo:hi, :], out_i[..., lo:hi, :] = v[..., 0, :], \
+                    i[..., 0, :].to(torch.int64)
+                continue
+            mv, mi = merge(v.reshape(-1, len(ranks), kr),
+                           i.reshape(-1, len(ranks), kr), kk)
+            out_v[..., lo:hi, :] = mv.reshape(v.shape[:-2] + (kk,))
+            out_i[..., lo:hi, :] = mi.reshape(v.shape[:-2] + (kk,))
+        return out_v, out_i
 
     @staticmethod
     def _finish_sharded(scores: np.ndarray, slots: np.ndarray, k: int):
@@ -921,12 +995,8 @@ class ShardedFlatIndex(FlatIndex):
         with its slot id; otherwise every rank holds every row. Returns
         the rows and bytes this rank sent."""
         slabs, valids, scales, old_n, held, spans = old
-        n_new, rank = self.n_devices, self.mesh.rank
+        n_new, rank, has = self.n_devices, self._me, self._has
         world = self.mesh.world if spans else 1
-        # has[r, s]: rank r holds a copy of new shard s
-        has = np.zeros((max(self.mesh.owners) + 1, n_new), bool)
-        has[np.asarray(self.mesh.owners), np.arange(self.mesh.size) % n_new] \
-            = True
         rows_sent = bytes_sent = 0
         for lo in range(0, hwm, _CHUNK):
             hi = min(hwm, lo + _CHUNK)

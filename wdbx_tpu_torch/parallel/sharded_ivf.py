@@ -43,8 +43,10 @@ only rows bound for another rank's shards (``collective.all_to_all``).
 A search selects probes and compacts each shard's quota on identical
 inputs on every rank, scans the rank's own shards' buckets and fresh
 slots, merges them to ``(B, k)`` and merges once more across the ranks
-(``ShardedFlatIndex._merge_ranks``, the same ``torch.topk`` rule): the
-one merge's sets, except at ties. The filtered and fallback routes are
+(``ShardedFlatIndex._serve``, the same ``torch.topk`` rule): the one
+merge's sets, except at ties. A rank holding no position holds no table
+(the tables' shapes stay host state on every rank) and joins each
+collective with an empty block. The filtered and fallback routes are
 ``ShardedFlatIndex.search``'s. Checkpoints keep JAX's ``.ivf.npz``: its
 tables gather on rank 0 (npz backend), or each rank writes its shards'
 bucket rows into its own per-position files, the gathered slot and
@@ -131,13 +133,23 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         self._filter_boosts: dict[int, int] = {}
         self._reset_overlay()
 
-    def _any_table(self) -> torch.Tensor:
-        """A slot table held here (every shard's has one shape)."""
-        return next(t for t in self._bucket_slot if t is not None)
-
     @property
     def _local_nlist(self) -> int:
-        return int(self._any_table().shape[0])
+        return self._table_shape[0]
+
+    def _table_like(self, name: str):
+        """The shape and dtype of one shard's table ``name`` (known on
+        every rank, one holding no table too)."""
+        local_n, cap_b = self._table_shape
+        return {"bucket_slot": ((local_n, cap_b), torch.int32),
+                "bucket_valid": ((local_n, cap_b), torch.bool),
+                "bucket_rows": ((local_n, cap_b, self.dim), self._rows_dtype),
+                "bucket_scale": ((local_n, cap_b), torch.float32)}[name]
+
+    def _rank_k(self, k: int) -> int:
+        """Every rank's merge keeps k: a shard's buckets hold rows of any
+        shard, so its candidates are not bounded by its own rows."""
+        return k
 
     def _shard_held(self, make) -> list:
         """``make(s, device)`` for each shard whose tables this process
@@ -218,6 +230,7 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         # store bf16; each shard's buckets on its position's device
         local_n = nlist // n_dev
         table_dtype = torch.int8 if self._is_int8 else torch.bfloat16
+        self._rows_dtype = table_dtype
         self._bucket_rows = self._shard_held(lambda s, d: torch.zeros(
             (local_n, cap_b, self.dim), dtype=table_dtype, device=d))
         self._bucket_scale = (self._shard_held(lambda s, d: torch.zeros(
@@ -252,13 +265,12 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
     def _fill_tables(self, slots, buckets, within, local_n) -> None:
         """Copy each placed slot's stored row into its bucket's table,
         ``_CHUNK`` entries at a time (``_move_rows``: across ranks, a
-        row travels to the rank holding its bucket)."""
-        owners = np.asarray(self.mesh.owners, np.int64)
+        row travels to the rank holding its bucket's shard)."""
         for i in range(0, len(slots), _CHUNK):
             c, p = buckets[i:i + _CHUNK], within[i:i + _CHUNK]
             self._move_rows(
                 self._slabs, self._row_scales, slots[i:i + _CHUNK],
-                owners[c // local_n],
+                c // local_n,
                 lambda at, rows, sc, c=c, p=p: self._put_entries(
                     c[at], p[at], rows, sc, local_n))
 
@@ -282,6 +294,7 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
                       bucket_valid: np.ndarray) -> None:
         """Global host slot / validity tables -> one block a shard."""
         local_n = bucket_slot.shape[0] // self.n_devices
+        self._table_shape = (local_n, int(bucket_slot.shape[1]))
         self._bucket_slot = self._shard_held(
             lambda s, d: torch.from_numpy(np.ascontiguousarray(
                 bucket_slot[s * local_n:(s + 1) * local_n])).to(d))
@@ -321,7 +334,7 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         b = len(queries)
         pad_b = _next_pow2(max(b, 1))
         nlist = self._local_nlist * self.n_devices
-        cap_b = int(self._any_table().shape[1])
+        cap_b = self._table_shape[1]
         nprobe = min(self.nprobe, nlist)
         bucket_valid, valids = self._bucket_valid, self._valids
         if slot_mask is not None:
@@ -359,15 +372,32 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
 
     def _ivf_query(self, q, k, nprobe, quota, bucket_valid, valids):
         """One batch ``q`` (B, d) through every shard: sorted ``(B, k')``
-        device scores and slots. When the shards span ranks: through the
-        rank's shards, their merge to ``(B, k)`` (-inf / -1 past the
-        rank's candidates) and the cross-rank merge."""
-        n_dev = self.n_devices
-        local_n = self._local_nlist
-        cap_b = int(self._any_table().shape[1])
-        k_bucket = min(k, cap_b)
+        device scores and slots. On a global mesh each rank merges its
+        shards to ``(B, k)`` (-inf / -1 past its candidates; a rank
+        holding no shard none) and ``_serve`` gathers and merges the
+        ranks'."""
         if self.metric == "cosine":
             q = l2_normalize(q)
+        if not self.mesh.is_global:
+            return self._ivf_shards(q, k, nprobe, quota, bucket_valid, valids)
+
+        def run(g, lo, hi):
+            top, slots = self._ivf_shards(q, k, nprobe, quota, bucket_valid,
+                                          valids)
+            pad = k - top.shape[1]
+            return (torch.nn.functional.pad(top, (0, pad),
+                                            value=float("-inf")),
+                    torch.nn.functional.pad(slots, (0, pad), value=-1))
+
+        return self._serve(q.shape[0], k, run, _topk_merge)
+
+    def _ivf_shards(self, q, k, nprobe, quota, bucket_valid, valids):
+        """Normalized queries ``q`` through the shards held here, merged
+        to sorted ``(B, <= k)`` scores and slots."""
+        n_dev = self.n_devices
+        local_n = self._local_nlist
+        cap_b = self._table_shape[1]
+        k_bucket = min(k, cap_b)
         b = q.shape[0]
         # 1. probe selection over the replicated centroids; ties keep the
         # lower bucket, as lax.top_k does
@@ -422,15 +452,9 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
             v, pos = torch.topk(cand_v, min(k, cand_v.shape[1]), dim=1)
             lv.append(v.to(self.device))
             ls.append(torch.gather(cand_s, 1, pos).to(self.device))
-        # 6. the merge across shards (and ranks)
-        top, slots = _topk_merge(torch.cat(lv, dim=1)[:, None],
-                                 torch.cat(ls, dim=1)[:, None], k)
-        if not self._spans:
-            return top, slots
-        pad = k - top.shape[1]
-        top = torch.nn.functional.pad(top, (0, pad), value=float("-inf"))
-        slots = torch.nn.functional.pad(slots, (0, pad), value=-1)
-        return self._merge_ranks(top, slots, k, _topk_merge)
+        # 6. the merge across shards (across ranks: ``_serve``)
+        return _topk_merge(torch.cat(lv, dim=1)[:, None],
+                           torch.cat(ls, dim=1)[:, None], k)
 
     def _scan_buckets(self, s, buckets, qrows, k_bucket, bucket_valid):
         """``(n, k_bucket)`` scores and slots of ``n`` (query row, local
@@ -499,18 +523,21 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
     # ``.ivf.npz`` tables (split again by shard at load). With the
     # per-position backend the bucket rows (and int8 scales) ride in each
     # shard's own file instead, and the ``.ivf.npz`` keeps the rest.
-    def _shard_tables(self, parts) -> np.ndarray | None:
-        """One shard-major host table from one tensor a shard (bf16 as
-        uint16 bits), gathered when the shards span ranks: on rank 0
-        (None on the others), or on every rank where several write
-        (``_choose_writer``)."""
+    def _shard_tables(self, name: str, parts) -> np.ndarray | None:
+        """One shard-major host table from the tensors ``name`` of each
+        shard (bf16 as uint16 bits), gathered when the shards span
+        ranks: on rank 0 (None on the others), or on every rank where
+        several write (``_choose_writer``)."""
+        tail, dtype = self._table_like(name)
         held = [t.cpu() for t in parts if t is not None]
-        mine = torch.stack(held)
         if self._spans:
-            mine = self._shard_stack(mine, everywhere=self._writers > 1)
+            mine = self._shard_stack(held, tail, dtype,
+                                     everywhere=self._writers > 1)
             if mine is None:
                 return None
-        return slab_to_numpy(mine.reshape((-1,) + tuple(held[0].shape[1:])))
+        else:
+            mine = torch.stack(held)
+        return slab_to_numpy(mine.reshape((-1,) + tuple(tail[1:])))
 
     def save(self, path: str, skip_slab: bool = False) -> None:
         self._choose_writer(path)
@@ -523,7 +550,7 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
             tables["bucket_rows"] = self._bucket_rows
             if self._bucket_scale is not None:
                 tables["bucket_scale"] = self._bucket_scale
-        arrays = {name: self._shard_tables(parts)
+        arrays = {name: self._shard_tables(name, parts)
                   for name, parts in tables.items()}
         if not self._is_lead():
             return None
@@ -557,7 +584,7 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
                 "overlay rebuilds", nlist, n_dev)
             return
         local_n = nlist // n_dev
-        own = self._own_shards()
+        own = self._positions_held(writing=False)[0]
         loaded = getattr(self, "_loaded_rows", None) or {}
         self._loaded_rows = None
 
@@ -574,6 +601,11 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
         table_dtype = {"uint16": torch.bfloat16, "bfloat16": torch.bfloat16,
                        "int8": torch.int8, "float32": torch.float32}
         rows = arrays.get("bucket_rows")
+        held = loaded.get("bucket_rows") or [None]
+        self._rows_dtype = (
+            table_dtype[rows.dtype.name] if rows is not None
+            else held[0].dtype if held[0] is not None
+            else torch.int8 if self._is_int8 else torch.bfloat16)
         self._bucket_rows = split(
             "bucket_rows",
             None if rows is None else table_dtype[rows.dtype.name])

@@ -12,10 +12,11 @@ not its format: neither package reads the other's per-position
 checkpoint, and a directory orbax wrote raises ``ValueError`` here. The
 npz checkpoint stays the format both packages read.
 
-On a mesh spanning ranks each rank writes and reads only its own
-positions' files (``positions`` of ``total``): the lead rank clears the
-directory, every rank writes its files, the lead writes the sidecar,
-with a barrier between the steps. Where the ranks share the
+On a mesh spanning ranks each rank writes and reads only the files of
+shards it holds (``positions`` of ``total``, maybe none; a shard's file
+once a directory): the lead rank clears the directory, every rank
+writes its files, the lead writes the sidecar, with a barrier between
+the steps on every rank. Where the ranks share the
 checkpoint's directory, as JAX's multi-controller orbax checkpoints do,
 rank 0 leads; where each rank has its own (its own data directory),
 each leads in its own.
@@ -43,13 +44,15 @@ def _dir(path: str) -> str:
 
 def save_arrays(path: str, arrays: dict[str, Sequence[torch.Tensor]],
                 positions: Sequence[int] | None = None,
-                total: int | None = None, lead: bool | None = None
-                ) -> None:
+                total: int | None = None, lead: bool | None = None,
+                split: bool | None = None) -> None:
     """Write ``arrays`` (name -> one tensor a position) as one file a
     position, each from its own device, plus the sidecar. ``positions``
     (default: all) numbers the given tensors among the checkpoint's
-    ``total``; fewer than ``total`` means the other ranks write the
-    rest. ``lead`` says whether this rank clears the directory and
+    ``total``. ``split`` (default: fewer than ``total`` given) says that
+    the ranks share the writing: every rank then calls this, with the
+    files it writes (maybe none), and the ranks meet at barriers around
+    the writes. ``lead`` says whether this rank clears the directory and
     writes the sidecar (default: rank 0, or the only writer)."""
     d = _dir(path)
     counts = {len(v) for v in arrays.values()}
@@ -60,7 +63,8 @@ def save_arrays(path: str, arrays: dict[str, Sequence[torch.Tensor]],
     total = n if total is None else int(total)
     if len(positions) != n:
         raise ValueError(f"{n} tensors for positions {positions}")
-    split = total != n
+    if split is None:
+        split = total != n
     if lead is None:
         lead = not split or collective.rank_world()[0] == 0
     if lead:
