@@ -16,15 +16,47 @@ from wdbx_tpu.ops.exact_search import exact_search as j_exact
 from wdbx_tpu.ops.exact_search import score_block as j_score
 from wdbx_tpu.ops.normalize import l2_normalize as j_norm
 from wdbx_tpu.ops.topk import topk_merge as j_merge
+from wdbx_tpu_torch.index import base as index_base
+from wdbx_tpu_torch.index import flat as index_flat
 from wdbx_tpu_torch.kernels import quant as tquant
 from wdbx_tpu_torch.ops.exact_search import exact_search as t_exact
 from wdbx_tpu_torch.ops.exact_search import score_block as t_score
 from wdbx_tpu_torch.ops.normalize import l2_normalize as t_norm
 from wdbx_tpu_torch.ops.topk import topk_merge as t_merge
+from wdbx_tpu_torch.parallel import mesh as mesh_mod
 
 torch.set_num_threads(2)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8": 2e-2, "int4": 2e-2}
+
+#: logical mesh positions of the port's default mesh in the translated
+#: reference cases: the 8 host devices that tests/conftest.py forces on JAX
+PORT_MESH_SIZE = 8
+
+
+def port_on_cpu(monkeypatch):
+    """Run the JAX package's own cases on the port on the CPU as written.
+
+    Those cases build ``WDBX()``, ``VectorStore(...)``, ``FlatIndex(...)``
+    and ``ShardedFlatIndex(dim=...)`` with no device, where the port takes
+    the card and raises without one. For one test, through
+    ``monkeypatch``: ``resolve_device(None)`` gives the CPU in both modules
+    that bind the name, the default mesh's base devices are ``[cpu]``, and
+    ``make_mesh()`` has ``PORT_MESH_SIZE`` positions. An explicit device
+    goes through unchanged; the package itself is not touched."""
+    resolve = index_base.resolve_device
+    base_devices = mesh_mod._base_devices
+
+    def resolve_on_cpu(device=None):
+        return resolve("cpu" if device is None else device)
+
+    def base_on_cpu(device):
+        return base_devices("cpu" if device is None else device)
+
+    monkeypatch.setattr(index_base, "resolve_device", resolve_on_cpu)
+    monkeypatch.setattr(index_flat, "resolve_device", resolve_on_cpu)
+    monkeypatch.setattr(mesh_mod, "_base_devices", base_on_cpu)
+    monkeypatch.setenv(mesh_mod.MESH_SIZE_ENV, str(PORT_MESH_SIZE))
 
 
 def assert_topk_match(s_ref, i_ref, s_got, i_got, atol):
@@ -176,3 +208,38 @@ def test_int4_codes_bit_identical(rng, n, d):
     raw = pt.numpy()
     np.testing.assert_array_equal((raw & 0xF).astype(np.int8) - 8, codes[:, : d // 2])
     np.testing.assert_array_equal((raw >> 4).astype(np.int8) - 8, codes[:, d // 2:])
+
+
+def test_port_on_cpu_stays_in_the_tests(monkeypatch):
+    """Without the helper the port's default is the card, and it raises
+    where there is none; with it the default is the CPU; undone, it
+    raises again."""
+    from wdbx_tpu_torch.index.flat import FlatIndex
+    from wdbx_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("the port's default is a card on this host")
+    monkeypatch.delenv(mesh_mod.MESH_SIZE_ENV, raising=False)
+
+    def raises():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            index_base.resolve_device(None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            index_flat.resolve_device(None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FlatIndex(8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+
+    raises()
+    with monkeypatch.context() as mp:
+        port_on_cpu(mp)
+        cpu = torch.device("cpu")
+        assert index_base.resolve_device(None) == cpu
+        assert index_flat.resolve_device(None) == cpu
+        assert FlatIndex(8).device == cpu
+        mesh = make_mesh()
+        assert mesh.size == PORT_MESH_SIZE
+        assert set(mesh.devices) == {cpu}
+        assert make_mesh(2, device="cpu").size == 2
+    raises()
