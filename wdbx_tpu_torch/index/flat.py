@@ -37,6 +37,7 @@ from wdbx_tpu_torch.kernels.quant import (
 )
 from wdbx_tpu_torch.ops.exact_search import exact_search
 from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.utils.metrics import TRACER, span
 
 #: name -> STORAGE dtype. "int4" stores two signed nibbles per uint8
 #: byte (kernels/quant.py packing) with a per-row f32 scale.
@@ -311,44 +312,51 @@ class FlatIndex(VectorIndex):
         k: int,
         slot_mask: np.ndarray | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        queries = self._prep(queries)
-        normalize = self.metric == "cosine"
-        # Read lock held through materialization: mutators write the
-        # slab in place. Concurrent searches share the read side.
-        with self._mu.read():
-            slab, valid, scales, cap = (
-                self._slab, self._valid, self._scales, self._cap,
-            )
-            if slot_mask is not None:
-                valid = self._masked_valid_dev(valid, slot_mask, cap)
-            q = to_tensor(queries, self.device)
-            method = self._resolve_topk()
-            if method == "fused":
-                from wdbx_tpu_torch.kernels.fused_topk import fused_topk_search
-
-                # the kernels unpack int4 per tile: no unpacked slab exists
-                scores, idx = fused_topk_search(
-                    slab, q, valid, k=min(k, cap),
-                    scales=scales if self._is_quantized else None,
-                    normalize=normalize, int4=self._is_int4,
+        with span("index.search", engine="FlatIndex") as sp:
+            queries = self._prep(queries)
+            normalize = self.metric == "cosine"
+            # Read lock held through materialization: mutators write the
+            # slab in place. Concurrent searches share the read side.
+            waited = TRACER.clock()
+            with self._mu.read():
+                sp.set(lock_wait_ns=TRACER.clock() - waited)
+                slab, valid, scales, cap = (
+                    self._slab, self._valid, self._scales, self._cap,
                 )
-                if scores.shape[1] < k:
-                    pad = k - scores.shape[1]
-                    scores = torch.nn.functional.pad(
-                        scores, (0, pad), value=float("-inf")
+                if slot_mask is not None:
+                    valid = self._masked_valid_dev(valid, slot_mask, cap)
+                q = to_tensor(queries, self.device)
+                method = self._resolve_topk()
+                if method == "fused":
+                    from wdbx_tpu_torch.kernels.fused_topk import (
+                        fused_topk_search,
                     )
-                    idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
-            else:
-                if self._is_int4:
-                    slab = unpack_int4(slab)  # exact path only
-                scores, idx = exact_search(
-                    slab, q, k=k, valid=valid, precision=self._precision,
-                    scales=scales, method=method, normalize=normalize,
-                )
-            scores = scores.cpu().numpy()
-            slots = idx.cpu().numpy().astype(np.int64)
-        slots[scores == -np.inf] = -1
-        return scores, slots
+
+                    # the kernels unpack int4 per tile: no unpacked slab
+                    # exists
+                    scores, idx = fused_topk_search(
+                        slab, q, valid, k=min(k, cap),
+                        scales=scales if self._is_quantized else None,
+                        normalize=normalize, int4=self._is_int4,
+                    )
+                    if scores.shape[1] < k:
+                        pad = k - scores.shape[1]
+                        scores = torch.nn.functional.pad(
+                            scores, (0, pad), value=float("-inf")
+                        )
+                        idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+                else:
+                    if self._is_int4:
+                        slab = unpack_int4(slab)  # exact path only
+                    scores, idx = exact_search(
+                        slab, q, k=k, valid=valid, precision=self._precision,
+                        scales=scales, method=method, normalize=normalize,
+                    )
+                with span("index.d2h"):
+                    scores = scores.cpu().numpy()
+                    slots = idx.cpu().numpy().astype(np.int64)
+            slots[scores == -np.inf] = -1
+            return scores, slots
 
     def _resolve_topk(self) -> str:
         if self.topk_method != "auto":
@@ -409,8 +417,9 @@ class FlatIndex(VectorIndex):
         """Materialize a ``search_pipelined(..., materialize=False)``
         result."""
         scores, idx = handle
-        scores = scores.cpu().numpy()
-        slots = idx.cpu().numpy().astype(np.int64)
+        with span("index.d2h"):
+            scores = scores.cpu().numpy()
+            slots = idx.cpu().numpy().astype(np.int64)
         slots[scores == -np.inf] = -1
         return scores, slots
 

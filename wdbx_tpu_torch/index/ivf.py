@@ -59,6 +59,7 @@ from wdbx_tpu_torch.kernels.quant import unpack_int4
 from wdbx_tpu_torch.ops.exact_search import f32_scores
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.utils.metrics import TRACER, span
 
 logger = logging.getLogger("wdbx_tpu_torch.index")
 
@@ -619,13 +620,17 @@ class IVFIndex(FlatIndex):
         k: int,
         slot_mask: np.ndarray | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        # build-if-stale needs the write lock (it swaps the overlay); the
-        # search itself runs under read so concurrent queries overlap
-        if self._needs_build():
-            with self._mu.write():
-                self._maybe_build()
-        with self._mu.read():
-            return self._search_read_locked(queries, k, slot_mask)
+        with span("index.search", engine=type(self).__name__) as sp:
+            # build-if-stale needs the write lock (it swaps the overlay);
+            # the search itself runs under read so concurrent queries
+            # overlap
+            if self._needs_build():
+                with self._mu.write():
+                    self._maybe_build()
+            waited = TRACER.clock()
+            with self._mu.read():
+                sp.set(lock_wait_ns=TRACER.clock() - waited)
+                return self._search_read_locked(queries, k, slot_mask)
 
     def _use_pallas(self, k: int) -> bool:
         """K5 speaks float tables and k <= 128 result lanes; int8 code
@@ -688,7 +693,9 @@ class IVFIndex(FlatIndex):
                 bucket_valid, self._bucket_rows, self._bucket_scale,
                 self._residual_tensor(), self._scales, q, **common,
             )
-        return self._finish(scores.cpu().numpy(), slots.cpu().numpy(), k)
+        with span("index.d2h"):
+            scores, slots = scores.cpu().numpy(), slots.cpu().numpy()
+        return self._finish(scores, slots, k)
 
     def _finish(self, scores: np.ndarray, slots: np.ndarray, k: int):
         """Host post-processing of one batch: -1 where the score is

@@ -40,6 +40,7 @@ import torch
 
 from wdbx_tpu_torch.ops.exact_search import f32_scores
 from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.utils.metrics import span
 
 #: deepest k the kernels serve (filtered search asks max(4*limit, 50),
 #: the int4 rerank 20*limit)
@@ -303,7 +304,8 @@ def fused_topk_partial(
     parts = chunks * (128 // qt if body == "mma_pipe" else 1)
     part_v = torch.empty((b, parts, k), dtype=torch.float32, device=db.device)
     part_i = torch.empty((b, parts, k), dtype=torch.int32, device=db.device)
-    with _on(db):
+    with span("kernel.k1", slab=key, body=body, n=n, b=b, d=d, k=k,
+              parts=parts), _on(db):
         rc = lib.wdbx_fused_topk_partial(
             code, slab_code, qt, db.data_ptr(), queries.data_ptr(),
             valid.data_ptr(), scales.data_ptr() if scales is not None else None,

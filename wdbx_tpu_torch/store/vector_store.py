@@ -52,7 +52,7 @@ from wdbx_tpu_torch.store.atomic import CheckpointRoot
 from wdbx_tpu_torch.store.filters import compile_filter
 from wdbx_tpu_torch.store.metastore import ColumnarMetadata
 from wdbx_tpu_torch.store.rawstore import create_raw_store
-from wdbx_tpu_torch.utils.metrics import LatencyRecorder
+from wdbx_tpu_torch.utils.metrics import TRACER, LatencyRecorder
 
 logger = logging.getLogger("wdbx_tpu_torch.store")
 
@@ -430,6 +430,19 @@ class VectorStore:
                 f"dimension {self.dim}"
             )
         b = len(queries)
+        with self.metrics.timed(
+            "search_batch" if b > 1 else "search", "store.search_batch",
+            b=b, k=limit, shards=len(self.indices),
+        ) as call:
+            return self._search_passes(
+                call, queries, b, limit, threshold, filter_metadata
+            )
+
+    def _search_passes(
+        self, call, queries, b, limit, threshold, filter_metadata
+    ) -> list[list[SearchHit]]:
+        """``search_batch``'s work on validated queries, inside its span
+        ``call``."""
         use_pre = self._use_prefilter(filter_metadata)
         fetch_k = limit if (use_pre or not filter_metadata) else max(limit * 4, 50)
         rerank = self._rerank_enabled()
@@ -449,11 +462,14 @@ class VectorStore:
         # under the store lock (serialized but exact — mutations are
         # rarer than searches).
         for attempt in range(3):
+            call.set(attempts=attempt + 1)
             hold_lock = attempt == 2
+            waited = TRACER.clock()
             self._lock.acquire()
             held = True
             try:
-                with self.metrics.timed("search_prep"):
+                with self.metrics.timed("search_prep", "store.prep") as prep:
+                    prep.set(lock_wait_ns=TRACER.clock() - waited)
                     indices = list(self.indices)
                     masks = [
                         self._filter_mask(shard, filter_metadata)
@@ -488,12 +504,17 @@ class VectorStore:
                     # trips overlap across shards (persistent pool; a
                     # LOCAL reference — shutdown() may null the attr
                     # while this search is in flight)
-                    per_shard = list(pool.map(
-                        lambda si: si[1].search(
-                            queries, fetch_k, slot_mask=masks[si[0]]
-                        ),
-                        enumerate(indices),
-                    ))
+                    origin = TRACER.current()
+
+                    def shard_search(si):
+                        with TRACER.adopt(origin):
+                            return si[1].search(
+                                queries, fetch_k, slot_mask=masks[si[0]]
+                            )
+
+                    per_shard = list(
+                        pool.map(shard_search, enumerate(indices))
+                    )
                 else:
                     # single shard, or the pool was torn down mid-shutdown
                     per_shard = [
@@ -598,7 +619,7 @@ class VectorStore:
         resolution, optional exact re-rank from the raw store, metadata
         attach. Runs inside the caller's epoch-retry window — every
         slot-keyed read here is validated (or serialized) by it."""
-        with self.metrics.timed("search_batch" if b > 1 else "search"):
+        with self.metrics.timed("merge", "store.merge") as merge:
 
             n_shards = len(per_shard)
             all_scores = np.concatenate([s for s, _ in per_shard], axis=1)
@@ -756,6 +777,7 @@ class VectorStore:
                         ))
                         pos += 1
                     results.append(hits)
+                merge.set(hits=pos)
                 return results
             for qi in range(b):
                 hits: list[SearchHit] = []
@@ -775,6 +797,7 @@ class VectorStore:
                     if len(hits) >= limit:
                         break
                 results.append(hits)
+            merge.set(hits=sum(map(len, results)))
         return results
 
     def _ids_for(self, shard: int) -> np.ndarray:
