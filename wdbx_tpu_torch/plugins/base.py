@@ -22,12 +22,25 @@ import abc
 import importlib
 import logging
 import pkgutil
+import weakref
 from typing import TYPE_CHECKING, Any
 
 if TYPE_CHECKING:
     from wdbx_tpu_torch.core.wdbx import WDBX
 
 logger = logging.getLogger("wdbx_tpu_torch.plugins")
+
+
+def facade_ref(wdbx: "WDBX") -> "WDBX":
+    """A weak proxy to ``wdbx``. The facade owns its plugin manager and,
+    through it, its plugins: a strong reference back would make a cycle
+    that only the cyclic collector frees, and never once the store has
+    frozen the heap (``wdbx_tpu_torch/utils/heap.py``). With the proxy a
+    dropped facade is freed by its reference count; a plugin used after
+    its facade is gone raises ``ReferenceError``."""
+    if isinstance(wdbx, weakref.ProxyTypes):
+        return wdbx
+    return weakref.proxy(wdbx)
 
 
 class PluginError(Exception):
@@ -44,7 +57,7 @@ class WDBXPlugin(abc.ABC):
     """Base class for WDBX plugins."""
 
     def __init__(self, wdbx: "WDBX"):
-        self.wdbx = wdbx
+        self.wdbx = facade_ref(wdbx)
         self.config = wdbx.config
 
     @property
@@ -98,7 +111,7 @@ class PluginManager:
     """Discovers, instantiates and tracks plugins."""
 
     def __init__(self, wdbx: "WDBX"):
-        self.wdbx = wdbx
+        self.wdbx = facade_ref(wdbx)
         self.plugins: dict[str, WDBXPlugin] = {}
 
     def register(self, plugin: WDBXPlugin) -> None:

@@ -52,6 +52,7 @@ from wdbx_tpu_torch.store.atomic import CheckpointRoot
 from wdbx_tpu_torch.store.filters import compile_filter
 from wdbx_tpu_torch.store.metastore import ColumnarMetadata
 from wdbx_tpu_torch.store.rawstore import create_raw_store
+from wdbx_tpu_torch.utils import heap
 from wdbx_tpu_torch.utils.metrics import TRACER, LatencyRecorder
 
 logger = logging.getLogger("wdbx_tpu_torch.store")
@@ -144,6 +145,9 @@ class VectorStore:
             config, self.data_dir, self.num_shards, self.dim
         )
         self._load()
+        # set-up edge: the imports and what _load() built stop being
+        # walked by every later full collection (utils/heap.py)
+        heap.settle("init")
 
     # -- lifecycle --------------------------------------------------------
     def _create_dirs(self) -> None:
@@ -339,6 +343,9 @@ class VectorStore:
                 }
                 self.meta.set_columns(shard, slots, cols)
             self._after_mutation(len(ids))
+        # set-up edge, outside the store lock: a corpus-scale ingest is
+        # not a per-row write (those never settle)
+        heap.settle("bulk_load")
         return len(ids)
 
     def delete(self, vector_id: str) -> bool:
@@ -1204,9 +1211,9 @@ class VectorStore:
         pipelined, so that the first live request does not pay the
         one-time costs: the kernels' nvcc build at first use and the
         device libraries' set-up. Nothing is compiled per batch width
-        (no padding, no traced programs), so one width suffices.
-        Returns the number of widths served (1); no-op on an empty
-        store."""
+        (no padding, no traced programs), so one width suffices, and
+        then settles the heap (utils/heap.py). Returns the number of
+        widths served (1); no-op on an empty store."""
         if self.count() == 0:
             return 0
         rng = np.random.default_rng(0)
@@ -1216,6 +1223,7 @@ class VectorStore:
         )
         self.search_batch(q, limit=limit)
         self.search_batch_resolve(self.search_batch_submit(q, limit=limit))
+        heap.settle("warm")
         return 1
 
     # -- persistence ------------------------------------------------------
