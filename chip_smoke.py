@@ -1689,6 +1689,90 @@ MOVED_MODES = (("v2", "int4", "bfloat16"), ("v2", "int8", "int8"),
                ("v2", "int4", "int8"))
 
 
+def _dedup_extents(nlist, nblocks, c, rng):
+    """Bucket block extents of a cluster-ordered slab of ``nblocks * c``
+    rows: ``(lo, hi, m)`` as ``ClusteredIVFIndex._install_layout``
+    derives them, from uneven bucket sizes that fill 90% of it."""
+    import numpy as np
+
+    sizes = rng.gamma(2.0, 1.0, nlist)
+    counts = np.floor(sizes / sizes.sum() * nblocks * c * 0.9).astype(np.int64)
+    start = np.zeros(nlist + 1, np.int64)
+    np.cumsum(counts, out=start[1:])
+    lo = start[:-1] // c
+    hi = -(-start[1:] // c)
+    width, m = int((hi - lo).max()), 1
+    while m < width:
+        m *= 2
+    return lo, hi, m
+
+
+def phase_block_dedup(seed):
+    """The block-list dedup kernel (``kernels/block_dedup.py``) against
+    its plain version, entry for entry: uniform and skewed probes, with
+    and without dead blocks, u below and above the distinct count, at a
+    small geometry, the 10M cell's (9,766 blocks of 1,024 rows, nlist
+    4,096, B = 128 and 1, nprobe 8) and the kernel's largest nblocks;
+    then both timed at the cell's geometry."""
+    import numpy as np
+    import torch
+
+    from wdbx_tpu_torch.index.clustered import _dedup_blocks_plain
+    from wdbx_tpu_torch.kernels.block_dedup import MAX_BLOCKS, block_dedup
+
+    rng = np.random.default_rng(seed)
+    geoms = [(24, 64, 16, 32, 4, (8, 64)),
+             (4096, 9766, 1024, 128, 8, (2048, 4096, 8192)),
+             (4096, 9766, 1024, 1, 8, (8, 64)),
+             (8192, MAX_BLOCKS, 64, 256, 16, (4096, 16384))]
+    timing = None
+    for nlist, nblocks, c, b, p, us in geoms:
+        lo, hi, m = _dedup_extents(nlist, nblocks, c, rng)
+        lo_d = torch.as_tensor(lo, device="cuda")
+        hi_d = torch.as_tensor(hi, device="cuda")
+        for skewed in (False, True):
+            probe = np.stack([rng.permutation(nlist)[:p] for _ in range(b)])
+            if skewed:  # most queries hammer the same few buckets
+                probe[: max(1, b - 4)] = probe[0]
+            probe_d = torch.as_tensor(probe, dtype=torch.int64, device="cuda")
+            for kill in (False, True):
+                valid = None
+                if kill:
+                    v = rng.random(nblocks * c) < 0.9
+                    for blk in rng.choice(nblocks, max(1, nblocks // 20),
+                                          replace=False):
+                        v[blk * c:(blk + 1) * c] = False
+                    valid = torch.as_tensor(v, device="cuda")
+                for u in us:
+                    want = _dedup_blocks_plain(probe_d, lo_d, hi_d, nblocks,
+                                               u, m, valid, c)
+                    got = block_dedup(probe_d, lo_d, hi_d, nblocks, u, m,
+                                      valid, c)
+                    torch.cuda.synchronize()
+                    name = (f"block_dedup/nb{nblocks}_b{b}_p{p}_u{u}"
+                            f"{'_skewed' if skewed else ''}"
+                            f"{'_dead' if kill else ''}")
+                    if got is None:
+                        fail(f"{name}: the kernel refused its own rule")
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        bad = int((got[0] != want[0]).sum())
+                        fail(f"{name}: {bad} of {len(want[0])} entries "
+                             "differ from the plain version")
+                    emit({"phase": "block_dedup", "case": name,
+                          "live": int(want[1].sum()), "u": len(want[0]),
+                          "equal": True})
+                    if (nblocks, b, u, skewed, kill) == (9766, 128, 4096,
+                                                         False, True):
+                        args = (probe_d, lo_d, hi_d, nblocks, u, m, valid, c)
+                        timing = {
+                            "kernel_ms": cuda_ms(lambda: block_dedup(*args),
+                                                 reps=50),
+                            "plain_ms": cuda_ms(
+                                lambda: _dedup_blocks_plain(*args), reps=50)}
+    emit({"phase": "block_dedup", "timing_10m_b128": timing})
+
+
 def phase_clustered_kernels(seed, errs):
     """K3 / K4 against their plain version on the card: every slab type
     and query type of both generations, d=768, c in {256, 1024}, a block
@@ -6451,6 +6535,7 @@ def main() -> None:
     errs = phase_kernels(KERNEL_ROWS, args.seed)
     phase_merge(args.seed, errs)
     phase_clustered_kernels(args.seed, errs)
+    phase_block_dedup(args.seed)
     phase_ivf_kernels(args.seed, errs)
     paths: dict[str, dict] = {}
     timings: dict[str, dict] = {}

@@ -206,6 +206,28 @@ def test_dedup_blocks_entry_for_entry(rng, skewed, kill_blocks, u):
         assert live[ut[ot]].all()
 
 
+@pytest.mark.parametrize("kill_blocks", [False, True])
+def test_dedup_blocks_plain_version_off_the_card(rng, kill_blocks):
+    """On CPU tensors the dedup kernel's wrapper declines (it launches
+    on the card only) and ``_dedup_blocks`` is its plain version, entry
+    for entry."""
+    from wdbx_tpu_torch.index.clustered import _dedup_blocks_plain
+    from wdbx_tpu_torch.kernels.block_dedup import block_dedup
+
+    nlist, nblocks, b, p = 24, 64, 32, 4
+    lo, hi, m = _extents(rng, nlist, nblocks)
+    probe = torch.from_numpy(
+        np.stack([rng.permutation(nlist)[:p] for _ in range(b)]))
+    lo, hi = torch.from_numpy(lo.astype(np.int64)), torch.from_numpy(
+        hi.astype(np.int64))
+    valid = (torch.from_numpy(rng.random(nblocks * C) < 0.5)
+             if kill_blocks else None)
+    assert block_dedup(probe, lo, hi, nblocks, 64, m, valid, C) is None
+    got = t_dedup(probe, lo, hi, nblocks, 64, m, valid=valid, c=C)
+    want = _dedup_blocks_plain(probe, lo, hi, nblocks, 64, m, valid, C)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_dedup_blocks_skewed_counts_clamp():
     """The int32 clamp of the popularity counts ranks the hot bucket's
     blocks as JAX does (a wrapped count would drop them)."""

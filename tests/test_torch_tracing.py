@@ -6,7 +6,10 @@ nest and share a call id (across the store's fan-out pool too), their
 CPU time is the thread's own, ``lock_wait_ns`` grows behind a writer,
 collections become ``gc.collect`` spans, and the bounded buffer drops
 its oldest span and counts it. The store's latency reservoir is fed
-either way, each op name timing what it says.
+either way, each op name timing what it says. The clustered engine's
+probe, dedup, residual merge and result copy nest under its
+``index.search`` on both CPU routes; K3's live block count is counted
+only while the tracer runs and read only when it is drained.
 """
 
 import gc
@@ -235,3 +238,90 @@ def test_latency_ops_time_what_they_say(temp_dir, traced):
     spans = TRACER.drain()
     assert len(by_name(spans, "store.search_batch")) == (2 if traced else 0)
     assert len(by_name(spans, "store")) == (1 if traced else 0)
+
+
+CLUSTERED_SPANS = ("index.probe", "index.dedup", "index.residual_merge",
+                   "index.d2h")
+
+
+def make_clustered_db(temp_dir, route, rows=2048):
+    db = WDBX(vector_dimension=DIM, num_shards=1, data_dir=temp_dir,
+              config={"VECTOR_STORE_AUTOSAVE_INTERVAL": 0,
+                      "INDEX_TYPE": "ivf", "INDEX_DTYPE": "int8",
+                      "IVF_NLIST": 16, "IVF_NPROBE": 2,
+                      "IVF_TRAIN_THRESHOLD": 256},
+              enable_plugins=False, device="cpu", log_level="WARNING")
+    index = db.store.indices[0]
+    index.ivf_kernel = route
+    index.block_bytes_target = 256 * DIM
+    index.batch_flat_fallback = False
+    rng = np.random.default_rng(0)
+    db.store.bulk_load([str(i) for i in range(rows)],
+                       rng.standard_normal((rows, DIM)).astype(np.float32))
+    index.build()
+    assert type(index).__name__ == "ClusteredIVFIndex" and index.is_trained
+    return db
+
+
+@pytest.mark.parametrize("route", ["pallas", "lax"])
+def test_clustered_spans_nest_under_index_search(temp_dir, route):
+    db = make_clustered_db(temp_dir, route)
+    TRACER.start()
+    db.vector_search_batch(queries(8), limit=5)
+    TRACER.stop()
+    spans = [s for s in TRACER.drain() if s.name != "gc.collect"]
+    (root,) = by_name(spans, "store.search_batch")
+    (search,) = by_name(spans, "index.search")
+    assert search.attrs["engine"] == "ClusteredIVFIndex"
+    assert search.parent == root.id
+    assert {s.call for s in spans} == {root.id}
+    for name in CLUSTERED_SPANS:
+        (s,) = by_name(spans, name)
+        assert s.parent == search.id and s.tid == search.tid
+        assert search.t0 <= s.t0 <= s.t1 <= search.t1
+    probe, dedup, merge, d2h = (by_name(spans, n)[0]
+                                for n in CLUSTERED_SPANS)
+    assert probe.t1 <= dedup.t0 and dedup.t1 <= merge.t0 <= merge.t1 <= d2h.t0
+    # no K3 launch on the CPU: its plain version runs unspanned
+    assert not by_name(spans, "kernel.k3")
+
+
+def test_clustered_search_records_nothing_while_off(temp_dir):
+    db = make_clustered_db(temp_dir, "pallas")
+    db.vector_search_batch(queries(8), limit=5)
+    db.store.indices[0].search_pipelined(queries(8)[None], 5)
+    assert TRACER.drain() == []
+
+
+def test_k3_live_count_is_read_only_while_on_and_after_the_copy():
+    import torch
+
+    from wdbx_tpu_torch.kernels.clustered_scan import k3_span
+
+    ok = torch.tensor([1, 1, 0, 1, 0], dtype=torch.int32)
+    # off: the shared no-op, nothing counted
+    assert k3_span(ok, u=5) is metrics._NOOP
+    TRACER.start()
+    with k3_span(ok, slab="int8", u=5) as sp:
+        pass
+    TRACER.stop()
+    # a device value until the drain reads it
+    assert isinstance(sp.attrs["live"], torch.Tensor)
+    (s,) = by_name(TRACER.drain(), "kernel.k3")
+    assert s.attrs == {"slab": "int8", "u": 5, "live": 3}
+    assert type(s.attrs["live"]) is int
+    assert s.parent == 0 and s.call == s.id
+
+
+def test_drain_reads_tensor_attributes_and_leaves_the_rest():
+    import torch
+
+    TRACER.start()
+    with metrics.span("any.site", n=7, kind="x",
+                      total=torch.tensor(2.5), count=torch.tensor(4)):
+        pass
+    TRACER.stop()
+    (s,) = by_name(TRACER.drain(), "any.site")
+    assert s.attrs == {"n": 7, "kind": "x", "total": 2.5, "count": 4}
+    assert [type(s.attrs[k]) for k in ("total", "count")] == [float, int]
+    assert TRACER.drain() == []

@@ -43,6 +43,7 @@ import json
 import logging
 import math
 import os
+import threading
 import time
 from typing import Any
 
@@ -60,6 +61,7 @@ from wdbx_tpu_torch.index.ivf import (
 from wdbx_tpu_torch.kernels.quant import unpack_int4
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
+from wdbx_tpu_torch.utils.metrics import span
 
 logger = logging.getLogger("wdbx_tpu_torch.index")
 
@@ -102,7 +104,24 @@ def _dedup_blocks(probe: torch.Tensor, blk_lo: torch.Tensor,
     pinned to block ``nblocks - 1``. ``valid`` (the (cap,) live mask,
     ``c`` rows per block) drops blocks with no live row before the
     ranking. Entry for entry the JAX function, including its int32
-    clamp of the counts."""
+    clamp of the counts. On the card one launch of
+    ``kernels.block_dedup`` where its rule holds, else the plain
+    version's ~30 launches."""
+    if probe.is_cuda:
+        from wdbx_tpu_torch.kernels.block_dedup import block_dedup
+
+        got = block_dedup(probe, blk_lo, blk_hi, nblocks, u, m, valid, c)
+        if got is not None:
+            return got
+    return _dedup_blocks_plain(probe, blk_lo, blk_hi, nblocks, u, m,
+                               valid, c)
+
+
+def _dedup_blocks_plain(probe: torch.Tensor, blk_lo: torch.Tensor,
+                        blk_hi: torch.Tensor, nblocks: int, u: int, m: int,
+                        valid: torch.Tensor | None = None,
+                        c: int | None = None):
+    """``_dedup_blocks`` in PyTorch operations, on either device."""
     dev = probe.device
     lo = blk_lo[probe]
     hi = blk_hi[probe]
@@ -164,10 +183,11 @@ def _clustered_search(slab, valid, scales, centroids, blk_lo, blk_hi,
         slab, valid, scales if (int8 or int4) else None, uniq[:n_scan],
         uniq_ok[:n_scan], q, k, c, int4=int4,
     )
-    return _residual_merge(
-        slab, valid, residual_pos, scales, kv, kp, q, k=k,
-        precision=precision, int8=int8, int4=int4,
-    )
+    with span("index.residual_merge"):
+        return _residual_merge(
+            slab, valid, residual_pos, scales, kv, kp, q, k=k,
+            precision=precision, int8=int8, int4=int4,
+        )
 
 
 def _clustered_search_ranges(slab, valid, scales, centroids, row_lo,
@@ -182,7 +202,8 @@ def _clustered_search_ranges(slab, valid, scales, centroids, row_lo,
         q = l2_normalize(q)
     b = q.shape[0]
     cap = slab.shape[0]
-    probe = _probes(q, centroids, nprobe, precision)  # (B, P)
+    with span("index.probe"):
+        probe = _probes(q, centroids, nprobe, precision)  # (B, P)
     p_eff = probe.shape[1]
     ls = min(L, cap)
     lo = row_lo[probe]
@@ -213,10 +234,11 @@ def _clustered_search_ranges(slab, valid, scales, centroids, row_lo,
     s = torch.where(in_bucket, s, float("-inf"))
     kv, sel = torch.topk(s, min(k, s.shape[-1]), dim=-1)
     kp = torch.gather(flat_pos, -1, sel)
-    return _residual_merge(
-        slab, valid, residual_pos, scales, kv, kp, q, k=k,
-        precision=precision, int8=int8, int4=int4,
-    )
+    with span("index.residual_merge"):
+        return _residual_merge(
+            slab, valid, residual_pos, scales, kv, kp, q, k=k,
+            precision=precision, int8=int8, int4=int4,
+        )
 
 
 def _kernelpath_list(slab, valid, centroids, blk_lo, blk_hi, q, nprobe, u,
@@ -225,11 +247,13 @@ def _kernelpath_list(slab, valid, centroids, blk_lo, blk_hi, q, nprobe, u,
     queries and the deduplicated blocks of their probes."""
     if normalize:
         q = l2_normalize(q)
-    probe = _probes(q, centroids, nprobe, precision)
+    with span("index.probe"):
+        probe = _probes(q, centroids, nprobe, precision)
     nblocks = slab.shape[0] // c
     u = min(u, (pad_b or q.shape[0]) * min(nprobe, centroids.shape[0]) * m)
-    uniq, uniq_ok = _dedup_blocks(probe, blk_lo, blk_hi, nblocks, u, m,
-                                  valid=valid, c=c)
+    with span("index.dedup"):
+        uniq, uniq_ok = _dedup_blocks(probe, blk_lo, blk_hi, nblocks, u, m,
+                                      valid=valid, c=c)
     return q, uniq, uniq_ok
 
 
@@ -261,10 +285,11 @@ def _clustered_search_kernelpath(slab, valid, scales, centroids, blk_lo,
     else:
         kv, kp = clustered_block_topk(slab, valid, sc, uniq, uniq_ok, q,
                                       k=k, c=c)
-    return _residual_merge(
-        slab, valid, residual_pos, scales, kv, kp, q, k=k,
-        precision=precision, int8=int8, int4=int4,
-    )
+    with span("index.residual_merge"):
+        return _residual_merge(
+            slab, valid, residual_pos, scales, kv, kp, q, k=k,
+            precision=precision, int8=int8, int4=int4,
+        )
 
 
 class ClusteredSlotMixin:
@@ -835,6 +860,11 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
         #: optimize() uses build_background() (serving keeps the old
         #: layout during the rebuild); IVF_BACKGROUND_REBUILD
         self.background_rebuild = False
+        # one caller enqueues a batch (probe, dedup, scan, merges) at a
+        # time: the interpreter serialises that work anyway, and
+        # concurrent callers then queue here once instead of passing the
+        # interpreter back and forth at each of its ~40 operations
+        self._enqueue_gate = threading.Lock()
 
     # -- storage: position space + slot indirection -------------------------
     def _alloc(self, cap: int) -> None:
@@ -1296,6 +1326,11 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
         """One batch through the path JAX would take for a batch of width
         ``pad_b``: ranges, kernel path or portable scan. Returns device
         ``(scores, positions)``."""
+        with self._enqueue_gate:
+            return self._scan_route(q, k, nprobe, pad_b, valid, residual)
+
+    def _scan_route(self, q, k, nprobe, pad_b, valid, residual):
+        """``_scan``'s work, inside its gate."""
         geom, c_eff, m_eff, blk_lo, blk_hi = self._geom(pad_b)
         common = dict(
             precision=self._precision, int8=self._is_int8,
@@ -1348,9 +1383,7 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
         q = to_tensor(queries, self.device, torch.float32)
         scores, pos = self._scan(q, k, nprobe, pad_b, valid,
                                  self._residual_tensor())
-        return self._map_pos_to_slots(
-            scores.cpu().numpy(), pos.cpu().numpy().astype(np.int64)
-        )
+        return self.resolve_pipelined((scores, pos))
 
     # search() is inherited from IVFIndex (build-if-stale under the write
     # lock, then _search_read_locked under read).
@@ -1398,11 +1431,13 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
 
     def resolve_pipelined(self, handle):
         """Materialize a ``search_pipelined(..., materialize=False)``
-        result: one transfer, then the position -> slot mapping."""
+        result (or a batch of ``search``): one transfer, then the
+        position -> slot mapping."""
         scores, pos = handle
-        return self._map_pos_to_slots(
-            scores.cpu().numpy(), pos.cpu().numpy().astype(np.int64)
-        )
+        with span("index.d2h"):
+            scores = scores.cpu().numpy()
+            pos = pos.cpu().numpy().astype(np.int64)
+        return self._map_pos_to_slots(scores, pos)
 
     def _oracle_search(self, queries, k):
         scores, pos = FlatIndex.search(self, queries, k)

@@ -42,6 +42,10 @@ SIGNATURES = {
         "wdbx_fused_topk_partial_smem": (
             ctypes.c_size_t, [_I, _I, _I, _I, _I]),
     },
+    "block_dedup": {
+        "wdbx_block_dedup": (
+            _I, [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
+    },
     "clustered_scan": {
         "wdbx_clustered_block_partial": (
             _I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,

@@ -42,6 +42,7 @@ import torch
 from wdbx_tpu_torch.kernels import fused_topk as _ft
 from wdbx_tpu_torch.kernels.quant import prep_query_block, unpack_int4
 from wdbx_tpu_torch.ops.exact_search import f32_scores
+from wdbx_tpu_torch.utils import metrics
 
 K_MAX = _ft.K_MAX
 #: CUDA kernel code of each query type
@@ -100,6 +101,17 @@ def plan(u: int, b: int, k: int, sm_count: int, partial_smem,
     target = max(1, -(-4 * sm_count // qtiles))
     ways = min(_MAX_WAYS, max(1, -(-u // target)))
     return qt, ways, -(-u // ways)
+
+
+def k3_span(ok: torch.Tensor, **attrs):
+    """The ``kernel.k3`` span of one stage-1 enqueue, with ``attrs``.
+    While the tracer runs it also gets ``live``, the count of live
+    entries of the block list ``ok``, counted on the device without a
+    wait; ``TRACER.drain()`` reads it. Off, the shared no-op: nothing is
+    counted."""
+    if not metrics.TRACER.on:
+        return metrics._NOOP
+    return metrics.span("kernel.k3", live=ok.sum(), **attrs)
 
 
 def _qtype(qq: torch.Tensor) -> str:
@@ -184,7 +196,8 @@ def clustered_block_partial(
                          device=slab.device)
     part_i = torch.empty((b, parts, k), dtype=torch.int32,
                          device=slab.device)
-    with _ft._on(slab):
+    with _ft._on(slab), k3_span(ok, slab=skey, qtype=qkey, body=body, c=c,
+                                d=d, b=b, k=k, u=u, parts=parts):
         rc = lib.wdbx_clustered_block_partial(
             code, slab_code, QUERY_CODES[qkey], qt,
             slab.data_ptr(), qq.data_ptr(), qscale.data_ptr(),

@@ -368,7 +368,7 @@ class _ShardMeta:
         ok = np.zeros(n, bool)
         ok[inb] = present[slots[inb]]
         out: list[dict[str, Any] | None] = [
-            ({} if good else None) for good in ok
+            ({} if good else None) for good in ok.tolist()
         ]
         idx = np.nonzero(ok)[0]
         if len(idx) == 0:

@@ -186,10 +186,17 @@ class Tracer:
                 gc.callbacks.remove(self._on_gc)
 
     def drain(self) -> list[Span]:
-        """The buffered spans, oldest first; the buffer is left empty."""
+        """The buffered spans, oldest first; the buffer is left empty.
+        An attribute a site gave as a one-element tensor (a device value,
+        such as K3's live block count) becomes its number here, read
+        after the traced calls' own result copies have waited for it."""
         with self._mu:
             out = self._buf
             self._buf = collections.deque(maxlen=self.capacity)
+        for s in out:
+            for key, value in s.attrs.items():
+                if hasattr(value, "item"):
+                    s.attrs[key] = value.item()
         return list(out)
 
     def current(self) -> _Live | None:
