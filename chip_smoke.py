@@ -14,11 +14,20 @@ Phases (each prints JSON lines; any failure exits non-zero):
              the 128-row tile, k=1 and 1024, bf16 / int8 / int4 at d=768
              with k 10 and 50, B=1 at k 1 / 10 / 50, d=100, float32
              d=98); the scan body of every launch must be the shape
-             rule's (want_body: bf16 / int8 / int4 take the pipelined body
-             where its buffers fit, and every such case also runs the
-             first tensor-core body against the plain version); corpora
-             of duplicated rows (float32, bf16, int8, int4) searched twice
-             must give identical slots
+             rule's (want_body: bf16 at d % 64 == 0, d <= 768, k <= 32
+             and B > 64 takes the wgmma body, and every such case also
+             runs the pipelined body against the plain version; bf16 /
+             int8 / int4 otherwise take the pipelined body where its
+             buffers fit, and every such case also runs the first
+             tensor-core body, and the wgmma body by name where it fits
+             B = 1 / 5 / 37); bf16 at d=768, B=300, k 1 / 10 / 32; corpora of
+             duplicated rows (float32, bf16 on both the wgmma and the
+             pipelined body, int8, int4) searched twice must give
+             identical slots
+  k1_10m     K1 bf16 at 10,000,000 x 768, B=128, k=10 (the flat cell's
+             launch): the wgmma body against the plain version, then its
+             time beside the pipelined body's, both score-only, the
+             bound, the plain version's and the library's
   merge      stage 2 against its plain version: k in {1, 10, 50, 128,
              1024}, B in {1, 128}, m off a multiple of 32, ties, -inf
              entries and all -inf rows
@@ -26,7 +35,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
              unit rows, answers vector_search_batch (B=128) and
              vector_search; every hit list is held against the plain
              version on the index's slab, and recall@10 against a float32
-             oracle must reach 0.9938; the pipelined body must serve it
+             oracle must reach 0.9938; the wgmma body must serve every
+             batch's launch, the pipelined body the single query's
   default_facade
              WDBX() with the default INDEX_DTYPE (float32 flat) at
              1,048,576 x 384: vector_search_batch (B=128) held against
@@ -37,10 +47,11 @@ Phases (each prints JSON lines; any failure exits non-zero):
              timed with CUDA events; all NB batches of its output are held
              against the plain version, and the float32 and bf16 raw
              recall@10 must reach 0.9938 (float32 must run the tiled
-             body, bf16, int8 and int4 the pipelined one); one batch of
-             128 times the kernels (also with every row masked: stage 1
-             without selection; bf16, int8 and int4 also through the
-             first tensor-core body), the merge
+             body, bf16 the wgmma body, int8 and int4 the pipelined one);
+             one batch of 128 times the kernels (also with every row
+             masked: stage 1 without selection; bf16 also through the
+             pipelined body, int8 and int4 through the first tensor-core
+             body), the merge
              (eagerly and in a CUDA graph, beside torch.topk, at k 10, 128
              and 1024), the plain version and the library call; then an
              int8 facade search with the raw-store rerank (RAW_STORE=ram),
@@ -51,7 +62,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
              B=128 and B=1 and search_pipelined (NB=64, B=128, k=10),
              every batch held against K1 / K2's plain version on the
              slot-order view, each call's counters showing one stage-1
-             launch a shard on the pipelined body and one merge, bf16 raw
+             launch a shard on the shape rule's body (bf16 batches of
+             more than 64 queries on wgmma) and one merge, bf16 raw
              recall@10 gated at 0.9938; a make_mesh2(2, 4) replicated
              index the same way; a live remesh to 7 shards, adopt_mesh +
              an npz reload, a per-position (PERSIST_BACKEND=orbax) round
@@ -259,7 +271,7 @@ Phases (each prints JSON lines; any failure exits non-zero):
              /visualize?format=json (the PCA on the card), then /save;
              every answer against the facade's direct vector_search
              (scores within 1e-5, ids equal off ties), recall@10 gated at
-             0.9938, K1 bf16 (pipelined body) and the merge must serve
+             0.9938, K1 bf16 (either body) and the merge must serve
              it; requests/s, latency percentiles, flushes and the device
              ms against the wall ms of a flush (CUDA events)
   cli        python -m wdbx_tpu_torch.cli (by runpy) in a subprocess on
@@ -318,7 +330,7 @@ ATOL = 1e-4  # kernel vs plain: same exact products, other summation order
 F32_KS = (1, 10, 128, 256, 1024)
 MERGE_KS = (1, 10, 50, 128, 1024)  # k of the stage-2 cases
 # the stage-1 body each flat slab type's driven path must take
-PATH_BODY = {"float32": "fma_tiled", "bfloat16": "mma_pipe",
+PATH_BODY = {"float32": "fma_tiled", "bfloat16": "wgmma",
              "int8": "mma_pipe", "int4": "mma_pipe"}
 MERGE_TIMED_KS = (10, 128, 1024)  # k of the stage-2 times (bf16 partials)
 REPLACES = {
@@ -503,8 +515,20 @@ def _slab(dtype, x):
     return x.to(getattr(torch, dtype)), None, False
 
 
-def want_body(dtype, qtype, d, b, k, aligned=True):
-    """The stage-1 body the shape rule gives a launch: ``mma_pipe`` for
+def _wgmma_fits(dtype, qtype, d, k):
+    """The wgmma body takes the launch's types, width and k: bf16 slab and
+    queries, d % 64 == 0, 64 queries of width d resident (d <= 768),
+    k <= 32 (its alignment rule is the caller's)."""
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    return dtype == qtype == "bfloat16" and d % 64 == 0 \
+        and 64 * d * 2 <= tf.PIPE_QUERY_BYTES and k <= 32
+
+
+def want_body(dtype, qtype, d, b, k, aligned=True, k1=True):
+    """The stage-1 body the shape rule gives a launch: for K1 / K2
+    (``k1``; the block scan has no such body) ``wgmma`` for batches of
+    more than 64 queries that ``_wgmma_fits``; ``mma_pipe`` for
     bf16 / int8 / int4 slabs (d % 32 == 0 with bf16 queries, d % 64 == 0
     with int8 queries) when 32 queries of width d stay resident and some
     query tile's 128 buffers fit beside them for k (``fused_topk.pipe_qt``
@@ -519,6 +543,8 @@ def want_body(dtype, qtype, d, b, k, aligned=True):
         return "fma_tiled" if d % 4 == 0 and aligned else "fma"
     if d % (64 if qtype == "int8" else 32) or not aligned:
         return "fma"
+    if k1 and b > 64 and _wgmma_fits(dtype, qtype, d, k):
+        return "wgmma"
     lib = build.load("clustered_scan")
 
     def smem(qt, cap):
@@ -563,6 +589,7 @@ def phase_kernels(n_rows, seed):
     shapes = [(n_rows, 384, 128, (10, 256), every),
               (10_000, 384, 5, (1, 1024), every),
               (3_000, 768, 37, (10, 50), ("bfloat16", "int8", "int4")),
+              (10_000, 768, 300, (1, 10, 32), ("bfloat16",)),
               (3_000, 384, 1, (1, 10, 50), ("bfloat16", "int8", "int4")),
               (3_000, 100, 37, (10,), every),
               (3_000, 98, 37, (10,), ("float32",))]
@@ -605,14 +632,22 @@ def phase_kernels(n_rows, seed):
                 if body != want:
                     fail(f"{name}: ran the {body} body, expected {want}")
                 err = check_topk(name, ref, got, rescore)
-                if body == "mma_pipe":
-                    # the first tensor-core body on the same inputs
+                # the same inputs through the body it replaces (the
+                # pipelined body for wgmma, the first tensor-core body for
+                # it) and, for a bf16 batch of at most 64 that the wgmma
+                # body fits, through that body by name
+                others = {"wgmma": ["mma_pipe"], "mma_pipe": ["mma"]}.get(
+                    body, [])
+                if body == "mma_pipe" and not unaligned and \
+                        _wgmma_fits(dtype, "bfloat16", d, k):
+                    others.append("wgmma")
+                for other in others:
                     pv2, pi2 = tf.fused_topk_partial(
                         sl, qk, vmask, k, scales=scales, int4=int4,
-                        body="mma")
+                        body=other)
                     err = max(err, check_topk(
-                        name + "/mma", ref, tf.topk_merge_partials(pv2, pi2, k),
-                        rescore))
+                        f"{name}/{other}", ref,
+                        tf.topk_merge_partials(pv2, pi2, k), rescore))
                 merge_err = check_topk(name + "/merge",
                                        tf.merge_partials_plain(pv, pi, k),
                                        got, rescore, atol=0.0)
@@ -637,9 +672,9 @@ def phase_kernels(n_rows, seed):
 
 def phase_determinism(g, errs):
     """Each body on a corpus of 8 copies of 8,192 rows (copies 8,192
-    rows apart, so in other chunks): float32 (the tiled body), bf16,
-    int8 and int4 (the pipelined body). Two runs give the same scores
-    and slots
+    rows apart, so in other chunks): float32 (the tiled body), bf16 (the
+    wgmma body, and the pipelined body by name), int8 and int4 (the
+    pipelined body). Two runs give the same scores and slots
     bit for bit, and k=11 cuts through a group of copies, so the plain
     version may pick other copies: equal except at ties."""
     import torch
@@ -650,18 +685,21 @@ def phase_determinism(g, errs):
     x = (base / base.norm(dim=1, keepdim=True)).repeat(8, 1)
     q = torch.randn((128, 384), generator=g, device="cuda")
     valid = torch.ones(x.shape[0], dtype=torch.bool, device="cuda")
-    for dtype, want in (("float32", "fma_tiled"), ("bfloat16", "mma_pipe"),
-                        ("int8", "mma_pipe"), ("int4", "mma_pipe")):
+    for dtype, want, named in (("float32", "fma_tiled", None),
+                               ("bfloat16", "wgmma", None),
+                               ("bfloat16", "mma_pipe", "mma_pipe"),
+                               ("int8", "mma_pipe", None),
+                               ("int4", "mma_pipe", None)):
         slab, scales, int4 = _slab(dtype, x)
         qk = tf._prep_queries(slab, q, scales, True)
         runs = []
         for _ in range(2):
             body, (pv, pi) = _body_of(lambda: tf.fused_topk_partial(
-                slab, qk, valid, 11, scales=scales, int4=int4))
+                slab, qk, valid, 11, scales=scales, int4=int4, body=named))
             runs.append((pv, pi) + tf.topk_merge_partials(pv, pi, 11))
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(*runs))
-        name = f"{dtype}/duplicates/k11"
+        name = f"{dtype}/duplicates/k11" + (f"/{named}" if named else "")
         err = check_topk(name, tf.fused_topk_plain(slab, qk, valid, 11,
                                                    scales=scales, int4=int4),
                          runs[0][2:], rescorer(slab, qk, scales, int4))
@@ -671,6 +709,62 @@ def phase_determinism(g, errs):
             fail(f"{name}: body {body}, identical runs {same}")
         key = f"fused_topk_partial[{dtype}]"
         errs[key] = max(errs[key], err)
+
+
+K1_10M = (10_000_000, 768, 128, 10)  # the flat cell's launch: n, d, B, k
+
+
+def phase_k1_10m(seed, errs) -> dict:
+    """K1 bf16 at the flat cell's launch (10M x 768, B=128, k=10, ~10%
+    invalid rows): the shape rule's body (wgmma) against the plain
+    version, then the times of that body and of the pipelined body by
+    name, each also with every row masked (score-only), beside the bytes
+    bound, the plain version and the library (matmul, then torch.topk)."""
+    import torch
+
+    from wdbx_tpu_torch.kernels import fused_topk as tf
+
+    n, d, b, k = K1_10M
+    g = torch.Generator(device="cuda").manual_seed(seed + 24)
+    slab = torch.empty((n, d), dtype=torch.bfloat16, device="cuda")
+    for i in range(0, n, 1 << 20):
+        y = torch.randn((min(1 << 20, n - i), d), generator=g, device="cuda")
+        slab[i:i + y.shape[0]] = (y / y.norm(dim=1, keepdim=True)).to(
+            torch.bfloat16)
+        del y
+    valid = torch.rand((n,), generator=g, device="cuda") > 0.1
+    q = tf._prep_queries(slab, torch.randn((b, d), generator=g,
+                                           device="cuda"), None, True)
+    body, (pv, pi) = _body_of(lambda: tf.fused_topk_partial(slab, q, valid,
+                                                            k))
+    if body != want_body("bfloat16", "bfloat16", d, b, k):
+        fail(f"k1_10m: ran the {body} body")
+    name = f"bfloat16/n{n}_d{d}_b{b}/k{k}"
+    got = tf.topk_merge_partials(pv, pi, k)
+    plain_ms = cuda_ms(lambda: tf.fused_topk_plain(slab, q, valid, k),
+                       reps=1, warm=0)
+    ref = tf.fused_topk_plain(slab, q, valid, k)
+    err = check_topk(name, ref, got, rescorer(slab, q))
+    errs["fused_topk_partial[bfloat16]"] = max(
+        errs["fused_topk_partial[bfloat16]"], err)
+    del ref, got
+    torch.cuda.empty_cache()
+    none_valid = torch.zeros_like(valid)
+    row = {"phase": "k1_10m", "n": n, "d": d, "b": b, "k": k, "body": body,
+           "parts": pv.shape[1], "max_abs_err": err, "tol": ATOL}
+    for label, named in (("", None), ("pipe_", "mma_pipe")):
+        row[label + "ms"] = cuda_ms(lambda: tf.fused_topk_partial(
+            slab, q, valid, k, body=named))
+        row[label + "score_only_ms"] = cuda_ms(lambda: tf.fused_topk_partial(
+            slab, q, none_valid, k, body=named))
+    row["bound_ms"], row["bound_by"] = _bound_ms("bfloat16", n, d, b, k)
+    row["plain_ms"] = plain_ms
+    row["library_ms"] = cuda_ms(lambda: torch.topk(
+        torch.matmul(q, slab.T), k, dim=1), reps=3, warm=1)
+    emit(row)
+    del slab, valid, none_valid, q, pv, pi
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_merge(seed, errs):
@@ -841,13 +935,18 @@ def phase_main(x, qs, truth, paths, tmp):
     hits = []
     for i in range(3):
         hits += db.vector_search_batch(qs[i], limit=10)
+    batches = _counts()
     one = db.vector_search(qs[3, 0].tolist(), limit=10)
     wall = time.perf_counter() - t0
     paths["main"] = _counts()
-    if paths["main"]["fused_topk_partial[bfloat16]"] < 4 or \
-            paths["main"]["fused_topk_partial.bodies.mma_pipe"] < 4:
-        fail(f"main path did not run the pipelined bf16 body: "
-             f"{paths['main']}")
+    # every batch's launch on the wgmma body, the single query's on the
+    # pipelined one (a batch of one)
+    launches = batches["fused_topk_partial[bfloat16]"]
+    if launches < 3 or \
+            batches["fused_topk_partial.bodies.wgmma"] != launches or \
+            paths["main"]["fused_topk_partial.bodies.mma_pipe"] != 1:
+        fail(f"main path's batches did not all run the wgmma body, or its "
+             f"single query the pipelined one: {paths['main']}")
     if len(one) != 10 or any(len(h) != 10 for h in hits):
         fail("main path returned short hit lists")
     scores = np.array([[s for _, s, _ in row] for row in hits])
@@ -998,9 +1097,12 @@ def phase_pipelined(x, qs, x_dev, truth, paths, tmp, timings, errs):
         score_only_ms = cuda_ms(lambda: tf.fused_topk_partial(
             slab, qk, none_valid, k, scales=scales, int4=int4))
         old_ms = None
-        if body == "mma_pipe":  # the first tensor-core body, same inputs
+        # the body this one replaced, same inputs: the pipelined body for
+        # wgmma, the first tensor-core body for the pipelined one
+        old = {"wgmma": "mma_pipe", "mma_pipe": "mma"}.get(body)
+        if old is not None:
             old_ms = cuda_ms(lambda: tf.fused_topk_partial(
-                slab, qk, valid, k, scales=scales, int4=int4, body="mma"))
+                slab, qk, valid, k, scales=scales, int4=int4, body=old))
         pv, pi = part()
         # and at B=128 (another tiling than the NB*B launch)
         err = check_topk(f"{dtype}/n{n_rows}_b{b}",
@@ -1124,8 +1226,7 @@ def _tally(paths, label, counts):
 def _sharded_call(label, index, dtype, b, run, paths):
     """``run()`` with the counters at 0 just before and read just after:
     every replica group that got queries of a batch of ``b`` must launch
-    one stage 1 a shard, all on the pipelined body (the shape rule's),
-    and one merge."""
+    one stage 1 a shard, all on the shape rule's body, and one merge."""
     _reset()
     out = run()
     counts = _counts()
@@ -1134,14 +1235,14 @@ def _sharded_call(label, index, dtype, b, run, paths):
     groups = sum(1 for g in range(r) if b * (g + 1) // r > b * g // r)
     per = -(-b // r)
     want = want_body(dtype, "bfloat16", index.dim, per, 10)
-    if want != "mma_pipe":
-        fail(f"{label}: the shape rule gives {want}, not mma_pipe, at "
-             f"B={per}")
+    if want not in (PATH_BODY[dtype], "mma_pipe"):
+        fail(f"{label}: the shape rule gives {want}, not {PATH_BODY[dtype]}"
+             f" or mma_pipe, at B={per}")
     if counts[f"fused_topk_partial[{dtype}]"] != n_dev * groups or \
-            counts["fused_topk_partial.bodies.mma_pipe"] != n_dev * groups \
+            counts[f"fused_topk_partial.bodies.{want}"] != n_dev * groups \
             or counts["topk_merge_partials"] != groups:
         fail(f"{label}: expected {n_dev * groups} stage-1 launches on "
-             f"mma_pipe and {groups} merges: {_nonzero(counts)}")
+             f"{want} and {groups} merges: {_nonzero(counts)}")
     return out
 
 
@@ -1169,8 +1270,9 @@ def _drive_sharded(label, index, dtype, qs, qstack, paths, errs,
     slots = None
     if pipelined:
         nb, b = qs.shape[0], qs.shape[1]
+        # one launch a shard over the stack's queries of its group
         scores, slots = _sharded_call(
-            label, index, dtype, b,
+            label, index, dtype, nb * b,
             lambda: index.search_pipelined(qstack, k=10), paths)
         if scores.shape != (nb, b, 10):
             fail(f"{label}: pipelined shape {scores.shape}")
@@ -1838,7 +1940,7 @@ def phase_clustered_kernels(seed, errs):
                             torch.cuda.synchronize()
                             key = clu_name(cs.mode_key(gen, sk, qk))
                             name = f"{key}/d{d}_c{c}_b{b}_k{k}/{case}"
-                            want = want_body(sk, qk, d, b, k)
+                            want = want_body(sk, qk, d, b, k, k1=False)
                             if body != [want]:
                                 fail(f"{name}: ran {body}, expected {want}")
                             err = check_topk(name, ref, got, rescore)
@@ -6278,9 +6380,10 @@ def phase_server(x, qs, truth, paths, tmp, errs):
     server.stop_thread()
     server._thread.join(timeout=30)
     if paths["server"]["fused_topk_partial[bfloat16]"] < 1 or \
+            paths["server"]["fused_topk_partial.bodies.wgmma"] + \
             paths["server"]["fused_topk_partial.bodies.mma_pipe"] < 1 or \
             paths["server"]["topk_merge_partials"] < 1:
-        fail(f"server: K1 bf16 (mma_pipe) and the merge did not run: "
+        fail(f"server: K1 bf16 (wgmma / mma_pipe) and the merge did not run: "
              f"{_nonzero(paths['server'])}")
     emit({"phase": "server", "n": n_rows, "dtype": "bfloat16",
           "bulk_load_s": load_s, "warmed_widths": widths,
@@ -6533,6 +6636,7 @@ def main() -> None:
     card = phase_device()
     phase_build()
     errs = phase_kernels(KERNEL_ROWS, args.seed)
+    k1_10m = phase_k1_10m(args.seed, errs)
     phase_merge(args.seed, errs)
     phase_clustered_kernels(args.seed, errs)
     phase_block_dedup(args.seed)
@@ -6579,6 +6683,12 @@ def main() -> None:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **_extras(t),
         })
+        if dtype == "bfloat16":
+            kernels[-1]["at_10m_x_768"] = {
+                key: k1_10m[key] for key in (
+                    "body", "ms", "score_only_ms", "pipe_ms",
+                    "pipe_score_only_ms", "bound_ms", "plain_ms",
+                    "library_ms")}
     mt = timings["fused_topk_partial[bfloat16]"]
     kernels.append({
         "name": "topk_merge_partials", "route": "cuda", "source": SOURCE,

@@ -327,3 +327,134 @@ def test_plan_pipe_at_the_driven_point():
     for slab in ("bfloat16", "int8", "int4"):
         assert tf.plan(1 << 20, 128, 10, 132, pipe_smem(slab, 384),
                        body="mma_pipe", d=384) == (128, 131, 63 * 128)
+
+
+# The wgmma body (csrc/fused_topk_sm90.cu): K1 over bf16 slabs only.
+@pytest.mark.parametrize("d", [128, 384, 768])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_scan_body_takes_wgmma_for_k1_bf16(d, k):
+    assert tf.scan_body("bfloat16", "bfloat16", d, 4096, 8192, k) == "wgmma"
+    # without a K1 k (the block scan's launches) the rule is as before
+    assert tf.scan_body("bfloat16", "bfloat16", d, 4096, 8192) == "mma_pipe"
+
+
+@pytest.mark.parametrize("slab,qtype,d,k,db_off,q_off,want", [
+    ("bfloat16", "bfloat16", 384, 33, 0, 0, "mma_pipe"),   # k > 32
+    ("bfloat16", "bfloat16", 768, 33, 0, 0, "mma_pipe"),
+    ("bfloat16", "bfloat16", 768, 1024, 0, 0, "mma_pipe"),
+    ("bfloat16", "bfloat16", 832, 10, 0, 0, "mma_pipe"),   # over 768
+    ("bfloat16", "bfloat16", 1536, 10, 0, 0, "mma_pipe"),
+    ("bfloat16", "bfloat16", 736, 10, 0, 0, "mma_pipe"),   # d % 64 != 0
+    ("bfloat16", "bfloat16", 96, 10, 0, 0, "mma_pipe"),
+    ("bfloat16", "bfloat16", 100, 10, 0, 0, "fma"),
+    ("bfloat16", "bfloat16", 768, 10, 2, 0, "fma"),        # unaligned slab
+    ("bfloat16", "bfloat16", 768, 10, 0, 8, "fma"),        # unaligned queries
+    ("int8", "bfloat16", 768, 10, 0, 0, "mma_pipe"),
+    ("int8", "int8", 768, 10, 0, 0, "mma_pipe"),
+    ("int4", "bfloat16", 768, 10, 0, 0, "mma_pipe"),
+    ("int4", "int8", 384, 10, 0, 0, "mma_pipe"),
+    ("float32", "float32", 768, 10, 0, 0, "fma_tiled"),
+    ("float32", "float32", 384, 1, 0, 0, "fma_tiled"),
+])
+def test_scan_body_wgmma_fallbacks(slab, qtype, d, k, db_off, q_off, want):
+    assert tf.scan_body(slab, qtype, d, 4096 + db_off, 8192 + q_off,
+                        k) == want
+
+
+def test_scan_body_wgmma_of_unaligned_views():
+    buf = torch.zeros(64 * 768 + 1, dtype=torch.bfloat16)
+    view = buf[1:].view(64, 768)
+    q = torch.zeros((5, 768), dtype=torch.bfloat16)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert tf.scan_body("bfloat16", "bfloat16", 768, view.data_ptr(),
+                        q.data_ptr(), 10) == "fma"
+
+
+@pytest.mark.parametrize("slab,qtype,b,k,flat,want", [
+    ("bfloat16", "bfloat16", 128, 10, True, "wgmma"),
+    ("bfloat16", "bfloat16", 128, 32, True, "wgmma"),
+    ("bfloat16", "bfloat16", 65, 1, True, "wgmma"),
+    ("bfloat16", "bfloat16", 300, 10, True, "wgmma"),
+    ("bfloat16", "bfloat16", 8192, 10, True, "wgmma"),
+    # at most 64 queries: one CTA of the pair would hold them all
+    ("bfloat16", "bfloat16", 64, 10, True, "mma_pipe"),
+    ("bfloat16", "bfloat16", 37, 10, True, "mma_pipe"),
+    ("bfloat16", "bfloat16", 1, 10, True, "mma_pipe"),
+    ("bfloat16", "bfloat16", 128, 33, True, "mma_pipe"),
+    ("bfloat16", "bfloat16", 128, 1024, True, "mma"),
+    ("bfloat16", "bfloat16", 128, 10, False, "mma_pipe"),  # K3: no wgmma
+    ("int8", "bfloat16", 128, 10, True, "mma_pipe"),
+    ("int4", "bfloat16", 128, 10, True, "mma_pipe"),
+    ("int8", "int8", 128, 10, True, "mma_pipe"),
+])
+def test_pick_body_gives_wgmma_to_k1_only(slab, qtype, b, k, flat, want):
+    def smem_of(code):
+        return pipe_smem(slab, 384, qtype) \
+            if code == tf.BODY_CODES["mma_pipe"] else (lambda qt, cap: 0)
+
+    assert tf.BODY_CODES["wgmma"] == 4
+    assert tf.pick_body(slab, qtype, b, k, 384, 4096, 8192, smem_of,
+                        flat=flat) == want
+
+
+def _wgmma_grid(n, b, chunks, rows):
+    """The CTAs of a wgmma launch (``fused_topk_sm90.cu``): grid (2 chunks,
+    query tiles of 128), clusters of the two CTAs of a chunk; CTA x of
+    row y holds queries [128 y + 64 (x % 2), + 64) and walks the rows of
+    chunk x // 2, its consumer warpgroup w writing part 2 (x // 2) + w."""
+    ctas = []
+    for y in range(-(-b // tf.WGMMA_QT)):
+        for x in range(2 * chunks):
+            q0 = y * tf.WGMMA_QT + (x % 2) * (tf.WGMMA_QT // 2)
+            r0 = (x // 2) * rows
+            ctas.append(((q0, min(b, q0 + tf.WGMMA_QT // 2)),
+                         (r0, min(n, r0 + rows)),
+                         [tf.WGMMA_PARTS * (x // 2) + w
+                          for w in range(tf.WGMMA_PARTS)]))
+    return ctas
+
+
+@pytest.mark.parametrize("n,b", [
+    (10_000_000, 128), (10_000_000, 300), (10_000_000, 1),
+    (1 << 20, 128), (1 << 20, 8192), (10_001, 37), (3000, 300), (100, 3)])
+def test_plan_wgmma_covers_each_query_and_row_once(n, b):
+    clusters = 66
+    chunks, rows = tf.plan_wgmma(n, b, clusters)
+    parts = tf.WGMMA_PARTS * chunks
+    assert rows % 128 == 0 and chunks * rows >= n > (chunks - 1) * rows
+    assert chunks <= 65535
+    qtiles, tiles = -(-b // tf.WGMMA_QT), -(-n // 128)
+    # whole waves of CTA pairs, unless the slab is too short for one wave
+    assert (qtiles * chunks) % clusters == 0 or qtiles * chunks < clusters
+    waves = -(-qtiles * chunks // clusters)
+    assert waves * rows // 128 <= 1.05 * qtiles * tiles / clusters + 2
+    # every (query, row) pair in exactly one CTA; every part written once
+    cover_q, cover_r = {}, {}
+    seen_parts = {}
+    for (qa, qb), (ra, rb), ps in _wgmma_grid(n, b, chunks, rows):
+        if qa >= b:
+            continue  # a CTA past the batch writes nothing
+        for p in ps:
+            seen_parts[(qa, p)] = seen_parts.get((qa, p), 0) + 1
+        cover_q.setdefault((ra, rb), []).append((qa, qb))
+        cover_r[(ra, rb)] = True
+    spans = sorted(cover_r)
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+    for span, qs in cover_q.items():
+        qs = sorted(qs)
+        assert qs[0][0] == 0 and qs[-1][1] == b
+        assert all(a[1] == c[0] for a, c in zip(qs, qs[1:]))
+    assert set(seen_parts.values()) == {1}
+    assert {p for _, p in seen_parts} == set(range(parts))
+
+
+def test_plan_wgmma_at_the_driven_points():
+    # 10M x 768, B=128 on 132 SMs: 66 CTA pairs, one chunk of 1,184 tiles
+    # each, 132 parts a query
+    assert tf.plan_wgmma(10_000_000, 128, 66) == (66, 1184 * 128)
+    # B=300: three query tiles of 128, 22 chunks each: one wave of 66
+    chunks, rows = tf.plan_wgmma(10_000_000, 300, 66)
+    assert (chunks, 3 * chunks) == (22, 66) and rows == 3552 * 128
+    # fewer pairs on the card (a GPC with an odd SM count): still one wave
+    assert tf.plan_wgmma(10_000_000, 128, 64)[0] == 64

@@ -56,9 +56,21 @@
 //     waves. TF32 stays off: the products and sums are float32 FMAs, as
 //     the JAX package's float32 path asks (precision "highest");
 //   * everything else (ragged widths, unaligned views): scan_fma.
-// No wgmma or TMA yet: times in PERF.md.
+// Beside them, bf16 slabs against bf16 queries with d % 64 == 0, d <= 768,
+// aligned operands and k <= 32 may take the Hopper body of
+// fused_topk_sm90.cu (body code 4; the wrappers give it batches of more
+// than 64 queries): TMA multicast row slices into a cluster of two CTAs,
+// wgmma products, the register top-k overlapping the other warpgroup's
+// products. Times in PERF.md.
 
 #include "topk_common.cuh"
+
+// The wgmma body (fused_topk_sm90.cu).
+constexpr int kBodyWgmma = 4;
+int fused_topk_wgmma_clusters(int d);
+int fused_topk_wgmma(const void* db, const void* q, const void* valid, int n,
+                     int d, int b, int k, int rows_per_chunk, int chunks,
+                     void* part_v, void* part_i, cudaStream_t stream);
 
 namespace {
 
@@ -441,8 +453,16 @@ size_t wdbx_fused_topk_partial_smem(int body, int slab, int qt, int cap,
   return a > b ? a : b;
 }
 
+// Clusters of two wgmma CTAs the card runs at once at width d (-1 when
+// the width is not the body's).
+int wdbx_fused_topk_wgmma_clusters(int d) {
+  return fused_topk_wgmma_clusters(d);
+}
+
 // body: 0 scan_fma, 1 scan_mma, 2 scan_fma_tiled, 3 scan_mma_pipe
-// (Body); a body whose rule the arguments break is refused: scan_mma
+// (Body), 4 wgmma (fused_topk_sm90.cu: bf16 slab, d % 64 == 0, d <= 768,
+// k <= 32, qt and cap unused, parts = 2 chunks); a body whose rule the
+// arguments break is refused: scan_mma
 // and scan_mma_pipe take bf16 / int8 / int4 slabs with d % 32 == 0
 // (scan_mma_pipe's shared memory must fit, or the launch fails),
 // scan_fma_tiled float32 slabs with d % 4 == 0, all with 16-byte
@@ -462,6 +482,11 @@ int wdbx_fused_topk_partial(int body, int slab, int qt, const void* db,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool aligned = aligned16(db) && aligned16(q);
+  if (body == kBodyWgmma) {
+    if (slab != kBF16) return (int)cudaErrorInvalidValue;
+    return fused_topk_wgmma(db, q, valid, n, d, b, k, rows_per_chunk, chunks,
+                            part_v, part_i, st);
+  }
   if (body == kBodyFmaTiled) {
     if (slab != kF32 || d % 4 != 0 || !aligned)
       return (int)cudaErrorInvalidValue;

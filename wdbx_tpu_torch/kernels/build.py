@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
-own shared library with a plain C interface, loaded with ``ctypes``.
+Each ``csrc/<name>.cu``, with the further sources ``SOURCES`` lists for
+it, compiles with ``nvcc`` for ``sm_90a`` into its own shared library
+with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, keyed by a hash of the sources and flags,
 into ``build/kernels`` at the checkout root (git-ignored), so a fresh
 checkout builds on its first call and later calls reuse it.
@@ -27,6 +28,9 @@ FLAGS = ARCH_FLAGS + [
     "-lineinfo",
 ]
 
+#: further sources linked into a library beside ``csrc/<name>.cu``
+SOURCES = {"fused_topk": ("fused_topk_sm90.cu",)}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures of each library's entry points: name -> (restype, argtypes)
@@ -41,6 +45,7 @@ SIGNATURES = {
         ),
         "wdbx_fused_topk_partial_smem": (
             ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+        "wdbx_fused_topk_wgmma_clusters": (_I, [_I]),
     },
     "block_dedup": {
         "wdbx_block_dedup": (
@@ -92,10 +97,15 @@ def _nvcc() -> str:
     )
 
 
+def _sources(name: str) -> list[str]:
+    return [f"{name}.cu", *SOURCES.get(name, ())]
+
+
 def _target(name: str) -> str:
     h = hashlib.sha256()
+    own = _sources(name)
     for fn in sorted(os.listdir(CSRC)):
-        if fn == f"{name}.cu" or fn.endswith((".cuh", ".h")):
+        if fn in own or fn.endswith((".cuh", ".h")):
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode() + b"\0" + f.read())
     h.update(" ".join(FLAGS).encode())
@@ -110,7 +120,8 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *FLAGS, "-o", tmp,
+           *(os.path.join(CSRC, fn) for fn in _sources(name))]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -129,10 +140,12 @@ def _finish(name: str, started) -> None:
 
 
 def build_all() -> dict[str, dict]:
-    """Compile every ``csrc/*.cu`` at once (one nvcc each, in parallel)
-    and load them. Returns ``build_info``."""
+    """Compile every library of ``csrc/*.cu`` at once (one nvcc each, in
+    parallel) and load them. Returns ``build_info``."""
+    linked = {fn for extra in SOURCES.values() for fn in extra}
     names = sorted(
-        fn[:-3] for fn in os.listdir(CSRC) if fn.endswith(".cu")
+        fn[:-3] for fn in os.listdir(CSRC)
+        if fn.endswith(".cu") and fn not in linked
     )
     with _mu:
         started = {n: _start(n) for n in names if n not in _libs}

@@ -7,14 +7,18 @@ in ``csrc/fused_topk.cu``; that file's header gives the bound on the
 card and the design. In short: stage 1 (``fused_topk_partial``) streams
 row chunks in parallel CTAs and keeps each query's k best per chunk,
 stage 2 (``topk_merge_partials``) merges the chunks into the sorted
-``(B, k)`` result. Stage 1 runs one of four scan bodies, which
-``pick_body`` picks from the shapes alone: the register-tiled float32
+``(B, k)`` result. Stage 1 runs one of five scan bodies, which
+``pick_body`` picks from the shapes alone: the Hopper body
+(``csrc/fused_topk_sm90.cu``: TMA multicast into a cluster of two CTAs,
+wgmma products) for bf16 slabs with ``d % 64 == 0``, ``d <= 768``,
+aligned operands, ``k <= 32`` and more than 64 queries; the
+register-tiled float32
 body for float32 slabs with ``d % 4 == 0`` and 16-byte aligned slab and
-queries; the pipelined tensor-core body for bf16, int8 and packed int4
-slabs with ``d % 32 == 0``, aligned operands and candidate buffers that
-fit for k; the first tensor-core body for the tensor-core launches whose
-buffers fit no query tile (k = 128 / 1024 at d = 384); the CUDA-core
-body otherwise. ``fused_topk_partial(..., body=...)`` reaches
+queries; the pipelined tensor-core body for the other bf16, int8 and
+packed int4 slabs with ``d % 32 == 0``, aligned operands and candidate
+buffers that fit for k; the first tensor-core body for the tensor-core
+launches whose buffers fit no query tile (k = 128 / 1024 at d = 384);
+the CUDA-core body otherwise. ``fused_topk_partial(..., body=...)`` reaches
 any body whose rule the arguments meet, for timing one against
 another.
 
@@ -73,8 +77,9 @@ def _cap(k: int) -> int:
     return k + 64
 
 
-#: stage-1 scan bodies of ``csrc/topk_common.cuh``, by their C code
-BODY_CODES = {"fma": 0, "mma": 1, "fma_tiled": 2, "mma_pipe": 3}
+#: stage-1 scan bodies of ``csrc/topk_common.cuh`` and (``"wgmma"``, K1
+#: only) ``csrc/fused_topk_sm90.cu``, by their C code
+BODY_CODES = {"fma": 0, "mma": 1, "fma_tiled": 2, "mma_pipe": 3, "wgmma": 4}
 #: query tiles of the pipelined tensor-core body (its CTA writes 128 / qt
 #: parts a query), and the shared memory its resident queries may take:
 #: bf16 queries 128 at d <= 384, 64 at d <= 768, 32 at d <= 1536; int8
@@ -88,13 +93,29 @@ QUERY_BYTES = {"bfloat16": 2, "int8": 1}
 TILED_QT = (16, 32, 64, 128)
 SMEM_MAX = 226 * 1024
 _SM_SMEM = 228 * 1024  # shared memory of one SM
+#: the wgmma body: a cluster of two CTAs scores a tile of 128 queries, 64
+#: resident in each CTA (``PIPE_QUERY_BYTES`` of bf16: d <= 768) against
+#: 64-dim slices, keeping each query's top k in registers (k <= 32); each
+#: CTA's two consumer warpgroups write a part of their queries a chunk.
+#: ``pick_body`` gives it batches of more than ``WGMMA_QT // 2`` queries,
+#: which fill both CTAs of a pair: below that the pipelined body, whose
+#: smaller query tiles spread the selection over more warps, was as fast
+#: or faster on the card (PERF.md)
+WGMMA_QT = 128
+WGMMA_DIMS = 64
+WGMMA_K_MAX = 32
+WGMMA_PARTS = 2
 
 
 def scan_body(slab: str, qtype: str, d: int, db_ptr: int,
-              q_ptr: int) -> str:
+              q_ptr: int, k: int | None = None) -> str:
     """The stage-1 body a launch takes, from the slab and query types,
     the width and the operands' addresses, all with 16-byte aligned slab
-    and queries: ``"fma_tiled"`` for float32 slabs with ``d % 4 == 0``;
+    and queries: given the k of a K1 launch (the fused flat scan, the
+    only one with the Hopper body), ``"wgmma"`` for bf16 slabs against
+    bf16 queries with ``d % 64 == 0``, 64 queries of width d within
+    ``PIPE_QUERY_BYTES`` (d <= 768) and ``k <= WGMMA_K_MAX``;
+    ``"fma_tiled"`` for float32 slabs with ``d % 4 == 0``;
     ``"mma_pipe"`` for bf16, int8 and packed int4 slabs with
     ``d % 32 == 0`` against bf16 queries (an int4 row's d/2 bytes are
     whole 16-byte chunks) or ``d % 64 == 0`` against int8 queries (int8 /
@@ -108,6 +129,11 @@ def scan_body(slab: str, qtype: str, d: int, db_ptr: int,
     aligned = db_ptr % 16 == 0 and q_ptr % 16 == 0
     if slab == "float32":
         return "fma_tiled" if d % 4 == 0 and aligned else "fma"
+    if (k is not None and slab == qtype == "bfloat16" and aligned
+            and d % WGMMA_DIMS == 0
+            and (WGMMA_QT // 2) * d * 2 <= PIPE_QUERY_BYTES
+            and k <= WGMMA_K_MAX):
+        return "wgmma"
     width = 64 if qtype == "int8" else 32
     if d % width or not aligned:
         return "fma"
@@ -156,6 +182,20 @@ def tiled_cap(qt: int, k: int, partial_smem) -> int:
     base = partial_smem(qt, cap)
     per_entry = partial_smem(qt, cap + 1) - base
     return min(128, cap + max(0, (SMEM_MAX - base) // per_entry))
+
+
+def plan_wgmma(n: int, b: int, clusters: int) -> tuple[int, int]:
+    """The wgmma body's tiling ``(chunks, rows_per_chunk)``: query tiles
+    of ``WGMMA_QT`` (a CTA pair each), and as many row chunks a query
+    tile as make the grid a whole number of waves of the ``clusters``
+    CTA pairs the card runs at once, so each pair walks one long chunk
+    (66 chunks at 10M rows, B=128, on 132 SMs). The launch writes
+    ``WGMMA_PARTS * chunks`` parts a query."""
+    qtiles = -(-b // WGMMA_QT)
+    tiles = -(-n // _ROWS)
+    chunks = min(tiles, 65535, whole_waves(qtiles, clusters))
+    rows = -(-tiles // chunks) * _ROWS
+    return -(-n // rows), rows
 
 
 def whole_waves(qtiles: int, slots: int, need: int = 1) -> int:
@@ -232,11 +272,14 @@ def _on(t: torch.Tensor):
 
 
 def pick_body(key: str, qtype: str, b: int, k: int, d: int, db_ptr: int,
-              q_ptr: int, smem_of) -> str:
+              q_ptr: int, smem_of, flat: bool = False) -> str:
     """``scan_body``'s choice, with a ``"mma_pipe"`` launch whose buffers
     fit no query tile for this k (``pipe_qt``) sent to ``"mma"``.
-    ``smem_of(code)`` gives the shared-memory function of a body code."""
-    body = scan_body(key, qtype, d, db_ptr, q_ptr)
+    ``smem_of(code)`` gives the shared-memory function of a body code.
+    ``flat``: a K1 / K2 launch, which may take ``"wgmma"`` when the batch
+    has more than ``WGMMA_QT // 2`` queries."""
+    wgmma = flat and b > WGMMA_QT // 2
+    body = scan_body(key, qtype, d, db_ptr, q_ptr, k if wgmma else None)
     if body == "mma_pipe" and pipe_qt(
             b, k, d, smem_of(BODY_CODES[body]), qtype) is None:
         return "mma"
@@ -292,16 +335,22 @@ def fused_topk_partial(
 
     if body is None:
         body = pick_body(key, "float32" if key == "float32" else "bfloat16",
-                         b, k, d, db.data_ptr(), queries.data_ptr(), smem_of)
+                         b, k, d, db.data_ptr(), queries.data_ptr(), smem_of,
+                         flat=True)
     elif body not in BODY_CODES:
         raise ValueError(f"no scan body {body!r}")
     code = BODY_CODES[body]
-    smem = smem_of(code)
-    sm = torch.cuda.get_device_properties(db.device).multi_processor_count
-    qt, chunks, rows = plan(n, b, k, sm, smem, body, d)
-    tiled = body in ("fma_tiled", "mma_pipe")
-    cap = tiled_cap(qt, k, smem) if tiled else _cap(k)
-    parts = chunks * (128 // qt if body == "mma_pipe" else 1)
+    if body == "wgmma":
+        qt, cap = WGMMA_QT, _cap(k)
+        chunks, rows = plan_wgmma(n, b, _clusters(lib, db, d))
+        parts = WGMMA_PARTS * chunks
+    else:
+        smem = smem_of(code)
+        sm = torch.cuda.get_device_properties(db.device).multi_processor_count
+        qt, chunks, rows = plan(n, b, k, sm, smem, body, d)
+        tiled = body in ("fma_tiled", "mma_pipe")
+        cap = tiled_cap(qt, k, smem) if tiled else _cap(k)
+        parts = chunks * (128 // qt if body == "mma_pipe" else 1)
     part_v = torch.empty((b, parts, k), dtype=torch.float32, device=db.device)
     part_i = torch.empty((b, parts, k), dtype=torch.int32, device=db.device)
     with span("kernel.k1", slab=key, body=body, n=n, b=b, d=d, k=k,
@@ -318,6 +367,22 @@ def fused_topk_partial(
     fused_topk_partial.launches[key] += 1
     fused_topk_partial.bodies[body] += 1
     return part_v, part_i
+
+
+_CLUSTERS: dict[tuple, int] = {}
+
+
+def _clusters(lib, db: torch.Tensor, d: int) -> int:
+    """CTA pairs of the wgmma body ``db``'s card runs at once at width d
+    (the card's answer, once a card and width)."""
+    key = (db.device.index, d)
+    if key not in _CLUSTERS:
+        with _on(db):
+            got = lib.wdbx_fused_topk_wgmma_clusters(d)
+        if got < 1:
+            raise RuntimeError(f"the wgmma body cannot run at d={d}")
+        _CLUSTERS[key] = got
+    return _CLUSTERS[key]
 
 
 fused_topk_partial.launches = {key: 0 for key in SLAB_CODES}
