@@ -1697,7 +1697,7 @@ def check_pipelined(name, index, qstack, k, out) -> tuple[float, int]:
     result (positions) against the plain version on the same block
     list. Returns the largest score difference and the most live
     blocks of a batch."""
-    scores, pos = out
+    scores, pos = out.scores, out.ids
     nb, b = qstack.shape[0], qstack.shape[1]
     if scores.shape != (nb, b, k) or pos.shape != (nb, b, k):
         fail(f"{name}: result shape {tuple(scores.shape)}")

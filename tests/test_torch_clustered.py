@@ -150,7 +150,7 @@ def test_search_pipelined_matches(rng, kernel):
     assert_topk_match(sj, ij, st, it, TOL["int8"])
     # the unresolved device tensors resolve to the same hits
     handle = t.search_pipelined(torch.from_numpy(qs), 10, materialize=False)
-    assert isinstance(handle[0], torch.Tensor)
+    assert isinstance(handle.scores, torch.Tensor)
     s2, i2 = t.resolve_pipelined(handle)
     np.testing.assert_array_equal(i2, it)
 

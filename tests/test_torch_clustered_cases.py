@@ -76,7 +76,12 @@ passes CPU tensors (int32, as the reference's) to the port's
 ``TestReviewRound3Regressions::test_v2_kernel_pads_small_batches``
 passes CPU tensors to
 ``clustered_block_topk_v2``, which runs K3's plain version there and
-ignores ``interpret`` as the port does. Left out: nothing.
+ignores ``interpret`` as the port does. One case spies on the port's
+exact route by another name:
+``TestReviewRound3Regressions::test_filter_selectivity_counts_live_rows_only``
+wraps ``FlatIndex._enqueue`` (the flat route every engine's plan
+reaches) where the reference wraps ``FlatIndex.search``. Left out:
+nothing.
 
 The reference file's description:
 
@@ -1592,13 +1597,13 @@ class TestReviewRound3Regressions:
         mask[slots[20:2000]] = True  # covers 20 live + 1960 dead
         assert idx._mask_selectivity(mask) < 0.6  # 20/40 live
         called = []
-        orig = FlatIndex.search
+        orig = FlatIndex._enqueue
 
-        def spy(self_, q, k, m=None):
+        def spy(self_, q, k, plan):
             called.append(1)
-            return orig(self_, q, k, m)
+            return orig(self_, q, k, plan)
 
-        monkeypatch.setattr(FlatIndex, "search", spy)
+        monkeypatch.setattr(FlatIndex, "_enqueue", spy)
         sparse = np.zeros(idx.capacity, bool)
         sparse[slots[2:3]] = True
         sparse[slots[100:1500]] = True  # dead bits only inflate popcount

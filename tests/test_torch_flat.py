@@ -96,7 +96,8 @@ def test_pipelined_unmaterialized_handle(rng):
     t.add_batch(_rows(rng, 20))
     handle = t.search_pipelined(_rows(rng, 4).reshape(1, 4, DIM), 3,
                                 materialize=False)
-    assert all(isinstance(h, torch.Tensor) for h in handle)
+    assert all(isinstance(h, torch.Tensor)
+               for h in (handle.scores, handle.ids))
     scores, slots = t.resolve_pipelined(handle)
     assert scores.shape == (1, 4, 3) and slots.dtype == np.int64
 

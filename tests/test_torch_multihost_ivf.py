@@ -200,15 +200,15 @@ facts["owners"] = sorted({int(s) % idx.n_devices for s in got.ravel()
 idx, vecs, slots = built(n=4096, nlist=16, nprobe=4)
 idx.batch_flat_fallback = False
 called = []
-orig = ShardedFlatIndex.search
+orig = ShardedFlatIndex._enqueue
 
 
-def spy(self_, q, k, m=None):
+def spy(self_, q, k, plan):
     called.append(1)
-    return orig(self_, q, k, m)
+    return orig(self_, q, k, plan)
 
 
-ShardedFlatIndex.search = spy
+ShardedFlatIndex._enqueue = spy
 mask = np.zeros(idx.capacity, bool)
 allowed = slots[:len(slots) // 2]
 mask[allowed] = True
@@ -222,7 +222,7 @@ recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
 sparse = np.zeros(idx.capacity, bool)
 sparse[slots[:40]] = True
 idx.search(q, k=5, slot_mask=sparse)
-ShardedFlatIndex.search = orig
+ShardedFlatIndex._enqueue = orig
 facts["pushdown"] = [pushed, bool(live) and set(live) <= set(
     allowed.tolist()), recall, bool(called)]
 from wdbx_tpu_torch.core.config import WDBXConfig

@@ -420,13 +420,13 @@ def _spy_exact(monkeypatch):
     from wdbx_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
 
     called = []
-    orig = ShardedFlatIndex.search
+    orig = ShardedFlatIndex._enqueue
 
-    def spy(self_, q, k, m=None):
+    def spy(self_, q, k, plan):
         called.append(1)
-        return orig(self_, q, k, m)
+        return orig(self_, q, k, plan)
 
-    monkeypatch.setattr(ShardedFlatIndex, "search", spy)
+    monkeypatch.setattr(ShardedFlatIndex, "_enqueue", spy)
     return called
 
 

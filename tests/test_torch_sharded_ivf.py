@@ -111,13 +111,13 @@ class TestShardedIVF:
         idx, vecs, slots = self._mk(rng, n=4096, nlist=16, nprobe=4)
         idx.batch_flat_fallback = False
         called = []
-        orig = ShardedFlatIndex.search
+        orig = ShardedFlatIndex._enqueue
 
-        def spy(self_, q, k, m=None):
+        def spy(self_, q, k, plan):
             called.append(1)
-            return orig(self_, q, k, m)
+            return orig(self_, q, k, plan)
 
-        monkeypatch.setattr(ShardedFlatIndex, "search", spy)
+        monkeypatch.setattr(ShardedFlatIndex, "_enqueue", spy)
         mask = np.zeros(idx.capacity, bool)
         allowed = slots[: len(slots) // 2]  # 50%
         mask[allowed] = True

@@ -14,6 +14,8 @@ test_mutation_between_submit_and_resolve_is_safe;
 test_batcher_uses_pipelined_path; test_get_many_matches_get.
 
 Changed beyond the imports and the fixture: nothing. Left out: nothing.
+Added: test_wrong_dimension_raises_alike (the store's one query check
+behind both entry points).
 
 The reference file's description:
 
@@ -164,3 +166,15 @@ def test_get_many_matches_get(tmp_path):
     got = store.meta.get_many(0, slots)
     for slot, m in zip(slots, got):
         assert m == store.meta.get(0, int(slot))
+
+
+def test_wrong_dimension_raises_alike(tmp_path):
+    store = _store(tmp_path)
+    _fill(store, 64)
+    bad = _q(3, dim=12)
+    with pytest.raises(ValueError) as sync:
+        store.search_batch(bad, limit=5)
+    with pytest.raises(ValueError) as submit:
+        store.search_batch_submit(bad, limit=5)
+    assert str(sync.value) == str(submit.value) == (
+        "query dimension 12 does not match store dimension 16")

@@ -16,12 +16,14 @@ off the device path.
 from __future__ import annotations
 
 import abc
+import dataclasses
 import logging
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from wdbx_tpu_torch.utils.metrics import TRACER, span
 from wdbx_tpu_torch.utils.rwlock import RWLock
 
 logger = logging.getLogger("wdbx_tpu_torch.index")
@@ -44,8 +46,65 @@ def resolve_device(device: Any = None) -> torch.device:
     return dev
 
 
+def to_tensor(a: Any, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host array (numpy, incl. ml_dtypes bfloat16) or tensor -> tensor
+    on ``device``. Half-precision host stacks stay half precision (half
+    the host-to-device bytes)."""
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        arr = np.asarray(a)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(
+                np.ascontiguousarray(arr).view(np.int16)
+            ).view(torch.bfloat16)
+        elif arr.dtype == np.float16:
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+@dataclasses.dataclass
+class Plan:
+    """The route ``VectorIndex._plan`` picks for one batch width."""
+
+    #: the flat scan over every row: untrained, a filter under its exact
+    #: threshold, or the batch flat fallback
+    exact: bool
+    #: the filter in the slab's row space (slots; positions on the
+    #: clustered layout), or None
+    mask: Any = None
+    #: planned for a pipelined stack: no filter, no batch flat fallback
+    stack: bool = False
+    #: the scan's probes a query and the (JAX) batch width that routes it
+    nprobe: int = 0
+    pad_b: int = 0
+
+
+@dataclasses.dataclass
+class Pending:
+    """An enqueued batch (or stack) not yet synchronised: device
+    ``scores`` and ``ids`` (rows, slots or positions, as the route leaves
+    them), the ``k`` columns the caller gets, and ``finish``, the
+    engine's host step (``_finish``) over the transferred arrays."""
+
+    scores: torch.Tensor
+    ids: torch.Tensor
+    k: int
+    finish: Callable[[np.ndarray, np.ndarray, int], tuple]
+
+
 class VectorIndex(abc.ABC):
-    """Batched, slot-addressed similarity index."""
+    """Batched, slot-addressed similarity index.
+
+    The query path is written once, here: ``search`` and
+    ``search_pipelined`` build if stale, take the read lock, plan the
+    route of the batch width (``_plan``), enqueue it on the device
+    (``_enqueue``, ``_enqueue_stack``) and collect it
+    (``resolve_pipelined``: one transfer, then the engine's ``_finish``).
+    Engines supply those hooks and never override the three entry
+    points."""
 
     #: subclass tag used by config / factory ("flat", "ivf")
     kind: str = "base"
@@ -78,7 +137,6 @@ class VectorIndex(abc.ABC):
         surfacing in results, reference wdbx/core/indexing.py:525-560)."""
 
     # -- query ------------------------------------------------------------
-    @abc.abstractmethod
     def search(
         self,
         queries: np.ndarray,
@@ -90,6 +148,92 @@ class VectorIndex(abc.ABC):
         ``slot_mask`` (bool, per slot) pre-filters on device — the
         high-selectivity alternative to the reference's host post-filter
         (reference wdbx/core/vector_store.py:414-463)."""
+        with span("index.search", engine=type(self).__name__) as sp:
+            self._build_if_stale()
+            queries = self._prep(queries)
+            # Read lock held through materialization: mutators write the
+            # slab in place. Concurrent searches share the read side.
+            waited = TRACER.clock()
+            with self._mu.read():
+                sp.set(lock_wait_ns=TRACER.clock() - waited)
+                plan = self._plan(len(queries), slot_mask)
+                return self.resolve_pipelined(
+                    self._enqueue(queries, k, plan))
+
+    def search_pipelined(self, qstack, k: int, materialize: bool = True):
+        """Serve a (NB, B, d) stack of query batches in one call: each
+        batch through the route ``search`` plans for width B, with no
+        filter and no batch flat fallback; the flat engines run the whole
+        stack as one launch pair. Returns (NB, B, k) scores / slots with
+        absent ranks -inf / -1 (the single-device flat route returns
+        ``min(k, capacity)`` columns).
+
+        ``materialize=False`` returns the ``Pending`` device result
+        without a synchronisation, for callers that keep several calls in
+        flight; ``resolve_pipelined`` collects it. Resolve it before
+        mutating the index: later writes are ordered after the search on
+        the device's stream, but positions map to slots at resolve
+        time."""
+        q = to_tensor(qstack, self.device)
+        if q.ndim != 3 or q.shape[-1] != self.dim:
+            raise ValueError(
+                f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
+            )
+        self._build_if_stale()
+        with self._mu.read():
+            pending = self._enqueue_stack(
+                q, k, self._plan(q.shape[1], None, stack=True))
+            return self.resolve_pipelined(pending) if materialize else pending
+
+    @staticmethod
+    def resolve_pipelined(pending: Pending) -> tuple[np.ndarray, np.ndarray]:
+        """Collect a ``Pending`` result: one transfer to the host, then
+        the engine's host step."""
+        with span("index.d2h"):
+            scores = pending.scores.cpu().numpy()
+            ids = pending.ids.cpu().numpy()
+        return pending.finish(scores, ids, pending.k)
+
+    def _build_if_stale(self) -> None:
+        # build-if-stale needs the write lock (it swaps the overlay); the
+        # search itself runs under read so concurrent queries overlap
+        if self._needs_build():
+            with self._mu.write():
+                self._maybe_build()
+
+    def _needs_build(self) -> bool:
+        """Whether the next search must (re)build first; exact engines
+        never do."""
+        return False
+
+    def _maybe_build(self) -> None:
+        """(Re)build when ``_needs_build``, under the write lock."""
+
+    def _enqueue_stack(self, q: torch.Tensor, k: int, plan: Plan) -> Pending:
+        """A (NB, B, d) stack through ``_enqueue`` batch by batch, the
+        results stacked to (NB, B, K)."""
+        outs = [self._enqueue(qb, k, plan) for qb in q]
+        return Pending(torch.stack([o.scores for o in outs]),
+                       torch.stack([o.ids for o in outs]), k, self._finish)
+
+    @abc.abstractmethod
+    def _prep(self, queries):
+        """Queries as a (B, d) batch; raises on a dimension mismatch."""
+
+    @abc.abstractmethod
+    def _plan(self, b: int, slot_mask, stack: bool = False) -> Plan:
+        """The route of a batch of width ``b`` (``stack``: one batch of
+        a pipelined stack)."""
+
+    @abc.abstractmethod
+    def _enqueue(self, queries, k: int, plan: Plan) -> Pending:
+        """Run ``plan``'s route on one (B, d) batch without
+        synchronising."""
+
+    @abc.abstractmethod
+    def _finish(self, scores: np.ndarray, ids: np.ndarray, k: int):
+        """The host step of a transferred ``(..., K)`` result: ``(scores,
+        slots)`` with k columns, slot -1 wherever the score is -inf."""
 
     @abc.abstractmethod
     def get_vectors(self, slots: np.ndarray) -> np.ndarray:

@@ -50,14 +50,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from wdbx_tpu_torch.index.base import Pending, Plan
 from wdbx_tpu_torch.index.flat import FlatIndex, _next_pow2, to_tensor
-from wdbx_tpu_torch.index.ivf import (
-    FILTER_EXACT_THRESHOLD,
-    IVFIndex,
-    _filter_boost,
-    _probes,
-    _residual_merge,
-)
+from wdbx_tpu_torch.index.ivf import IVFIndex, _probes, _residual_merge
 from wdbx_tpu_torch.kernels.quant import unpack_int4
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
@@ -645,27 +640,12 @@ class ClusteredSlotMixin:
         pm = self._pos_mask(slot_mask)
         return float(pm.sum()) / max(1, self._size)
 
-    def _oracle_search_masked(self, queries, k, slot_mask):
-        pm = self._pos_mask(slot_mask)
-        scores, pos = self._exact_masked_base(queries, k, pm)
-        return self._map_pos_to_slots(scores, pos)
+    #: filters route in position space
+    _row_mask = _pos_mask
 
-    def _exact_masked_base(self, queries, k, pos_mask):
-        return FlatIndex.search(self, queries, k, pos_mask)
-
-    def _filter_plan(self, slot_mask, nprobe: int, nlist: int):
-        """Plan a filtered search: ``(pos_mask, nprobe_eff, exact)``.
-        Pushdown ANDs the position mask into row validity and boosts
-        nprobe by the selectivity bin's factor; filters under
-        ``FILTER_EXACT_THRESHOLD`` take the exact masked scan."""
-        pm = self._pos_mask(slot_mask)
-        if pm is None:
-            return None, nprobe, False
-        sel = float(pm.sum()) / max(1, self._size)
-        if sel < FILTER_EXACT_THRESHOLD:
-            return pm, nprobe, True
-        boost = _filter_boost(sel, getattr(self, "_filter_boosts", None))
-        return pm, min(nlist, nprobe * boost), False
+    def _finish(self, scores: np.ndarray, ids: np.ndarray, k: int):
+        """The engine's host step, then positions -> slots."""
+        return self._map_pos_to_slots(*super()._finish(scores, ids, k))
 
     # -- background-rebuild journal: off-lock drain + swap-time replay -------
     # Every slot journaled during the copy-on-write window has a stale
@@ -1322,15 +1302,27 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
             return geom, geom["c"], geom["m"], geom["lo"], geom["hi"]
         return None, self._c, self._m, self._blk_lo, self._blk_hi
 
+    def _scan_reads(self, plan: Plan) -> int:
+        geom, c_eff, _, _, _ = self._geom(plan.pad_b)
+        return self._scan_u(plan.pad_b, plan.nprobe, geom) * c_eff
+
+    def _enqueue(self, queries, k: int, plan: Plan) -> Pending:
+        if plan.exact:
+            return super()._enqueue(queries, k, plan)
+        valid = self._valid
+        if plan.mask is not None:
+            valid = self._masked_valid_dev(valid, plan.mask, self._cap)
+        q = to_tensor(queries, self.device, torch.float32)
+        residual = self._residual_tensor()
+        with self._enqueue_gate:
+            scores, pos = self._scan(q, k, plan.nprobe, plan.pad_b, valid,
+                                     residual)
+        return Pending(scores, pos, k, self._finish)
+
     def _scan(self, q, k, nprobe, pad_b, valid, residual):
         """One batch through the path JAX would take for a batch of width
         ``pad_b``: ranges, kernel path or portable scan. Returns device
-        ``(scores, positions)``."""
-        with self._enqueue_gate:
-            return self._scan_route(q, k, nprobe, pad_b, valid, residual)
-
-    def _scan_route(self, q, k, nprobe, pad_b, valid, residual):
-        """``_scan``'s work, inside its gate."""
+        ``(scores, positions)``. Runs inside ``_enqueue_gate``."""
         geom, c_eff, m_eff, blk_lo, blk_hi = self._geom(pad_b)
         common = dict(
             precision=self._precision, int8=self._is_int8,
@@ -1357,91 +1349,6 @@ class ClusteredIVFIndex(ClusteredSlotMixin, IVFIndex):
             residual, q, k=k, nprobe=nprobe, u=u, m=m_eff, c=c_eff,
             pad_b=pad_b, **common,
         )
-
-    def _search_read_locked(self, queries, k, slot_mask):
-        if not self.is_trained:
-            scores, pos = FlatIndex.search(
-                self, queries, k, self._pos_mask(slot_mask)
-            )
-            return self._map_pos_to_slots(scores, pos)
-        queries = self._prep(queries)
-        b = len(queries)
-        pad_b = _next_pow2(max(b, 1))  # JAX's batch width: routing only
-        nlist = int(self._centroids.shape[0])
-        nprobe = min(self.nprobe, nlist)
-        pm, nprobe, use_exact = self._filter_plan(slot_mask, nprobe, nlist)
-        geom, c_eff, _, _, _ = self._geom(pad_b)
-        u = self._scan_u(pad_b, nprobe, geom)
-        if use_exact or (
-            self.batch_flat_fallback and (u * c_eff >= max(1, self._size))
-        ):
-            scores, pos = FlatIndex.search(self, queries, k, pm)
-            return self._map_pos_to_slots(scores, pos)
-        valid = self._valid
-        if pm is not None:
-            valid = self._masked_valid_dev(valid, pm, self._cap)
-        q = to_tensor(queries, self.device, torch.float32)
-        scores, pos = self._scan(q, k, nprobe, pad_b, valid,
-                                 self._residual_tensor())
-        return self.resolve_pipelined((scores, pos))
-
-    # search() is inherited from IVFIndex (build-if-stale under the write
-    # lock, then _search_read_locked under read).
-
-    def search_pipelined(self, qstack, k, materialize: bool = True):
-        """Serve a (NB, B, d) stack: each batch through the path of
-        ``search`` (the kernel path on the card), results stacked to
-        ``(NB, B, k)``. ``materialize=False`` returns the device tensors
-        (scores, positions) without a synchronisation; resolve them with
-        ``resolve_pipelined`` before mutating the index (positions map
-        to slots at resolve time).
-
-        The route and the dedup length are those of a batch of width
-        ``_next_pow2(B)``, as in ``search``: the JAX store pads a
-        pipelined batch to that width, so a batch gets the blocks it
-        gets from ``search_batch`` whether it comes through the store's
-        submit (the QueryBatcher) or not."""
-        if self._needs_build():
-            with self._mu.write():
-                self._maybe_build()
-        with self._mu.read():
-            if not self.is_trained:
-                out = FlatIndex.search_pipelined(self, qstack, k,
-                                                 materialize=False)
-                return out if not materialize else \
-                    self.resolve_pipelined(out)
-            q = to_tensor(qstack, self.device, torch.float32)
-            if q.ndim != 3 or q.shape[-1] != self.dim:
-                raise ValueError(
-                    f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
-                )
-            nb, b, _ = q.shape
-            nlist = int(self._centroids.shape[0])
-            nprobe = min(self.nprobe, nlist)
-            residual = self._residual_tensor()
-            pad_b = _next_pow2(max(b, 1))  # JAX's batch width: routing only
-            outs = [self._scan(q[i], k, nprobe, pad_b, self._valid,
-                               residual)
-                    for i in range(nb)]
-            scores = torch.stack([o[0] for o in outs])
-            pos = torch.stack([o[1] for o in outs])
-            if not materialize:
-                return scores, pos  # in-flight device tensors
-        return self.resolve_pipelined((scores, pos))
-
-    def resolve_pipelined(self, handle):
-        """Materialize a ``search_pipelined(..., materialize=False)``
-        result (or a batch of ``search``): one transfer, then the
-        position -> slot mapping."""
-        scores, pos = handle
-        with span("index.d2h"):
-            scores = scores.cpu().numpy()
-            pos = pos.cpu().numpy().astype(np.int64)
-        return self._map_pos_to_slots(scores, pos)
-
-    def _oracle_search(self, queries, k):
-        scores, pos = FlatIndex.search(self, queries, k)
-        return self._map_pos_to_slots(scores, pos)
 
     def get_vectors(self, slots: np.ndarray) -> np.ndarray:
         return FlatIndex.get_vectors(self, self._positions_of(slots))

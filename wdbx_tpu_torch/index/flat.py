@@ -29,7 +29,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from wdbx_tpu_torch.index.base import VectorIndex, resolve_device
+from wdbx_tpu_torch.index.base import (
+    Pending,
+    Plan,
+    VectorIndex,
+    resolve_device,
+    to_tensor,
+)
 from wdbx_tpu_torch.kernels.quant import (
     quantize_rows,
     quantize_rows_int4,
@@ -37,7 +43,6 @@ from wdbx_tpu_torch.kernels.quant import (
 )
 from wdbx_tpu_torch.ops.exact_search import exact_search
 from wdbx_tpu_torch.ops.normalize import l2_normalize
-from wdbx_tpu_torch.utils.metrics import TRACER, span
 
 #: name -> STORAGE dtype. "int4" stores two signed nibbles per uint8
 #: byte (kernels/quant.py packing) with a per-row f32 scale.
@@ -51,25 +56,6 @@ _DTYPES = {
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
-
-
-def to_tensor(a: Any, device: torch.device, dtype=None) -> torch.Tensor:
-    """Host array (numpy, incl. ml_dtypes bfloat16) or tensor -> tensor
-    on ``device``. Half-precision host stacks stay half precision (half
-    the host-to-device bytes)."""
-    if isinstance(a, torch.Tensor):
-        t = a
-    else:
-        arr = np.asarray(a)
-        if arr.dtype.name == "bfloat16":
-            t = torch.from_numpy(
-                np.ascontiguousarray(arr).view(np.int16)
-            ).view(torch.bfloat16)
-        elif arr.dtype == np.float16:
-            t = torch.from_numpy(np.ascontiguousarray(arr))
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def slab_to_numpy(slab: torch.Tensor) -> np.ndarray:
@@ -306,122 +292,70 @@ class FlatIndex(VectorIndex):
             self._size -= len(slots)
             self._free.extend(int(s) for s in slots)
 
-    def search(
-        self,
-        queries,
-        k: int,
-        slot_mask: np.ndarray | None = None,
-    ) -> tuple[np.ndarray, np.ndarray]:
-        with span("index.search", engine="FlatIndex") as sp:
-            queries = self._prep(queries)
-            normalize = self.metric == "cosine"
-            # Read lock held through materialization: mutators write the
-            # slab in place. Concurrent searches share the read side.
-            waited = TRACER.clock()
-            with self._mu.read():
-                sp.set(lock_wait_ns=TRACER.clock() - waited)
-                slab, valid, scales, cap = (
-                    self._slab, self._valid, self._scales, self._cap,
-                )
-                if slot_mask is not None:
-                    valid = self._masked_valid_dev(valid, slot_mask, cap)
-                q = to_tensor(queries, self.device)
-                method = self._resolve_topk()
-                if method == "fused":
-                    from wdbx_tpu_torch.kernels.fused_topk import (
-                        fused_topk_search,
-                    )
+    def _plan(self, b: int, slot_mask, stack: bool = False) -> Plan:
+        return Plan(exact=True, mask=slot_mask, stack=stack)
 
-                    # the kernels unpack int4 per tile: no unpacked slab
-                    # exists
-                    scores, idx = fused_topk_search(
-                        slab, q, valid, k=min(k, cap),
-                        scales=scales if self._is_quantized else None,
-                        normalize=normalize, int4=self._is_int4,
-                    )
-                    if scores.shape[1] < k:
-                        pad = k - scores.shape[1]
-                        scores = torch.nn.functional.pad(
-                            scores, (0, pad), value=float("-inf")
-                        )
-                        idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
-                else:
-                    if self._is_int4:
-                        slab = unpack_int4(slab)  # exact path only
-                    scores, idx = exact_search(
-                        slab, q, k=k, valid=valid, precision=self._precision,
-                        scales=scales, method=method, normalize=normalize,
-                    )
-                with span("index.d2h"):
-                    scores = scores.cpu().numpy()
-                    slots = idx.cpu().numpy().astype(np.int64)
-            slots[scores == -np.inf] = -1
-            return scores, slots
+    def _enqueue(self, queries, k: int, plan: Plan) -> Pending:
+        """The flat route: the fused kernels on the card, ``exact_search``
+        elsewhere, over every valid row (under ``plan.mask``)."""
+        valid, cap = self._valid, self._cap
+        if plan.mask is not None:
+            valid = self._masked_valid_dev(valid, plan.mask, cap)
+        q = to_tensor(queries, self.device)
+        normalize = self.metric == "cosine"
+        if self._resolve_topk() == "fused":
+            from wdbx_tpu_torch.kernels.fused_topk import fused_topk_search
+
+            # the kernels unpack int4 per tile: no unpacked slab exists
+            scores, idx = fused_topk_search(
+                self._slab, q, valid, k=min(k, cap),
+                scales=self._scales if self._is_quantized else None,
+                normalize=normalize, int4=self._is_int4,
+            )
+        else:
+            slab = unpack_int4(self._slab) if self._is_int4 else self._slab
+            scores, idx = exact_search(
+                slab, q, k=min(k, cap), valid=valid,
+                precision=self._precision, scales=self._scales,
+                normalize=normalize,
+            )
+        return Pending(scores, idx, k, self._finish)
+
+    def _enqueue_stack(self, q: torch.Tensor, k: int, plan: Plan) -> Pending:
+        """The flat route's stack, ``min(k, capacity)`` columns: one
+        launch pair of the fused kernels over all NB*B queries on the
+        card, batch by batch elsewhere (as a subclass's scan route
+        always goes)."""
+        if not plan.exact:
+            return super()._enqueue_stack(q, k, plan)
+        kk = min(k, self._cap)
+        if self._resolve_topk() != "fused":
+            return super()._enqueue_stack(q, kk, plan)
+        from wdbx_tpu_torch.kernels.fused_topk import fused_topk_search_batched
+
+        scores, idx = fused_topk_search_batched(
+            self._slab, q, self._valid, k=kk,
+            scales=self._scales if self._is_quantized else None,
+            normalize=self.metric == "cosine", int4=self._is_int4,
+        )
+        return Pending(scores, idx, kk, self._finish)
+
+    def _finish(self, scores: np.ndarray, ids: np.ndarray, k: int):
+        """Pad to k columns (k can exceed the capacity) and -1 wherever
+        the score is -inf."""
+        scores = np.asarray(scores, np.float32)
+        out = np.array(ids, np.int64)
+        if scores.shape[-1] < k:
+            pad = [(0, 0)] * (scores.ndim - 1) + [(0, k - scores.shape[-1])]
+            scores = np.pad(scores, pad, constant_values=-np.inf)
+            out = np.pad(out, pad, constant_values=-1)
+        out[scores == -np.inf] = -1
+        return scores, out
 
     def _resolve_topk(self) -> str:
         if self.topk_method != "auto":
             return self.topk_method
         return "fused" if self.device.type == "cuda" else "exact"
-
-    def search_pipelined(self, qstack, k: int, materialize: bool = True):
-        """Serve a (NB, B, d) stack of query batches in one call: one
-        launch pair of the fused kernels over all NB*B queries on the
-        card, batch by batch through ``exact_search`` elsewhere. Returns
-        (NB, B, k) scores / slots with absent ranks -inf / -1.
-
-        ``materialize=False`` returns the device tensors without a
-        synchronisation, for callers that keep several calls in flight
-        and resolve them later with ``resolve_pipelined``. The read lock
-        is released at return; later writes are ordered after the
-        search on the device's stream."""
-        q = to_tensor(qstack, self.device)
-        if q.ndim != 3 or q.shape[-1] != self.dim:
-            raise ValueError(
-                f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
-            )
-        normalize = self.metric == "cosine"
-        with self._mu.read():
-            slab, valid, scales, cap = (
-                self._slab, self._valid, self._scales, self._cap,
-            )
-            kk = min(k, cap)
-            if self._resolve_topk() == "fused":
-                from wdbx_tpu_torch.kernels.fused_topk import (
-                    fused_topk_search_batched,
-                )
-
-                scores, idx = fused_topk_search_batched(
-                    slab, q, valid, k=kk,
-                    scales=scales if self._is_quantized else None,
-                    normalize=normalize, int4=self._is_int4,
-                )
-            else:
-                if self._is_int4:
-                    slab = unpack_int4(slab)
-                outs = [
-                    exact_search(
-                        slab, qb, k=kk, valid=valid,
-                        precision=self._precision, scales=scales,
-                        normalize=normalize,
-                    )
-                    for qb in q
-                ]
-                scores = torch.stack([o[0] for o in outs])
-                idx = torch.stack([o[1] for o in outs])
-            if not materialize:
-                return scores, idx  # in-flight device tensors
-            return self.resolve_pipelined((scores, idx))
-
-    @staticmethod
-    def resolve_pipelined(handle) -> tuple[np.ndarray, np.ndarray]:
-        """Materialize a ``search_pipelined(..., materialize=False)``
-        result."""
-        scores, idx = handle
-        with span("index.d2h"):
-            scores = scores.cpu().numpy()
-            slots = idx.cpu().numpy().astype(np.int64)
-        slots[scores == -np.inf] = -1
-        return scores, slots
 
     def _masked_valid_dev(self, valid, mask_np, cap):
         """Cached device AND of ``valid`` with a host filter mask, keyed

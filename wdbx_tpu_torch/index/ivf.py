@@ -48,6 +48,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from wdbx_tpu_torch.index.base import Pending, Plan
 from wdbx_tpu_torch.index.flat import (
     FlatIndex,
     _next_pow2,
@@ -59,7 +60,6 @@ from wdbx_tpu_torch.kernels.quant import unpack_int4
 from wdbx_tpu_torch.ops.exact_search import f32_scores
 from wdbx_tpu_torch.ops.kmeans import kmeans
 from wdbx_tpu_torch.ops.normalize import l2_normalize
-from wdbx_tpu_torch.utils.metrics import TRACER, span
 
 logger = logging.getLogger("wdbx_tpu_torch.index")
 
@@ -614,23 +614,55 @@ class IVFIndex(FlatIndex):
             self.build()
 
     # -- query ---------------------------------------------------------------
-    def search(
-        self,
-        queries,
-        k: int,
-        slot_mask: np.ndarray | None = None,
-    ) -> tuple[np.ndarray, np.ndarray]:
-        with span("index.search", engine=type(self).__name__) as sp:
-            # build-if-stale needs the write lock (it swaps the overlay);
-            # the search itself runs under read so concurrent queries
-            # overlap
-            if self._needs_build():
-                with self._mu.write():
-                    self._maybe_build()
-            waited = TRACER.clock()
-            with self._mu.read():
-                sp.set(lock_wait_ns=TRACER.clock() - waited)
-                return self._search_read_locked(queries, k, slot_mask)
+    def _plan(self, b: int, slot_mask, stack: bool = False) -> Plan:
+        if not self.is_trained:
+            # below the training threshold a flat scan is exact and cheap
+            return Plan(exact=True, mask=self._row_mask(slot_mask),
+                        stack=stack)
+        nlist = int(self._centroids.shape[0])
+        mask, nprobe, exact = self._filter_plan(
+            slot_mask, min(self.nprobe, nlist), nlist)
+        plan = Plan(exact, mask, stack, nprobe=nprobe,
+                    pad_b=self._pad_b(b, stack))
+        if not (exact or stack) and self.batch_flat_fallback and (
+            self._scan_reads(plan) >= max(1, self._size)
+        ):
+            plan.exact = True
+        return plan
+
+    def _row_mask(self, slot_mask):
+        """A slot filter in the slab's row space (slots here)."""
+        return slot_mask
+
+    def _pad_b(self, b: int, stack: bool = False) -> int:
+        """JAX's batch width: routing and the dedup length only (the
+        queries are not padded). A batch of a pipelined stack gets it
+        too: the JAX store pads a pipelined batch to that width, so a
+        batch gets the blocks it gets from ``search_batch`` whether it
+        comes through the store's submit (the QueryBatcher) or not."""
+        return _next_pow2(max(b, 1))
+
+    def _scan_reads(self, plan: Plan) -> int:
+        """Rows the scan reads for ``plan``: the dedup-aware cost guard
+        reads at most u unique buckets once each; a flat scan reads N
+        rows once."""
+        nlist, cap_b = (int(n) for n in self._bucket_slot.shape)
+        return min(plan.pad_b * plan.nprobe, nlist) * cap_b
+
+    def _filter_plan(self, slot_mask, nprobe: int, nlist: int):
+        """Plan a filtered search: ``(mask, nprobe_eff, exact)``, the
+        mask in row space (``_row_mask``). Pushdown ANDs it into row
+        validity and boosts nprobe by the selectivity bin's factor;
+        filters under ``FILTER_EXACT_THRESHOLD`` take the exact masked
+        scan."""
+        mask = self._row_mask(slot_mask)
+        if mask is None:
+            return None, nprobe, False
+        sel = self._mask_selectivity(slot_mask)
+        if sel < FILTER_EXACT_THRESHOLD:
+            return mask, nprobe, True
+        boost = _filter_boost(sel, getattr(self, "_filter_boosts", None))
+        return mask, min(nlist, nprobe * boost), False
 
     def _use_pallas(self, k: int) -> bool:
         """K5 speaks float tables and k <= 128 result lanes; int8 code
@@ -642,33 +674,17 @@ class IVFIndex(FlatIndex):
         return torch.as_tensor(np.asarray(self._residual, np.int64),
                                device=self.device)
 
-    def _search_read_locked(self, queries, k, slot_mask):
-        if not self.is_trained:
-            # below the training threshold a flat scan is exact and cheap
-            return super().search(queries, k, slot_mask)
-        queries = self._prep(queries)
-        b = len(queries)
-        pad_b = _next_pow2(max(b, 1))  # JAX's batch width: routing only
-        nlist, cap_b = (int(n) for n in self._bucket_slot.shape)
-        nprobe = min(self.nprobe, nlist)
-        if slot_mask is not None:
-            sel = self._mask_selectivity(slot_mask)
-            if sel < FILTER_EXACT_THRESHOLD:
-                return super().search(queries, k, slot_mask)
-            nprobe = min(
-                nlist, nprobe * _filter_boost(sel, self._filter_boosts)
-            )
-        # dedup-aware cost guard: the scan reads at most u unique buckets
-        # once each; a flat scan reads N rows once
-        u = min(pad_b * nprobe, nlist)
-        if self.batch_flat_fallback and (u * cap_b >= max(1, self._size)):
-            return super().search(queries, k, slot_mask)
+    def _enqueue(self, queries, k: int, plan: Plan) -> Pending:
+        """The dense scan (K5 or the portable scan; a pipelined stack
+        takes the portable scan, as JAX's does)."""
+        if plan.exact:
+            return super()._enqueue(queries, k, plan)
         valid, bucket_valid = self._valid, self._bucket_valid
-        if slot_mask is not None:
-            valid = self._masked_valid_dev(valid, slot_mask, self._cap)
+        if plan.mask is not None:
+            valid = self._masked_valid_dev(valid, plan.mask, self._cap)
             mask = np.zeros(self._cap, bool)
-            n = min(len(slot_mask), self._cap)
-            mask[:n] = slot_mask[:n]
+            n = min(len(plan.mask), self._cap)
+            mask[:n] = plan.mask[:n]
             # bucket-resident rows are filtered by the bucket table, not
             # the global mask
             bucket_valid = _mask_bucket_valid_body(
@@ -679,9 +695,10 @@ class IVFIndex(FlatIndex):
         # multi-assignment can surface one slot from two buckets: fetch
         # extra candidates, dedup on the host, truncate back to k
         k_fetch = k * min(self.assignments, 2)
-        common = dict(k=k_fetch, nprobe=nprobe, precision=self._precision,
-                      int8=self._is_int8, normalize=self.metric == "cosine")
-        if self._use_pallas(k):
+        common = dict(k=k_fetch, nprobe=plan.nprobe,
+                      precision=self._precision, int8=self._is_int8,
+                      normalize=self.metric == "cosine")
+        if not plan.stack and self._use_pallas(k):
             scores, slots = _ivf_query_pallas(
                 self._centroids, self._bucket_rows, bucket_valid,
                 self._bucket_slot, self._slab, valid,
@@ -693,75 +710,20 @@ class IVFIndex(FlatIndex):
                 bucket_valid, self._bucket_rows, self._bucket_scale,
                 self._residual_tensor(), self._scales, q, **common,
             )
-        with span("index.d2h"):
-            scores, slots = scores.cpu().numpy(), slots.cpu().numpy()
-        return self._finish(scores, slots, k)
+        return Pending(scores, slots, k, self._finish)
 
-    def _finish(self, scores: np.ndarray, slots: np.ndarray, k: int):
-        """Host post-processing of one batch: -1 where the score is
-        -inf, the multi-assignment dedup, the k-slice."""
-        out = np.asarray(slots, np.int64).copy()
-        out[scores == -np.inf] = -1
-        if self.assignments > 1:
-            return _dedup_rows(scores, out, k)
-        return scores[:, :k], out[:, :k]
-
-    def search_pipelined(self, qstack, k: int, materialize: bool = True):
-        """Serve a (NB, B, d) stack of query batches through the portable
-        dense scan, batch by batch (the flat pipelined path when
-        untrained). Returns (NB, B, k).
-
-        ``materialize=False`` returns a tagged in-flight handle (device
-        tensors, no synchronisation); resolve it with
-        ``resolve_pipelined`` before mutating the index."""
-        if self._needs_build():
-            with self._mu.write():
-                self._maybe_build()
-        with self._mu.read():
-            if not self.is_trained:
-                out = FlatIndex.search_pipelined(self, qstack, k,
-                                                 materialize=False)
-                return (FlatIndex.resolve_pipelined(out) if materialize
-                        else ("flat", *out))
-            q = to_tensor(qstack, self.device, torch.float32)
-            if q.ndim != 3 or q.shape[-1] != self.dim:
-                raise ValueError(
-                    f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
-                )
-            nlist = int(self._bucket_slot.shape[0])
-            residual = self._residual_tensor()
-            outs = [
-                _ivf_search(
-                    self._slab, self._valid, self._centroids,
-                    self._bucket_slot, self._bucket_valid, self._bucket_rows,
-                    self._bucket_scale, residual, self._scales, qb,
-                    k=k * min(self.assignments, 2),
-                    nprobe=min(self.nprobe, nlist),
-                    precision=self._precision, int8=self._is_int8,
-                    normalize=self.metric == "cosine",
-                )
-                for qb in q
-            ]
-            scores = torch.stack([o[0] for o in outs])
-            slots = torch.stack([o[1] for o in outs])
-            if not materialize:
-                return ("ivf", scores, slots, k)
-        return self.resolve_pipelined(("ivf", scores, slots, k))
-
-    def _finish_pipelined(self, scores, slots, k: int):
-        """``_finish`` over each batch of a (NB, B, K) result."""
-        done = [self._finish(scores[i], slots[i], k)
-                for i in range(scores.shape[0])]
-        return np.stack([d[0] for d in done]), np.stack([d[1] for d in done])
-
-    def resolve_pipelined(self, handle):
-        """Materialize an in-flight ``search_pipelined`` handle: one
-        transfer, then the host post-processing."""
-        if handle[0] == "flat":
-            return FlatIndex.resolve_pipelined(handle[1:])
-        _, scores, slots, k = handle
-        return self._finish_pipelined(scores.cpu().numpy(),
-                                      slots.cpu().numpy(), k)
+    def _finish(self, scores: np.ndarray, ids: np.ndarray, k: int):
+        """-1 where the score is -inf, then the multi-assignment dedup
+        where the scan over-fetched (only it returns more than k
+        columns)."""
+        scores, out = super()._finish(scores, ids, k)
+        width = scores.shape[-1]
+        if width <= k:
+            return scores, out
+        s, o = _dedup_rows(scores.reshape(-1, width), out.reshape(-1, width),
+                           k)
+        lead = scores.shape[:-1]
+        return s.reshape(lead + (k,)), o.reshape(lead + (k,))
 
     def tune(
         self,
@@ -775,8 +737,7 @@ class IVFIndex(FlatIndex):
         sample query set, measured against this index's own exact scan.
         Returns the achieved recall. ``exclude_slots`` (one slot per
         query) holds each query's own row out of both sides."""
-        with self._mu.write():
-            self._maybe_build()
+        self._build_if_stale()
         if not self.is_trained:
             return 1.0
         queries = self._prep(queries)
@@ -851,8 +812,7 @@ class IVFIndex(FlatIndex):
         until filtered recall@k meets ``target_recall`` (against the
         exact masked scan), or de-escalate to the smallest rung that
         still holds it. Returns the recall at the pinned factor."""
-        with self._mu.write():
-            self._maybe_build()
+        self._build_if_stale()
         if not self.is_trained:
             return 1.0
         queries = self._prep(queries)
@@ -861,7 +821,7 @@ class IVFIndex(FlatIndex):
         if sel < FILTER_EXACT_THRESHOLD:
             return 1.0  # this bin already routes to the exact masked scan
         bin_ = _boost_bin(sel)
-        _, exact = self._oracle_search_masked(queries, k, slot_mask)
+        _, exact = self._oracle_search(queries, k, slot_mask)
         exact_sets = [
             set(int(s) for s in row if s >= 0) or {-1} for row in exact
         ]
@@ -906,13 +866,16 @@ class IVFIndex(FlatIndex):
         finally:
             self.batch_flat_fallback = fallback
 
-    def _oracle_search(self, queries, k):
-        """Exact scan used as tune()'s recall oracle."""
-        return FlatIndex.search(self, queries, k)
+    def _oracle_search(self, queries, k, slot_mask=None):
+        """The flat route, whatever the plan: tune()'s and
+        tune_filtered()'s recall oracle."""
+        queries = self._prep(queries)
+        with self._mu.read():
+            plan = Plan(exact=True, mask=self._row_mask(slot_mask))
+            return self.resolve_pipelined(self._enqueue(queries, k, plan))
 
-    def _oracle_search_masked(self, queries, k, slot_mask):
-        """Exact masked scan used as tune_filtered()'s oracle."""
-        return FlatIndex.search(self, queries, k, slot_mask)
+    # the JAX package's name for the masked oracle
+    _oracle_search_masked = _oracle_search
 
     # -- persistence ---------------------------------------------------------
     # ``<path>.ivf.npz`` holds the trained overlay (bf16 tables as uint16

@@ -95,6 +95,7 @@ from wdbx_tpu_torch.index.clustered import (
     _clustered_search_ranges,
     _dedup_blocks,
 )
+from wdbx_tpu_torch.index.base import Pending, Plan, VectorIndex
 from wdbx_tpu_torch.index.flat import _next_pow2, to_tensor
 from wdbx_tpu_torch.index.ivf import (
     IVFIndex,
@@ -986,98 +987,31 @@ class ShardedClusteredIndex(ClusteredSlotMixin, IVFIndex, ShardedFlatIndex):
                                g, q[lo:hi], None if probe is None
                                else probe[lo:hi], *args), merge_partials)
 
-    def _pad_b(self, b: int) -> int:
+    def _pad_b(self, b: int, stack: bool = False) -> int:
         """JAX's batch width: the next power of two, rounded up to a
         multiple of the replica count (routing and the dedup length
         only; the queries are not padded)."""
         pad_b = _next_pow2(max(b, 1))
         return -(-pad_b // self.replicas) * self.replicas
 
-    @_gated
-    def search(self, queries, k, slot_mask=None):
-        if self._needs_build():
-            with self._mu.write():
-                self._maybe_build()
-        with self._mu.read():
-            if not self.is_trained:
-                scores, pos = ShardedFlatIndex.search(
-                    self, queries, k, self._pos_mask(slot_mask)
-                )
-                return self._map_pos_to_slots(scores, pos)
-            queries = self._prep(queries)
-            pad_b = self._pad_b(len(queries))
-            nlist = int(self._centroids.shape[0])
-            nprobe = min(self.nprobe, nlist)
-            pm, nprobe, use_exact = self._filter_plan(
-                slot_mask, nprobe, nlist
-            )
-            u = self._scan_u(pad_b, nprobe)
-            if use_exact or (
-                self.batch_flat_fallback
-                and u * self._c * self.n_devices >= max(1, self._size)
-            ):
-                scores, pos = ShardedFlatIndex.search(self, queries, k, pm)
-                return self._map_pos_to_slots(scores, pos)
-            # filter pushdown: the position mask, striped like the slab,
-            # ANDs into each position's validity; the block scan and the
-            # residual rows then drop filtered rows on the device
-            valids = self._valids if pm is None else self._masked_valids(pm)
-            q = to_tensor(queries, self.device, torch.float32)
-            v, i = self._query(q, k, nprobe, pad_b, valids)
-            scores, pos = ShardedFlatIndex._finish_sharded(
-                v.cpu().numpy(), i.cpu().numpy(), k)
-        return self._map_pos_to_slots(scores, pos)
+    def _scan_reads(self, plan: Plan) -> int:
+        return (self._scan_u(plan.pad_b, plan.nprobe) * self._c
+                * self.n_devices)
 
-    @_gated
-    def search_pipelined(self, qstack, k, materialize: bool = True):
-        """Serve a (NB, B, d) stack, batch by batch through the route of
-        ``search`` (no filter, no flat fallback). ``materialize=False``
-        returns an in-flight handle (device tensors, no synchronisation);
-        resolve it with ``resolve_pipelined`` before mutating the index
-        (positions map to slots at resolve time)."""
-        if self._needs_build():
-            with self._mu.write():
-                self._maybe_build()
-        with self._mu.read():
-            if not self.is_trained:
-                h = ShardedFlatIndex.search_pipelined(
-                    self, qstack, k, materialize=False
-                )
-                handle = ("sclu_flat", h)
-            else:
-                q = to_tensor(qstack, self.device, torch.float32)
-                if q.ndim != 3 or q.shape[-1] != self.dim:
-                    raise ValueError(
-                        f"query stack {tuple(q.shape)} is not "
-                        f"(NB, B, {self.dim})"
-                    )
-                pad_b = self._pad_b(q.shape[1])
-                nprobe = min(self.nprobe, int(self._centroids.shape[0]))
-                outs = [self._query(qb, k, nprobe, pad_b, self._valids)
-                        for qb in q]
-                handle = ("sclu", torch.stack([o[0] for o in outs]),
-                          torch.stack([o[1] for o in outs]), k)
-        if not materialize:
-            return handle
-        return self.resolve_pipelined(handle)
+    def _enqueue(self, queries, k: int, plan: Plan) -> Pending:
+        if plan.exact:
+            return super()._enqueue(queries, k, plan)
+        # filter pushdown: the position mask, striped like the slab,
+        # ANDs into each position's validity; the block scan and the
+        # residual rows then drop filtered rows on the device
+        valids = (self._valids if plan.mask is None
+                  else self._masked_valids(plan.mask))
+        q = to_tensor(queries, self.device, torch.float32)
+        v, i = self._query(q, k, plan.nprobe, plan.pad_b, valids)
+        return Pending(v, i, k, self._finish)
 
-    def resolve_pipelined(self, handle):
-        """Materialize an in-flight ``search_pipelined`` handle: one
-        transfer, then the position -> slot mapping."""
-        if handle[0] == "sclu_flat":  # untrained: positions
-            scores, pos = ShardedFlatIndex.resolve_pipelined(self, handle[1])
-        else:
-            _, v, i, k = handle
-            scores, pos = ShardedFlatIndex._finish_sharded(
-                v.cpu().numpy(), i.cpu().numpy(), k)
-        return self._map_pos_to_slots(scores, pos)
-
-    def _oracle_search(self, queries, k):
-        scores, pos = ShardedFlatIndex.search(self, queries, k)
-        return self._map_pos_to_slots(scores, pos)
-
-    def _exact_masked_base(self, queries, k, pos_mask):
-        return ShardedFlatIndex.search(self, queries, k, pos_mask)
+    search = _gated(VectorIndex.search)
+    search_pipelined = _gated(VectorIndex.search_pipelined)
 
     def get_vectors(self, slots: np.ndarray) -> np.ndarray:
         return ShardedFlatIndex.get_vectors(self, self._positions_of(slots))

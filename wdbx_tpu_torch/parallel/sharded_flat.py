@@ -92,7 +92,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from wdbx_tpu_torch.index.base import VectorIndex
+from wdbx_tpu_torch.index.base import Pending, Plan, VectorIndex
 from wdbx_tpu_torch.index.flat import (
     FlatIndex,
     _next_pow2,
@@ -858,56 +858,22 @@ class ShardedFlatIndex(FlatIndex):
             out_i[..., lo:hi, :] = mi.reshape(v.shape[:-2] + (kk,))
         return out_v, out_i
 
-    @staticmethod
-    def _finish_sharded(scores: np.ndarray, slots: np.ndarray, k: int):
-        """Host post-processing shared by every sharded path: k-pad (k
-        can exceed the capacity) and -1 wherever the score is -inf."""
-        scores = np.asarray(scores, np.float32)
-        out = np.asarray(slots, np.int64).copy()
-        if scores.shape[-1] < k:
-            pad = [(0, 0)] * (scores.ndim - 1) + [(0, k - scores.shape[-1])]
-            scores = np.pad(scores, pad, constant_values=-np.inf)
-            out = np.pad(out, pad, constant_values=-1)
-        out[scores == -np.inf] = -1
-        return scores, out
+    def _enqueue(self, queries, k: int, plan: Plan) -> Pending:
+        """The flat route over the mesh (``_mesh_search``), under
+        ``plan.mask``."""
+        valids = (self._valids if plan.mask is None
+                  else self._masked_valids(plan.mask))
+        v, i = self._mesh_search(to_tensor(queries, self.device)[None], k,
+                                 valids)
+        return Pending(v[0], i[0], k, self._finish)
 
-    def search(
-        self,
-        queries,
-        k: int,
-        slot_mask: np.ndarray | None = None,
-    ) -> tuple[np.ndarray, np.ndarray]:
-        queries = self._prep(queries)
-        with self._mu.read():
-            valids = (self._valids if slot_mask is None
-                      else self._masked_valids(slot_mask))
-            q = to_tensor(queries, self.device)
-            v, i = self._mesh_search(q[None], k, valids)
-            scores, slots = v[0].cpu().numpy(), i[0].cpu().numpy()
-        return self._finish_sharded(scores, slots, k)
-
-    def search_pipelined(self, qstack, k: int, materialize: bool = True):
-        """Serve a (NB, B, d) stack: on the card one stage-1 launch a
-        shard over all NB*B queries and one merge. ``materialize=False``
-        returns an in-flight handle (device tensors, no synchronisation);
-        resolve it with ``resolve_pipelined`` before mutating the index."""
-        q = to_tensor(qstack, self.device)
-        if q.ndim != 3 or q.shape[-1] != self.dim:
-            raise ValueError(
-                f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
-            )
-        with self._mu.read():
-            v, i = self._mesh_search(q, k, self._valids)
-        handle = ("sflat", v, i, k)
-        if not materialize:
-            return handle
-        return self.resolve_pipelined(handle)
-
-    def resolve_pipelined(self, handle):
-        """Materialize an in-flight ``search_pipelined`` handle."""
-        _, v, i, k = handle
-        return ShardedFlatIndex._finish_sharded(v.cpu().numpy(),
-                                                i.cpu().numpy(), k)
+    def _enqueue_stack(self, q: torch.Tensor, k: int, plan: Plan) -> Pending:
+        """The flat route's stack: on the card one stage-1 launch a shard
+        over all NB*B queries and one merge; k columns."""
+        if not plan.exact:
+            return super()._enqueue_stack(q, k, plan)
+        v, i = self._mesh_search(q, k, self._valids)
+        return Pending(v, i, k, self._finish)
 
     # -- live re-meshing --------------------------------------------------------
     def _check_topology(self, mesh: Mesh) -> None:

@@ -47,10 +47,10 @@ slots, merges them to ``(B, k)`` and merges once more across the ranks
 merge's sets, except at ties. A rank holding no position holds no table
 (the tables' shapes stay host state on every rank) and joins each
 collective with an empty block. The filtered and fallback routes are
-``ShardedFlatIndex.search``'s. Checkpoints keep JAX's ``.ivf.npz``: its
-tables gather on rank 0 (npz backend), or each rank writes its shards'
-bucket rows into its own per-position files, the gathered slot and
-validity tables staying in the ``.ivf.npz`` (``persist_backend=
+``ShardedFlatIndex``'s flat route. Checkpoints keep JAX's ``.ivf.npz``:
+its tables gather on rank 0 (npz backend), or each rank writes its
+shards' bucket rows into its own per-position files, the gathered slot
+and validity tables staying in the ``.ivf.npz`` (``persist_backend=
 "orbax"``).
 """
 
@@ -62,6 +62,7 @@ import math
 import numpy as np
 import torch
 
+from wdbx_tpu_torch.index.base import Pending, Plan
 from wdbx_tpu_torch.index.flat import (
     _next_pow2,
     slab_from_numpy,
@@ -70,10 +71,8 @@ from wdbx_tpu_torch.index.flat import (
 )
 from wdbx_tpu_torch.index.ivf import (
     _SCAN_CHUNK_BYTES,
-    FILTER_EXACT_THRESHOLD,
     IVFIndex,
     _capped_placement,
-    _filter_boost,
     _mask_bucket_valid_body,
     _pack_slot_positions,
     _scores_of,
@@ -320,55 +319,41 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
             8, int(math.ceil(bp / self.n_devices * self.quota_slack))
         ))
 
-    def search(self, queries, k, slot_mask=None):
-        if self._needs_build():
-            with self._mu.write():
-                self._maybe_build()
-        with self._mu.read():
-            return self._sharded_ivf_search(queries, k, slot_mask)
+    def _pad_b(self, b: int, stack: bool = False) -> int:
+        """JAX's batch width: a blocking batch pads to a power of two
+        with zero queries, whose probes take quota slots on the padded
+        batch; JAX's stack program runs each batch at its own width."""
+        return b if stack else _next_pow2(max(b, 1))
 
-    def _sharded_ivf_search(self, queries, k, slot_mask):
-        if not self.is_trained:
-            return ShardedFlatIndex.search(self, queries, k, slot_mask)
-        queries = self._prep(queries)
-        b = len(queries)
-        pad_b = _next_pow2(max(b, 1))
-        nlist = self._local_nlist * self.n_devices
-        cap_b = self._table_shape[1]
-        nprobe = min(self.nprobe, nlist)
+    def _scan_reads(self, plan: Plan) -> int:
+        return plan.pad_b * plan.nprobe * self._table_shape[1]
+
+    def _enqueue(self, queries, k: int, plan: Plan) -> Pending:
+        if plan.exact:
+            return super()._enqueue(queries, k, plan)
         bucket_valid, valids = self._bucket_valid, self._valids
-        if slot_mask is not None:
+        if plan.mask is not None:
             # filter pushdown: AND the mask into each shard's bucket
             # validity (bucket-resident rows) and into the striped row
-            # validity (residual leg); boost nprobe so the thinned buckets
-            # still surface ~k matches. Very sparse filters take the exact
-            # masked flat path instead.
-            sel = self._mask_selectivity(slot_mask)
-            if sel < FILTER_EXACT_THRESHOLD:
-                return ShardedFlatIndex.search(self, queries, k, slot_mask)
-            nprobe = min(
-                nlist, nprobe * _filter_boost(sel, self._filter_boosts)
-            )
+            # validity (residual leg); the plan boosted nprobe so the
+            # thinned buckets still surface ~k matches
             mask = np.zeros(self._cap, bool)
-            n = min(len(slot_mask), self._cap)
-            mask[:n] = slot_mask[:n]
+            n = min(len(plan.mask), self._cap)
+            mask[:n] = plan.mask[:n]
             bucket_valid = [
                 None if bv is None else _mask_bucket_valid_body(
                     bv, bs, torch.from_numpy(mask).to(bv.device))
                 for bv, bs in zip(self._bucket_valid, self._bucket_slot)
             ]
-            valids = self._masked_valids(slot_mask)
-        if self.batch_flat_fallback and (
-            pad_b * nprobe * cap_b >= max(1, self._size)
-        ):
-            return ShardedFlatIndex.search(self, queries, k, slot_mask)
-        q = torch.zeros((pad_b, self.dim), dtype=torch.float32,
+            valids = self._masked_valids(plan.mask)
+        b = len(queries)
+        q = torch.zeros((plan.pad_b, self.dim), dtype=torch.float32,
                         device=self.device)
         q[:b] = to_tensor(queries, self.device, torch.float32)
-        v, i = self._ivf_query(q, k, nprobe, self._quota(pad_b * nprobe),
+        v, i = self._ivf_query(q, k, plan.nprobe,
+                               self._quota(plan.pad_b * plan.nprobe),
                                bucket_valid, valids)
-        return self._finish_sharded(v[:b].cpu().numpy(), i[:b].cpu().numpy(),
-                                    k)
+        return Pending(v[:b], i[:b], k, self._finish)
 
     def _ivf_query(self, q, k, nprobe, quota, bucket_valid, valids):
         """One batch ``q`` (B, d) through every shard: sorted ``(B, k')``
@@ -479,43 +464,6 @@ class ShardedIVFIndex(IVFIndex, ShardedFlatIndex):
                 outs_s.append(torch.gather(
                     self._bucket_slot[s][bk].to(torch.int64), 1, i))
         return torch.cat(outs_v), torch.cat(outs_s)
-
-    def search_pipelined(self, qstack, k, materialize: bool = True):
-        """(NB, B, d) stack through the sharded cluster query, batch by
-        batch (the flat pipelined path when untrained).
-        ``materialize=False`` returns an in-flight handle; resolve it
-        with ``resolve_pipelined`` before mutating the index."""
-        if self._needs_build():
-            with self._mu.write():
-                self._maybe_build()
-        with self._mu.read():
-            if not self.is_trained:
-                return ShardedFlatIndex.search_pipelined(
-                    self, qstack, k, materialize=materialize
-                )
-            q = to_tensor(qstack, self.device, torch.float32)
-            if q.ndim != 3 or q.shape[-1] != self.dim:
-                raise ValueError(
-                    f"query stack {tuple(q.shape)} is not (NB, B, {self.dim})"
-                )
-            nprobe = min(self.nprobe, self._local_nlist * self.n_devices)
-            quota = self._quota(q.shape[1] * nprobe)
-            outs = [self._ivf_query(qb, k, nprobe, quota, self._bucket_valid,
-                                    self._valids) for qb in q]
-            handle = ("sivf", torch.stack([o[0] for o in outs]),
-                      torch.stack([o[1] for o in outs]), k)
-        if not materialize:
-            return handle
-        return self.resolve_pipelined(handle)
-
-    # both engines' handles resolve alike (IVFIndex's would shadow it)
-    resolve_pipelined = ShardedFlatIndex.resolve_pipelined
-
-    def _oracle_search(self, queries, k):
-        return ShardedFlatIndex.search(self, queries, k)
-
-    def _oracle_search_masked(self, queries, k, slot_mask):
-        return ShardedFlatIndex.search(self, queries, k, slot_mask)
 
     # -- persistence ------------------------------------------------------------
     # IVFIndex.save / load: the slab through ShardedFlatIndex's npz or
